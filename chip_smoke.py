@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's density replay on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's density replay and serving seam on one NVIDIA
+GPU and check them.
 
 Run from the repository root:
 
@@ -11,11 +12,14 @@ csrc`` and prints one JSON object per phase:
 1. ``device``   the card (``nvidia-smi`` name and power limit), torch and
                 CUDA versions, the kernels' build time.
 2. ``kernels``  each kernel against its plain PyTorch version on the card
-                at P=128, N=5120, with ``use_bfloat16`` off and on: masks
-                identical, feasible scores within rtol=atol=1e-4, on a
-                stream batch and on a dense seeded traffic matrix; kernel,
-                plain, bound and library-yardstick times.
-3. ``main``     the main path: a 65,536-pod density backlog on 5,120 nodes
+                at P=128, N=5120, with ``use_bfloat16`` off and on, on a
+                stream batch and on a dense seeded traffic matrix: masks
+                identical and scores within rtol=atol=1e-4; the winner's
+                ``best`` within the same bar, its ``node`` identical on
+                every row whose plain top-two gap exceeds it, and both
+                identical to ``winner_from_scores`` of the masked kernel;
+                kernel, plain, bound and library-yardstick times.
+3. ``main``     the density replay: a 65,536-pod backlog on 5,120 nodes
                 (bench.py's shape) through ``replay_stream`` with the
                 kernel backend, then Score/Filter answers
                 (``score_pods_auto``) for a few pending batches against the
@@ -25,19 +29,38 @@ csrc`` and prints one JSON object per phase:
                 allows.
 4. ``parity``   the first 16 batches replayed at f32 through the kernel
                 path and the dense torch path: identical assignments.
+5. ``serve``    the serving seam: a generated 5,120-node cluster through
+                the ``Encoder``, then 64 batches of 128 pods, each encoded
+                (peers resolved against the pods placed so far),
+                snapshotted, given an incremental static prep, answered by
+                the fused winner (``score_winner_auto``), placed by
+                ``fused_schedule_step`` with its state digest and committed
+                back into the encoder, with link and metric churn every 8
+                batches.  Fails unless the winner kernel ran once per
+                batch and agrees with the two-stage winner, the fused step
+                equals ``assign_parallel`` + ``commit_assignments``, every
+                digest equals the host digest of the state, every
+                incremental prep equals a full one, the final snapshot
+                equals ``expected_device_arrays()``, no node exceeds its
+                capacity, and a batch with live nodeAffinity terms takes
+                the masked kernel instead of the winner.  Then
+                ``measure_device_latency`` at the same size.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Any failed check exits nonzero.  Without
-a CUDA device it exits 2 before printing any result.
+``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
+phase still runs, and the script then exits 1 without the last line.
+Without a CUDA device it exits 2 before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -46,6 +69,7 @@ SEED = 0
 NODES, PODS, BATCH, PEERS = 5120, 65536, 128, 4
 ANSWER_BATCHES = 8
 PARITY_BATCHES = 16
+SERVE_PODS, SERVE_BATCHES, CHURN_EVERY = 8192, 64, 8
 TOL = 1e-4
 # Published H100 rates by part (memory bytes/s, f32 FLOP/s without tensor
 # cores); the card's name picks the row.
@@ -57,9 +81,43 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+class CheckFailed(Exception):
+    """A check of a phase failed; :func:`run_phase` reports it."""
+
+
+FAILED: list[str] = []
+
+
 def fail(phase: str, msg: str) -> None:
-    emit({"phase": phase, "ok": False, "error": msg})
-    raise SystemExit(1)
+    raise CheckFailed(f"{phase}: {msg}")
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase; a failed check or an error fails the phase (one
+    ``{"phase": name, "ok": false}`` line) and the next phase runs."""
+    try:
+        return fn(*args)
+    except CheckFailed as exc:
+        emit({"phase": name, "ok": False, "error": str(exc)})
+    except Exception:  # noqa: BLE001 - report it, then run the next phase
+        emit({"phase": name, "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+    FAILED.append(name)
+    return None
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block are checks, not the path: every kernel
+    count is restored on exit."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+
+    saved = {name: fn.launches for name, fn in K.KERNELS.items()}
+    try:
+        yield
+    finally:
+        for name, fn in K.KERNELS.items():
+            fn.launches = saved[name]
 
 
 def nvidia_smi() -> str:
@@ -180,6 +238,51 @@ def compare_kernels(pack, st, groups, pp, bf16, label):
     return err_s, err_m
 
 
+def canonical_bits(best: torch.Tensor) -> torch.Tensor:
+    """The bits of ``best`` with -0.0 read as +0.0 (the winner key packs
+    the two as one value, as ``==`` does)."""
+    return (best + 0.0).view(torch.int32)
+
+
+def compare_winner(pack, st, groups, pp, bf16, label):
+    """The winner kernel against its plain version (``best`` within
+    rtol=atol=TOL, ``node`` identical on every row whose plain top-two gap
+    exceeds the allclose bar) and against ``winner_from_scores`` of the
+    masked kernel on the card (identical).  Returns the max abs error of
+    ``best`` and the number of rows whose node was held to the plain
+    version."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core.score import (
+        winner_from_scores,
+    )
+
+    args = (pack, st.used, st.cap, groups, st.resident_anti, pp, bf16)
+    best_k, node_k = K.winner_tile_scores(*args)
+    scores_p = K.masked_tile_scores_plain(*args)
+    best_p, node_p = winner_from_scores(scores_p)
+    best_m, node_m = winner_from_scores(K.masked_tile_scores(*args))
+    torch.cuda.synchronize()
+    where = f"({label}, bf16={bf16})"
+    if not torch.allclose(best_k, best_p, rtol=TOL, atol=TOL):
+        fail("kernels", f"winner best differs {where}: "
+             f"{float((best_k - best_p).abs().max())}")
+    # A row's node is held to the plain one where its top-two gap exceeds
+    # the allclose bar at the best's magnitude: closer rows may rank
+    # either way within the bar.
+    top2 = scores_p.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > TOL + TOL * top2[:, 0].abs()
+    if not torch.equal(node_k[clear], node_p[clear]):
+        fail("kernels", f"winner node differs from the plain version "
+             f"{where}: {int((node_k[clear] != node_p[clear]).sum())} rows")
+    if not (torch.equal(node_k, node_m)
+            and torch.equal(canonical_bits(best_k), canonical_bits(best_m))):
+        fail("kernels", f"winner kernel differs from winner_from_scores of "
+             f"the masked kernel {where}")
+    if not bool((node_k >= 0).any()):
+        fail("kernels", f"winner kernel found no feasible node {where}")
+    return float((best_k - best_p).abs().max()), int(clear.sum())
+
+
 def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
     from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
@@ -210,14 +313,22 @@ def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
     masked_bytes = (pod_in + node_in + p * n * 4
                     + nbytes(pp.req, pp.affinity, pp.anti, pp.group_bit,
                              st.resident_anti, st.used, st.cap))
+    # The winner reads what the masked kernel reads and writes 8 bytes
+    # per pod instead of the P x N plane.
+    winner_bytes = masked_bytes - p * n * 4 + p * 8
     # Yardstick: one library product of T with a precomputed Cᵀ.
     c_t = K.desirability_plain(pack).T.contiguous()
+    wargs = (pack, st.used, st.cap, groups, st.resident_anti, pp)
     results = {}
     for bf16 in (False, True):
         err_s, err_m = compare_kernels(pack, st, groups, pp, bf16,
                                        "stream batch")
         dense_s, dense_m = compare_kernels(pack, st, groups, dense, bf16,
                                            "dense T")
+        err_w, clear_w = compare_winner(pack, st, groups, pp, bf16,
+                                        "stream batch")
+        dense_w, dense_clear_w = compare_winner(pack, st, groups, dense,
+                                                bf16, "dense T")
         if bf16:
             t_l, c_l = pp.t.to(torch.bfloat16), c_t.to(torch.bfloat16)
         else:
@@ -235,7 +346,11 @@ def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
                  lambda: K.masked_tile_scores_plain(
                      pack, st.used, st.cap, groups, st.resident_anti, pp,
                      bf16),
-                 masked_bytes, err_m, dense_m)):
+                 masked_bytes, err_m, dense_m),
+                ("winner_scores_kernel",
+                 lambda: K.winner_tile_scores(*wargs, bf16),
+                 lambda: K.winner_tile_scores_plain(*wargs, bf16),
+                 winner_bytes, err_w, dense_w)):
             t_bytes, t_ops = nb / mem_bw * 1e3, ops / f32_peak * 1e3
             row[name] = {
                 "max_abs_err": err, "dense_t_max_abs_err": dense_err,
@@ -245,6 +360,8 @@ def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nb, "ops": ops, "dense_ops": dense_ops,
                 "dense_ops_ms": dense_ops / f32_peak * 1e3}
+        row["winner_scores_kernel"].update(
+            node_rows_held=clear_w, dense_t_node_rows_held=dense_clear_w)
         results["bf16" if bf16 else "f32"] = row
         emit({"phase": "kernels", "ok": True, "use_bfloat16": bf16,
               "p": p, "n": n, "nnz_t": nnz, "peak_bytes_per_s": mem_bw,
@@ -369,6 +486,252 @@ def phase_parity(state, stream, cfg):
     return info
 
 
+def churn(enc, names, rng, sample_metrics) -> None:
+    """A probe and scrape tick: four links re-measured, eight nodes'
+    metrics re-sampled, so the next snapshot and static prep take their
+    delta paths."""
+    for _ in range(4):
+        i, j = rng.choice(len(names), 2, replace=False)
+        enc.update_link(names[int(i)], names[int(j)],
+                        lat_ms=float(rng.uniform(0.1, 2.0)),
+                        bw_bps=float(rng.uniform(1e9, 25e9)))
+    for i in rng.choice(len(names), 8, replace=False):
+        enc.update_metrics(names[int(i)], sample_metrics(rng))
+
+
+def phase_serve():
+    from kubernetesnetawarescheduler_tpu_torch.bench.density import (
+        measure_device_latency,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        WorkloadSpec,
+        build_fake_cluster,
+        feed_metrics,
+        generate_workload,
+        sample_metrics,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core.assign import (
+        assign_parallel,
+        fused_schedule_step,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
+    from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
+        host_plane_digest_vector,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.kernels import StaticPack
+    from kubernetesnetawarescheduler_tpu_torch.core.score import (
+        _EPS,
+        winner_from_scores,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.state import (
+        commit_assignments,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.tiled_score import (
+        compute_assign_static,
+        compute_assign_static_incremental,
+        compute_static,
+        score_pods_auto,
+        score_winner_auto,
+        winner_joins_active,
+    )
+
+    errors: list[str] = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    def planes_equal(a, b) -> bool:
+        """Bit for bit (``node_numeric`` holds NaN, which == never
+        matches)."""
+        def same(x, y):
+            return (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x.contiguous().view(torch.uint8),
+                                    y.contiguous().view(torch.uint8)))
+        return all(same(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+
+    def over_capacity(s) -> int:
+        over = (s.used > s.cap + _EPS).any(dim=1) & s.node_valid
+        return int(over.sum())
+
+    # bench.py's serving shape at its default precision (bf16 inputs).
+    cfg = SchedulerConfig(max_nodes=NODES, max_pods=BATCH, max_peers=PEERS,
+                          score_backend="pallas")
+    t0 = time.perf_counter()
+    cluster, lat, bw = build_fake_cluster(ClusterSpec(num_nodes=NODES,
+                                                      seed=SEED))
+    enc = Encoder(cfg, device="cuda")
+    for node in cluster.list_nodes():
+        enc.upsert_node(node)
+    enc.set_network(lat, bw)
+    rng = np.random.default_rng(SEED + 3)
+    feed_metrics(cluster, enc, rng)
+    pods = generate_workload(
+        WorkloadSpec(num_pods=SERVE_PODS, seed=SEED + 5, services=8,
+                     peer_fraction=0.5, affinity_fraction=0.1,
+                     anti_fraction=0.1),
+        scheduler_name=cfg.scheduler_name)
+    setup_s = time.perf_counter() - t0
+    names = enc.known_node_names()
+    placed: dict[str, str] = {}
+
+    def node_of(name: str) -> str:
+        return placed.get(name, "")
+
+    stages = ("encode", "snapshot", "static", "winner", "fused", "commit")
+    ms = {k: [] for k in stages}
+    rounds_all, delta_batches, peers_resolved = [], 0, 0
+    static = ex = ver = score_static = score_ver = None
+
+    def timed(stage, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[stage].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    K.reset_launch_counts()
+    for b in range(SERVE_BATCHES):
+        if b and b % CHURN_EVERY == 0:
+            churn(enc, names, rng, sample_metrics)
+        chunk = pods[b * BATCH:(b + 1) * BATCH]
+        batch = timed("encode", lambda: enc.encode_pods(chunk, node_of,
+                                                        lenient=True))
+        state, v = timed("snapshot", enc.snapshot_versioned)
+
+        def prep():
+            nonlocal static, ex, score_static, score_ver
+            dirty = None if ver is None else enc.static_delta_since(ver)
+            static, ex = compute_assign_static_incremental(
+                state, cfg, static, ex, dirty)
+            if score_ver != v:
+                score_static, score_ver = compute_static(state, cfg), v
+            return dirty
+
+        dirty = timed("static", prep)
+        delta_batches += bool(dirty and dirty.get("net_pairs")
+                              and not dirty.get("topo"))
+        ver = v
+        best, node = timed("winner", lambda: score_winner_auto(
+            state, batch, cfg, score_static))
+        new_state, a, rounds, digest = timed(
+            "fused", lambda: fused_schedule_step(state, batch, cfg, static,
+                                                 with_digest=True))
+
+        def commit():
+            a_host = a.cpu().numpy()
+            hit = [i for i in range(len(chunk)) if a_host[i] >= 0]
+            enc.commit_many([chunk[i] for i in hit],
+                            [int(a_host[i]) for i in hit])
+            placed.update({chunk[i].name: enc.node_name(int(a_host[i]))
+                           for i in hit})
+
+        timed("commit", commit)
+        rounds_all.append(int(rounds))
+        peers_resolved += int((batch.peers >= 0).sum())
+
+        with uncounted():
+            full = compute_assign_static(state, cfg)
+            check(isinstance(static, StaticPack) and planes_equal(static,
+                                                                  full),
+                  f"batch {b}: incremental static prep differs from a "
+                  "full one")
+            wb, wn = winner_from_scores(score_pods_auto(state, batch, cfg,
+                                                        score_static))
+            check(torch.equal(node, wn) and torch.equal(best, wb),
+                  f"batch {b}: fused winner differs from the two-stage "
+                  f"winner on {int((node != wn).sum())} pods")
+            a2 = assign_parallel(state, batch, cfg, static)
+            s2 = commit_assignments(state, batch, a2)
+            check(torch.equal(a, a2) and planes_equal(new_state, s2),
+                  f"batch {b}: fused step differs from assign_parallel + "
+                  "commit_assignments")
+            want = host_plane_digest_vector(new_state.numpy())
+            got = digest.cpu().numpy().view(np.uint32)
+            check(np.array_equal(got, want),
+                  f"batch {b}: device digest differs from the host digest "
+                  f"on planes {np.flatnonzero(got != want).tolist()}")
+            check(over_capacity(new_state) == 0,
+                  f"batch {b}: {over_capacity(new_state)} nodes over "
+                  "capacity")
+
+    final = enc.snapshot()
+    expected = enc.expected_device_arrays()
+    for name, arr in expected.items():
+        got = getattr(final, name).cpu().numpy()
+        want = arr.view(np.int32) if arr.dtype == np.uint32 else arr
+        check(got.dtype == want.dtype and got.tobytes() == want.tobytes(),
+              f"final snapshot plane {name} differs from "
+              "expected_device_arrays()")
+    check(over_capacity(final) == 0,
+          f"final snapshot: {over_capacity(final)} nodes over capacity")
+
+    # One batch with live nodeAffinity terms: an out-of-kernel join, so
+    # the fused winner must take the two-stage masked-kernel path.
+    ns_pods = generate_workload(
+        WorkloadSpec(num_pods=BATCH, seed=SEED + 6, services=8,
+                     peer_fraction=0.5, ns_fraction=0.5),
+        scheduler_name=cfg.scheduler_name)
+    ns_batch = enc.encode_pods(ns_pods, node_of, lenient=True)
+    ns_state = enc.snapshot()
+    joins = winner_joins_active(ns_state, ns_batch)
+    check(joins, "the nodeAffinity batch shows no live out-of-kernel join")
+    before = {n: fn.launches for n, fn in K.KERNELS.items()}
+    ns_best, ns_node = score_winner_auto(ns_state, ns_batch, cfg)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in K.KERNELS.items()}
+    check(launches["winner_scores_kernel"] == before["winner_scores_kernel"]
+          and launches["masked_scores_kernel"]
+          == before["masked_scores_kernel"] + 1,
+          "the nodeAffinity batch did not take the masked kernel alone")
+    check(bool((ns_node >= 0).any()),
+          "the nodeAffinity batch found no feasible node")
+
+    check(launches["winner_scores_kernel"] == SERVE_BATCHES,
+          f"winner kernel launched {launches['winner_scores_kernel']} "
+          f"times for {SERVE_BATCHES} batches")
+    check(launches["static_scores_kernel"] == SERVE_BATCHES,
+          f"static kernel launched {launches['static_scores_kernel']} "
+          f"times for {SERVE_BATCHES} fused steps")
+    check(delta_batches > 0, "no batch took the static delta path")
+    check(peers_resolved > 0, "no peer resolved to a placed pod")
+
+    wall_ms = sum(sum(v) for v in ms.values())
+    scheduled = len(placed)
+    info = {
+        "phase": "serve", "nodes": NODES, "batch": BATCH,
+        "batches": SERVE_BATCHES, "pods": SERVE_BATCHES * BATCH,
+        "scheduled": scheduled, "setup_s": setup_s,
+        "pods_per_s": scheduled / (wall_ms / 1e3),
+        "batch_host_ms": {k: {"p50": float(np.percentile(v, 50)),
+                              "p99": float(np.percentile(v, 99)),
+                              "mean": float(np.mean(v))}
+                          for k, v in ms.items()},
+        "rounds": {"mean": float(np.mean(rounds_all)),
+                   "max": int(max(rounds_all))},
+        "peers_resolved": peers_resolved,
+        "static_delta_batches": delta_batches,
+        "snapshot_full_bytes_total": enc.snapshot_full_bytes_total,
+        "snapshot_delta_bytes_total": enc.snapshot_delta_bytes_total,
+        "launches": launches, "ns_batch_joins_active": joins,
+    }
+    lat_res = measure_device_latency(NODES, BATCH, reps=10)
+    info["device_latency"] = {
+        k: lat_res[k] for k in ("p50_ms", "p99_ms", "max_ms", "reps",
+                                "scan_k", "static_prep_ms", "p99_source",
+                                "winner_fusion")}
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("serve", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -380,28 +743,42 @@ def main() -> int:
     from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
 
-    dev_info = phase_device()
-    name = dev_info["device_name"]
+    run_phase("device", phase_device)
+    name = torch.cuda.get_device_name(0)
     mem_bw, f32_peak = peaks(name)
     # bench.py's density shape at its default precision (bf16 inputs).
     cfg = SchedulerConfig(max_nodes=NODES, max_pods=BATCH, max_peers=PEERS,
                           score_backend="pallas")
-    t0 = time.perf_counter()
-    state, stream = synthetic_density(NODES, PODS, cfg, seed=SEED,
-                                      device="cuda")
-    torch.cuda.synchronize()
-    emit({"phase": "generate", "ok": True, "nodes": NODES,
-          "pods": int(stream.pod_valid.sum()),
-          "seconds": time.perf_counter() - t0})
-    kres = phase_kernels(state, stream, cfg, mem_bw, f32_peak)
-    main_res = phase_main(state, stream, cfg)
-    phase_parity(state, stream, cfg)
+
+    def generate():
+        t0 = time.perf_counter()
+        out = synthetic_density(NODES, PODS, cfg, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        emit({"phase": "generate", "ok": True, "nodes": NODES,
+              "pods": int(out[1].pod_valid.sum()),
+              "seconds": time.perf_counter() - t0})
+        return out
+
+    state, stream = run_phase("generate", generate) or (None, None)
+    kres = run_phase("kernels", phase_kernels, state, stream, cfg, mem_bw,
+                     f32_peak)
+    main_res = run_phase("main", phase_main, state, stream, cfg)
+    run_phase("parity", phase_parity, state, stream, cfg)
+    serve_res = run_phase("serve", phase_serve)
+    if FAILED:
+        emit({"failed_phases": FAILED})
+        return 1
     prec = "bf16" if cfg.use_bfloat16 else "f32"
-    replaces = {
-        "static_scores_kernel":
-            "kubernetesnetawarescheduler_tpu/core/pallas_score.py:278",
-        "masked_scores_kernel":
-            "kubernetesnetawarescheduler_tpu/core/pallas_score.py:193"}
+    src = "kubernetesnetawarescheduler_tpu/core/pallas_score.py"
+    replaces = {"static_scores_kernel": f"{src}:278",
+                "masked_scores_kernel": f"{src}:193",
+                "winner_scores_kernel": f"{src}:217"}
+    # Each kernel's launches on the path it belongs to: the replay for
+    # the static and the answer kernel, the serving seam for the winner.
+    path_of = {"static_scores_kernel": "main",
+               "masked_scores_kernel": "main",
+               "winner_scores_kernel": "serve"}
+    by_path = {"main": main_res["launches"], "serve": serve_res["launches"]}
     rows = []
     for kname in K.KERNELS:
         r = kres[prec][kname]
@@ -410,7 +787,8 @@ def main() -> int:
             "source": "kubernetesnetawarescheduler_tpu_torch/csrc/"
                       "tiled_score.cu",
             "replaces": replaces[kname],
-            "launches": main_res["launches"][kname],
+            "launches": by_path[path_of[kname]][kname],
+            "launches_by_path": {p: c[kname] for p, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

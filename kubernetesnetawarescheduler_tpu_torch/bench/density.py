@@ -14,16 +14,34 @@ bits directly into the mask layout instead of interning labels:
   labels, and this workload selects none.
 
 :func:`measure_replay` runs the replay on the card and times it.
+
+:func:`measure_device_latency` times the serving seam's per-batch
+decision (``assign_parallel`` + ``commit_assignments``, and the fused
+step beside it) on a cluster built the way the serving loop builds it:
+``bench/fakecluster.py`` nodes through the :class:`~..core.encode.Encoder`.
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import numpy as np
 import torch
 
+from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+    ClusterSpec,
+    WorkloadSpec,
+    build_fake_cluster,
+    feed_metrics,
+    generate_workload,
+)
 from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+from kubernetesnetawarescheduler_tpu_torch.core.assign import (
+    assign_parallel,
+    fused_schedule_step,
+)
+from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
 from kubernetesnetawarescheduler_tpu_torch.core.replay import (
     PodStream,
     fold_stream,
@@ -33,8 +51,13 @@ from kubernetesnetawarescheduler_tpu_torch.core.replay import (
 )
 from kubernetesnetawarescheduler_tpu_torch.core.state import (
     ClusterState,
+    commit_assignments,
     resolve_device,
+    round_up,
     state_from_numpy,
+)
+from kubernetesnetawarescheduler_tpu_torch.core.tiled_score import (
+    compute_assign_static,
 )
 
 # bench/fakecluster.py ClusterSpec defaults.
@@ -202,3 +225,188 @@ def measure_replay(state: ClusterState, stream: PodStream,
         pods_per_s=valid / wall,
         p50_ms=float(np.percentile(batch_ms, 50)),
         p99_ms=float(np.percentile(batch_ms, 99)))
+
+
+def _percentile(samples, q: float) -> float:
+    ordered = sorted(samples)
+    if not ordered:
+        return 0.0
+    rank = min(len(ordered) - 1,
+               max(0, int(round(q / 100.0 * (len(ordered) - 1)))))
+    return float(ordered[rank])
+
+
+def _percentile_ms(samples, q: float) -> float:
+    return _percentile(samples, q) * 1e3
+
+
+def card(dev: torch.device) -> dict:
+    """The device a measurement ran on: the torch name and, on a card,
+    ``nvidia-smi``'s name and power limit line."""
+    if dev.type != "cuda":
+        return {"device_name": str(dev), "nvidia_smi": None}
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return {"device_name": torch.cuda.get_device_name(dev),
+            "nvidia_smi": out.stdout.strip().splitlines()[0]}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _throwaway_encoder(num_nodes: int, seed: int, cfg: SchedulerConfig,
+                       device="cuda") -> Encoder:
+    """An encoder holding a generated cluster, built as the serving loop
+    builds it: ``build_fake_cluster`` → ``upsert_node`` for each node →
+    ``set_network`` → ``feed_metrics``."""
+    cluster, lat, bw = build_fake_cluster(
+        ClusterSpec(num_nodes=num_nodes, seed=seed + 999))
+    encoder = Encoder(cfg, device=device)
+    for node in cluster.list_nodes():
+        encoder.upsert_node(node)
+    encoder.set_network(lat, bw)
+    feed_metrics(cluster, encoder, np.random.default_rng(seed + 2))
+    return encoder
+
+
+def measure_device_latency(num_nodes: int, batch_size: int,
+                           score_backend: str = "pallas",
+                           reps: int = 50, seed: int = 7,
+                           warmup_reps: int = 3,
+                           scan_k: int = 32,
+                           fusion_ab: bool = True,
+                           device="cuda") -> dict:
+    """Chain-amortized per-batch latency of the scheduling decision
+    (``assign_parallel`` with the precomputed static prep, then
+    ``commit_assignments``): ``scan_k`` chained steps, each committing
+    into the state the next one scores, then one synchronize; the wall
+    time divided by ``scan_k`` is one sample, percentiles over ``reps``
+    samples.  The JAX package runs the chain as one ``lax.scan``
+    dispatch; here each step launches its own operations and the
+    conflict loop syncs once per round, so the host's launch and sync
+    costs are part of every sample.
+
+    The batch is ``WorkloadSpec(num_pods=batch_size, seed=seed + 5,
+    services=8, peer_fraction=0.5, affinity_fraction=0.1,
+    anti_fraction=0.1)`` encoded with no placed peers, on a cluster from
+    :func:`_throwaway_encoder`.  Returns the JAX function's fields
+    (``p99_source`` names this methodology, ``backend`` the device type)
+    plus the device name and power limit."""
+    dev = resolve_device(device)
+    cfg = SchedulerConfig(max_nodes=round_up(num_nodes, 128),
+                          max_pods=batch_size, max_peers=4,
+                          score_backend=score_backend)
+    encoder = _throwaway_encoder(num_nodes, seed, cfg, dev)
+    pods = generate_workload(
+        WorkloadSpec(num_pods=batch_size, seed=seed + 5, services=8,
+                     peer_fraction=0.5, affinity_fraction=0.1,
+                     anti_fraction=0.1),
+        scheduler_name=cfg.scheduler_name)
+    batch = encoder.encode_pods(pods, node_of=lambda n: "", lenient=True)
+    state = encoder.snapshot()
+    compute_assign_static(state, cfg)  # warm-up (the first kernel build)
+    _sync(dev)
+    t0 = time.perf_counter()
+    static = compute_assign_static(state, cfg)
+    _sync(dev)
+    static_prep_ms = (time.perf_counter() - t0) * 1e3
+
+    scan_k = max(1, int(scan_k))
+
+    def chain():
+        # The same batch re-scored every step against the evolving
+        # state: each commit moves used/group_bits, which the next
+        # step's scoring reads.
+        s = state
+        for _ in range(scan_k):
+            a = assign_parallel(s, batch, cfg, static)
+            s = commit_assignments(s, batch, a)
+        _sync(dev)
+
+    for _ in range(max(1, warmup_reps)):
+        chain()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        chain()
+        times.append((time.perf_counter() - t0) / scan_k)
+    winner_fusion = (_fusion_ab_leg(state, batch, static, cfg, scan_k)
+                     if fusion_ab else None)
+    out = {
+        "p50_ms": round(_percentile_ms(times, 50), 3),
+        "p99_ms": round(_percentile_ms(times, 99), 3),
+        "max_ms": round(max(times) * 1e3, 3),
+        "reps": len(times),
+        "scan_k": scan_k,
+        "static_prep_ms": round(static_prep_ms, 3),
+        "num_nodes": num_nodes,
+        "batch_size": batch_size,
+        "score_backend": score_backend,
+        "backend": dev.type,
+        # K chained steps, one synchronize at the end, wall / K per
+        # sample.
+        "p99_source": "device_chain_amortized",
+        **card(dev),
+    }
+    if winner_fusion is not None:
+        out["winner_fusion"] = winner_fusion
+    return out
+
+
+def _fusion_ab_leg(state, batch, static, cfg, scan_k: int) -> dict:
+    """Fused-vs-unfused A/B at the per-call seam: ``scan_k`` steps of
+    :func:`~..core.assign.fused_schedule_step` against ``scan_k`` steps
+    of ``assign_parallel`` then ``commit_assignments``, each step timed
+    on its own up to a synchronize (after two warm-up steps).  torch has
+    no buffer donation, so no step donates and none can fail to:
+    ``donated`` and ``donation_failures`` are 0.  The rounds histogram
+    comes from the fused leg's round counts."""
+    dev = state.device
+    warm = 2
+
+    def unfused_leg():
+        s = state
+        samples = []
+        for i in range(scan_k + warm):
+            t0 = time.perf_counter()
+            a, _ = assign_parallel(s, batch, cfg, static, with_stats=True)
+            s = commit_assignments(s, batch, a)
+            _sync(dev)
+            if i >= warm:
+                samples.append(time.perf_counter() - t0)
+        return samples
+
+    def fused_leg():
+        s = state
+        samples, rounds = [], []
+        for i in range(scan_k + warm):
+            t0 = time.perf_counter()
+            s, _, r = fused_schedule_step(s, batch, cfg, static)
+            _sync(dev)
+            if i >= warm:
+                samples.append(time.perf_counter() - t0)
+                rounds.append(int(r))
+        return samples, rounds
+
+    fu_samples, fu_rounds = fused_leg()
+    un_samples = unfused_leg()
+    return {
+        "enabled": bool(getattr(cfg, "enable_winner_fusion", False)),
+        "donated": 0,
+        "donation_failures": 0,
+        "rounds": {
+            "p50": _percentile(fu_rounds, 50),
+            "p99": _percentile(fu_rounds, 99),
+            "max": int(max(fu_rounds, default=0)),
+        },
+        "fused_step_p50_ms": round(_percentile_ms(fu_samples, 50), 3),
+        "fused_step_p99_ms": round(_percentile_ms(fu_samples, 99), 3),
+        "unfused_step_p50_ms": round(_percentile_ms(un_samples, 50), 3),
+        "unfused_step_p99_ms": round(_percentile_ms(un_samples, 99), 3),
+        "steps_per_leg": int(scan_k),
+        "ab_source": "per_dispatch_chain",
+    }

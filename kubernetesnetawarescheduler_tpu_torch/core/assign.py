@@ -20,12 +20,17 @@ gate a Python ``if`` on a scalar (:func:`~.state.host_flag` counts both).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
 from kubernetesnetawarescheduler_tpu_torch.core import score as score_lib
 from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
+    plane_digest_vector,
+)
 from kubernetesnetawarescheduler_tpu_torch.core.score import (
     NEG_HALF,
     NEG_INF,
@@ -531,3 +536,61 @@ def schedule_batch(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
     else:
         raise ValueError(f"unknown method {method!r}")
     return assignment, commit_assignments(state, pods, assignment)
+
+
+def _assign_with_rounds(state: ClusterState, pods: PodBatch,
+                        cfg: SchedulerConfig, static, method: str):
+    if method == "greedy":
+        return assign_greedy(state, pods, cfg, static), 1
+    if method == "parallel":
+        return assign_parallel(state, pods, cfg, static, with_stats=True)
+    raise ValueError(f"unknown method {method!r}")
+
+
+def fused_schedule_step(state: ClusterState, pods: PodBatch,
+                        cfg: SchedulerConfig, static=None,
+                        method: str = "parallel",
+                        with_digest: bool = False):
+    """The whole per-batch scheduling decision as one call: score +
+    conflict resolution + usage commit.  Returns ``(new_state,
+    assignment i32[P], rounds)``, plus with ``with_digest`` the committed
+    state's per-plane digest (``integrity.plane_digest_vector``, int32
+    bits of ``u32[len(PLANES)]``) as a fourth output.  Results equal
+    :func:`schedule_batch`'s exactly (the same assigner and commit run
+    inside).  ``static`` is the backend prep from
+    :func:`~.tiled_score.compute_assign_static`.
+
+    torch has no buffer donation.  The new state shares every plane the
+    commit does not touch (the N×N ``lat``/``bw`` among them) with the
+    input, uncopied; the input stays valid, and a caller must not rely
+    on it being consumed."""
+    assignment, rounds = _assign_with_rounds(state, pods, cfg, static,
+                                             method)
+    new_state = commit_assignments(state, pods, assignment)
+    if with_digest:
+        return new_state, assignment, rounds, plane_digest_vector(new_state)
+    return new_state, assignment, rounds
+
+
+def fused_schedule_window(state: ClusterState, pods_window: PodBatch,
+                          cfg: SchedulerConfig, static=None,
+                          method: str = "parallel"):
+    """K fused per-batch steps in one call: ``pods_window`` is a
+    :class:`~.state.PodBatch` whose every field carries a leading window
+    axis ``[K, P, ...]``; each step is the :func:`fused_schedule_step`
+    body with the committed state threaded into the next.  Returns
+    ``(new_state, assignment i32[K, P], rounds i32[K])``.  Peers are node
+    indices, already resolved.  The untouched planes are shared with the
+    input, as in :func:`fused_schedule_step`."""
+    if method not in ("greedy", "parallel"):
+        raise ValueError(f"unknown method {method!r}")
+    assignments, rounds = [], []
+    for k in range(pods_window.req.shape[0]):
+        batch = PodBatch(**{f.name: getattr(pods_window, f.name)[k]
+                            for f in dataclasses.fields(PodBatch)})
+        a, r = _assign_with_rounds(state, batch, cfg, static, method)
+        state = commit_assignments(state, batch, a)
+        assignments.append(a)
+        rounds.append(r)
+    return (state, torch.stack(assignments),
+            torch.tensor(rounds, dtype=torch.int32, device=state.device))

@@ -1,7 +1,7 @@
 """The hand-written Hopper tile kernels, their plain versions, the build.
 
-Two CUDA C++ kernels live in ``csrc/tiled_score.cu``; both call one
-``__device__`` net-accumulation routine, as the JAX package's two
+Three CUDA C++ kernels live in ``csrc/tiled_score.cu``; all call one
+``__device__`` net-accumulation routine, as the JAX package's three
 Pallas kernels share ``_net_accum``:
 
 - :func:`static_tile_scores` replaces ``_static_kernel``
@@ -12,6 +12,15 @@ Pallas kernels share ``_net_accum``:
   (``kubernetesnetawarescheduler_tpu/core/pallas_score.py:_kernel``,
   launched by ``score_pods_tiled``): the same accumulation with the full
   ``_tile_scores`` epilogue, the Score/Filter answer.
+- :func:`winner_tile_scores` replaces ``_winner_kernel``
+  (``kubernetesnetawarescheduler_tpu/core/pallas_score.py:_winner_kernel``,
+  launched by ``score_winner_tiled``): the masked kernel's scores, through
+  the same ``__device__`` epilogue, reduced per pod to ``(best, node)``
+  with the lowest-node-index tie-break.  Pallas carries the pair through
+  the node tiles in order; CUDA blocks run in no order, so each tile's
+  best goes into one ``atomicMax`` on a packed 64-bit key (ordered score
+  bits high, inverted node index low).  It writes 8 bytes per pod and
+  never the P×N plane.
 
 What bounds them on an H100: per call they read the two f32 ``[N, N]``
 network matrices once (≈210 MB at N=5120, ≈0.063 ms at 3.35 TB/s) and,
@@ -49,6 +58,9 @@ from pathlib import Path
 
 import torch
 
+from kubernetesnetawarescheduler_tpu_torch.core.score import (
+    winner_from_scores,
+)
 from kubernetesnetawarescheduler_tpu_torch.core.state import exact_matmul
 
 NEG_INF = -1e30
@@ -148,6 +160,9 @@ def build_library() -> ctypes.CDLL:
     lib.tiled_masked_scores.argtypes = (
         [ptr] * 24 + [ptr] + [i32] * 7 + [ptr])
     lib.tiled_masked_scores.restype = i32
+    lib.tiled_winner_scores.argtypes = (
+        [ptr] * 24 + [ptr, ptr, ptr] + [i32] * 7 + [ptr])
+    lib.tiled_winner_scores.restype = i32
     _LIB = lib
     return lib
 
@@ -203,6 +218,27 @@ def _soft_args(pods: PodPack, dev: torch.device) -> list:
         _check(pods.soft_sel_w, f32, (p, t_soft), "soft_sel_w", dev),
         _check(pods.soft_grp_w, f32, (p, t_soft), "soft_grp_w", dev),
     ]
+
+
+def _masked_args(pack: StaticPack, used: torch.Tensor, cap: torch.Tensor,
+                 groups: torch.Tensor, resident_anti: torch.Tensor,
+                 pods: PodPack, dev: torch.device) -> list:
+    """The 24 input pointers of the masked and the winner kernel."""
+    p, n_out, _, r, mw, _ = _shapes(pack, pods)
+    f32, i32 = torch.float32, torch.int32
+    return _net_args(pack, pods, dev) + [
+        _check(groups, i32, (n_out, mw), "groups", dev),
+        _check(resident_anti, i32, (n_out, mw), "resident_anti", dev),
+        _check(used, f32, (n_out, r), "used", dev),
+        _check(cap, f32, (n_out, r), "cap", dev),
+        _check(pods.pod_valid, f32, (p,), "pod_valid", dev),
+        _check(pods.req, f32, (p, r), "req", dev),
+        _check(pods.tol, i32, (p, mw), "tol", dev),
+        _check(pods.sel, i32, (p, mw), "sel", dev),
+        _check(pods.affinity, i32, (p, mw), "affinity", dev),
+        _check(pods.anti, i32, (p, mw), "anti", dev),
+        _check(pods.group_bit, i32, (p, mw), "group_bit", dev),
+    ] + _soft_args(pods, dev)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -305,6 +341,16 @@ def masked_tile_scores_plain(pack: StaticPack, used: torch.Tensor,
     return torch.where(ok, score, NEG_INF)
 
 
+def winner_tile_scores_plain(pack: StaticPack, used: torch.Tensor,
+                             cap: torch.Tensor, groups: torch.Tensor,
+                             resident_anti: torch.Tensor, pods: PodPack,
+                             use_bfloat16: bool):
+    """Plain version of :func:`winner_tile_scores`:
+    ``winner_from_scores(masked_tile_scores_plain(...))``."""
+    return winner_from_scores(masked_tile_scores_plain(
+        pack, used, cap, groups, resident_anti, pods, use_bfloat16))
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -365,21 +411,8 @@ def masked_tile_scores(pack: StaticPack, used: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     p, n_out, n_k, r, mw, t_soft = _shapes(pack, pods)
-    f32, i32 = torch.float32, torch.int32
-    args = _net_args(pack, pods, dev) + [
-        _check(groups, i32, (n_out, mw), "groups", dev),
-        _check(resident_anti, i32, (n_out, mw), "resident_anti", dev),
-        _check(used, f32, (n_out, r), "used", dev),
-        _check(cap, f32, (n_out, r), "cap", dev),
-        _check(pods.pod_valid, f32, (p,), "pod_valid", dev),
-        _check(pods.req, f32, (p, r), "req", dev),
-        _check(pods.tol, i32, (p, mw), "tol", dev),
-        _check(pods.sel, i32, (p, mw), "sel", dev),
-        _check(pods.affinity, i32, (p, mw), "affinity", dev),
-        _check(pods.anti, i32, (p, mw), "anti", dev),
-        _check(pods.group_bit, i32, (p, mw), "group_bit", dev),
-    ] + _soft_args(pods, dev)
-    out = torch.empty((p, n_out), dtype=f32, device=dev)
+    args = _masked_args(pack, used, cap, groups, resident_anti, pods, dev)
+    out = torch.empty((p, n_out), dtype=torch.float32, device=dev)
     lib = build_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -394,13 +427,49 @@ def masked_tile_scores(pack: StaticPack, used: torch.Tensor,
 masked_tile_scores.launches = 0
 
 
+def winner_tile_scores(pack: StaticPack, used: torch.Tensor,
+                       cap: torch.Tensor, groups: torch.Tensor,
+                       resident_anti: torch.Tensor, pods: PodPack,
+                       use_bfloat16: bool):
+    """``(best f32[P], node i32[P])`` of ``_winner_kernel``'s function:
+    per pod, the highest masked score and the LOWEST node index holding
+    it, ``node == -1`` where the row is all-infeasible.  CPU tensors take
+    :func:`winner_tile_scores_plain`; CUDA tensors launch
+    ``winner_scores_kernel`` on the current stream."""
+    dev = pack.bw.device
+    if dev.type == "cpu":
+        return winner_tile_scores_plain(pack, used, cap, groups,
+                                        resident_anti, pods, use_bfloat16)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    p, n_out, n_k, r, mw, t_soft = _shapes(pack, pods)
+    args = _masked_args(pack, used, cap, groups, resident_anti, pods, dev)
+    keys = torch.empty((p,), dtype=torch.int64, device=dev)
+    best = torch.empty((p,), dtype=torch.float32, device=dev)
+    node = torch.empty((p,), dtype=torch.int32, device=dev)
+    lib = build_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tiled_winner_scores(
+            *args, keys.data_ptr(), best.data_ptr(), node.data_ptr(), p,
+            n_out, n_k, r, mw, t_soft, int(use_bfloat16), stream)
+    _raise_on(err, "winner_scores_kernel")
+    winner_tile_scores.launches += 1
+    return best, node
+
+
+winner_tile_scores.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     static_tile_scores.launches = 0
     masked_tile_scores.launches = 0
+    winner_tile_scores.launches = 0
 
 
 KERNELS = {
     "static_scores_kernel": static_tile_scores,
     "masked_scores_kernel": masked_tile_scores,
+    "winner_scores_kernel": winner_tile_scores,
 }

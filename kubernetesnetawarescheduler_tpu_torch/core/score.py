@@ -23,6 +23,8 @@ weight vector (``wvec``) is not ported yet: weights come from
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -148,6 +150,112 @@ def static_node_scores(state: ClusterState, cfg: SchedulerConfig):
     ``base f32[N]`` and the prepared ``C.T``."""
     return (metric_scores(state, cfg),
             prep_net_matrix(net_cost_matrix(state, cfg), cfg))
+
+
+class NetExtrema(NamedTuple):
+    """Host-side running normalizers of :func:`net_cost_matrix`: the
+    masked maxima of ``bw``/``lat`` over valid pairs BEFORE the ``_EPS``
+    clamp, plus the flat index of a pair currently holding each maximum.
+    As long as the holder pair is not dirtied, a running ``max(old,
+    dirty max)`` equals a full re-scan; only a dirtied holder can make
+    the true maximum retreat, which forces a re-scan."""
+    bw_m: float
+    lat_m: float
+    bw_arg: int
+    lat_arg: int
+
+
+def net_extrema_scan(state: ClusterState) -> NetExtrema:
+    """Full O(N²) extrema scan (device reduce, host scalars).  The
+    float() round trip through f64 is exact for f32 values, so the
+    scalars rebuild the identical normalizers on the device."""
+    pv = state.node_valid[:, None] & state.node_valid[None, :]
+    bwm = torch.where(pv, state.bw, 0.0).reshape(-1)
+    latm = torch.where(pv, state.lat, 0.0).reshape(-1)
+    bi = int(torch.argmax(bwm))
+    li = int(torch.argmax(latm))
+    return NetExtrema(float(bwm[bi]), float(latm[li]), bi, li)
+
+
+def net_extrema_update(state: ClusterState, ex: NetExtrema,
+                       ii: np.ndarray, jj: np.ndarray) -> NetExtrema:
+    """:class:`NetExtrema` after only pairs ``(ii, jj)`` of ``bw``/``lat``
+    changed.  Equal to :func:`net_extrema_scan` in the max VALUES (the
+    tracked holder may differ from argmax's first index, which only
+    decides when a later re-scan triggers, never the normalizers)."""
+    if len(ii) == 0:
+        return ex
+    n = state.bw.shape[0]
+    flat = ii.astype(np.int64) * n + jj.astype(np.int64)
+    dirty = set(flat.tolist())
+    dev = state.device
+    iid = torch.from_numpy(ii.astype(np.int64)).to(dev)
+    jjd = torch.from_numpy(jj.astype(np.int64)).to(dev)
+    pv = state.node_valid[iid] & state.node_valid[jjd]
+    vb = torch.where(pv, state.bw[iid, jjd], 0.0)
+    vl = torch.where(pv, state.lat[iid, jjd], 0.0)
+
+    def one(m, arg, vals):
+        if arg in dirty:
+            return None  # holder dirtied: the max may have retreated
+        k = int(torch.argmax(vals))
+        v = float(vals[k])
+        return (v, int(flat[k])) if v > m else (m, arg)
+
+    nb = one(ex.bw_m, ex.bw_arg, vb)
+    nl = one(ex.lat_m, ex.lat_arg, vl)
+    if nb is None or nl is None:
+        full = net_extrema_scan(state)
+        return NetExtrema(full.bw_m if nb is None else nb[0],
+                          full.lat_m if nl is None else nl[0],
+                          full.bw_arg if nb is None else nb[1],
+                          full.lat_arg if nl is None else nl[1])
+    return NetExtrema(nb[0], nl[0], nb[1], nl[1])
+
+
+def extrema_normalizers(ex: NetExtrema, dev: torch.device):
+    """``(bw_max, lat_max)`` as :func:`net_normalizers` returns them (0-d
+    f32, clamped at ``_EPS``), from host extrema instead of a scan."""
+    def f(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev).clamp_min(
+            _EPS)
+
+    return f(ex.bw_m), f(ex.lat_m)
+
+
+def static_node_scores_delta(state: ClusterState, cfg: SchedulerConfig,
+                             prev, ex: NetExtrema, ii: np.ndarray,
+                             jj: np.ndarray):
+    """Delta rebuild of :func:`static_node_scores`, bit-identical to the
+    full path: returns ``((base, C.T), extrema)``.
+
+    Preconditions: since ``prev`` was built, only net elements
+    ``(ii, jj)`` changed (both orientations listed) and topology and
+    validity did not.  ``base`` is O(N·M) and recomputed outright.  When
+    a normalizer MOVES every element of ``C`` rescales, so the matrix is
+    rebuilt; otherwise only the dirty elements of ``C.T`` are patched,
+    out of place (``prev`` stays readable)."""
+    base = metric_scores(state, cfg)
+    ex2 = net_extrema_update(state, ex, ii, jj)
+    if ex2.bw_m != ex.bw_m or ex2.lat_m != ex.lat_m:
+        return (base, prep_net_matrix(net_cost_matrix(state, cfg),
+                                      cfg)), ex2
+    _, ct = prev
+    if len(ii) == 0:
+        return (base, ct), ex2
+    dev = state.device
+    iid = torch.from_numpy(ii.astype(np.int64)).to(dev)
+    jjd = torch.from_numpy(jj.astype(np.int64)).to(dev)
+    bw_max, lat_max = extrema_normalizers(ex2, dev)
+    w = cfg.weights
+    # The same expression as net_desirability, element by element.
+    vals = (w.peer_bw * state.bw[iid, jjd] / bw_max
+            - w.peer_lat * state.lat[iid, jjd] / lat_max)
+    vals = torch.where(iid == jjd, float(np.float32(w.peer_bw)), vals)
+    pv = state.node_valid[iid] & state.node_valid[jjd]
+    vals = torch.where(pv, vals, 0.0)
+    # prev holds C.T: element (i, j) of C lives at (j, i).
+    return (base, ct.index_put((jjd, iid), vals.to(ct.dtype))), ex2
 
 
 def network_scores(state: ClusterState, pods: PodBatch,

@@ -3,10 +3,12 @@
 The counterpart of ``kubernetesnetawarescheduler_tpu/core/pallas_score.py``
 minus the kernels themselves, which live in :mod:`.kernels`.  This module
 computes what the kernels take — the normalizers and ``params`` once per
-replay, the pod side per batch — and joins the constraints that stay
-outside the kernels (soft zone term, nodeAffinity and zone masks, and
-topology spread behind its gate), exactly where the JAX package joins
-them.
+replay (or patched from the encoder's dirty footprint), the pod side per
+batch — and joins the constraints that stay outside the kernels (soft
+zone term, nodeAffinity and zone masks, and topology spread behind its
+gate), exactly where the JAX package joins them.  The fused winner
+(:func:`score_winner_tiled`) takes the winner kernel only when none of
+those joins is live.
 
 The Pallas packing layouts (``podf``/``podi``/``nodef``/``nodei``) exist
 for TPU BlockSpecs and are not copied: the CUDA kernels read the state's
@@ -15,6 +17,8 @@ O(N²) padded copy of ``bw``/``lat`` is ever made.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ from kubernetesnetawarescheduler_tpu_torch.core.kernels import (
     StaticPack,
     masked_tile_scores,
     static_tile_scores,
+    winner_tile_scores,
 )
 from kubernetesnetawarescheduler_tpu_torch.core.score import NEG_INF, _EPS
 from kubernetesnetawarescheduler_tpu_torch.core.state import (
@@ -122,6 +127,16 @@ def static_scores_tiled(state: ClusterState, pods: PodBatch,
     return raw, ok
 
 
+def _masked_kernel_args(state: ClusterState, pods: PodBatch,
+                        cfg: SchedulerConfig, static=None) -> tuple:
+    """What the masked and the winner kernel take, in their wrappers'
+    argument order."""
+    return (static_replay_pack(state, cfg, static), state.used.contiguous(),
+            state.cap.contiguous(), state.group_bits.contiguous(),
+            state.resident_anti.contiguous(),
+            pack_pods(pods, state.num_nodes), cfg.use_bfloat16)
+
+
 def score_pods_tiled(state: ClusterState, pods: PodBatch,
                      cfg: SchedulerConfig, static=None) -> torch.Tensor:
     """Masked score matrix ``f32[P, N]`` from the masked kernel — the
@@ -130,11 +145,7 @@ def score_pods_tiled(state: ClusterState, pods: PodBatch,
     the nodeAffinity and zone masks and topology spread join outside the
     kernel; spread (and the static-mask recompute it needs) only when
     some pod carries a spread constraint."""
-    pack = static_replay_pack(state, cfg, static)
-    out = masked_tile_scores(
-        pack, state.used.contiguous(), state.cap.contiguous(),
-        state.group_bits.contiguous(), state.resident_anti.contiguous(),
-        pack_pods(pods, state.num_nodes), cfg.use_bfloat16)
+    out = masked_tile_scores(*_masked_kernel_args(state, pods, cfg, static))
     # The additive soft term cannot resurrect a masked entry: NEG_INF is
     # -1e30 and weights are O(10).
     out = out + score_lib.soft_zone_scores(state, pods, cfg)
@@ -146,6 +157,37 @@ def score_pods_tiled(state: ClusterState, pods: PodBatch,
             static_ok=score_lib.static_feasibility(state, pods))
         out = torch.where(spread_ok, out - spread_pen, NEG_INF)
     return out
+
+
+def winner_joins_active(state: ClusterState, pods: PodBatch) -> bool:
+    """Is any constraint that :func:`score_pods_tiled` joins OUTSIDE the
+    tile kernel live for this (state, batch)?  The in-kernel winner is
+    exact only when every out-of-kernel join is a no-op (soft zone adds
+    zeros, the ns/zone masks are all-true, spread is inactive); when one
+    is live the winner is taken after the joins, by the two-stage path.
+    Each predicate mirrors its join's own gate in :mod:`.score`.  One
+    host sync (:func:`~.state.host_flag`), the port's ``lax.cond``."""
+    return host_flag((pods.soft_zone_bits != 0).any()
+                     | pods.ns_term_used.any()
+                     | (pods.zaff_bits != 0).any()
+                     | (pods.zanti_bits != 0).any()
+                     | (state.az_anti != 0).any()
+                     | score_lib.spread_active(pods).any())
+
+
+def score_winner_tiled(state: ClusterState, pods: PodBatch,
+                       cfg: SchedulerConfig, static=None):
+    """Fused winner selection: ``(best f32[P], node i32[P])`` with
+    ``node == -1`` for infeasible rows, equal to
+    ``score.winner_from_scores(score_pods_tiled(...))`` (tie-breaks
+    included).  With no out-of-kernel join live it launches the winner
+    kernel, which writes 8 bytes per pod instead of the ``[P, N]``
+    score plane; otherwise it takes the two-stage path.  ``static`` is an
+    optional precomputed :func:`static_tile_inputs`."""
+    if winner_joins_active(state, pods):
+        return score_lib.winner_from_scores(
+            score_pods_tiled(state, pods, cfg, static))
+    return winner_tile_scores(*_masked_kernel_args(state, pods, cfg, static))
 
 
 def compute_static(state: ClusterState, cfg: SchedulerConfig):
@@ -164,6 +206,72 @@ def compute_assign_static(state: ClusterState, cfg: SchedulerConfig):
     if cfg.score_backend == "pallas":
         return static_replay_pack(state, cfg)
     return score_lib.static_node_scores(state, cfg)
+
+
+def static_replay_pack_delta(state: ClusterState, cfg: SchedulerConfig,
+                             prev: StaticPack, ex: score_lib.NetExtrema,
+                             ii: np.ndarray, jj: np.ndarray):
+    """Delta rebuild of :func:`static_replay_pack`, equal field by field
+    to the full path: returns ``(pack, extrema)``.  Preconditions: since
+    ``prev`` was packed only net elements ``(ii, jj)`` changed and
+    topology/validity did not.  ``base`` (O(N·M)) is recomputed and the
+    normalizers come from the updated extrema into ``params``; a moved
+    normalizer costs no O(N²) work, since the pack holds the raw
+    ``bw``/``lat``.  Those are the snapshot's own tensors, which the
+    encoder already patched out of place at the dirty pairs, so the pack
+    takes them as they are (no copy, and ``prev`` stays readable)."""
+    ex2 = score_lib.net_extrema_update(state, ex, ii, jj)
+    bw_max, lat_max = score_lib.extrema_normalizers(ex2, state.device)
+    return dataclasses.replace(
+        prev, params=kernel_params(cfg, bw_max, lat_max),
+        bw=state.bw.contiguous(), lat=state.lat.contiguous(),
+        base=score_lib.metric_scores(state, cfg).contiguous()), ex2
+
+
+def compute_assign_static_incremental(state: ClusterState,
+                                      cfg: SchedulerConfig, prev,
+                                      ex: score_lib.NetExtrema | None,
+                                      dirty: dict | None):
+    """Incremental :func:`compute_assign_static`: returns ``(static,
+    extrema)``, patching ``prev`` when the dirty footprint permits and
+    rebuilding otherwise.
+
+    ``dirty`` is the merged descriptor from
+    ``Encoder.static_delta_since`` (None = coverage unprovable).  A full
+    rebuild runs with no previous value, no descriptor, any topology
+    dirt (validity changes every mask and both normalizers), or a
+    whole-group net rewrite.  Metrics-only dirt recomputes just the
+    O(N·M) base; net pair dirt takes the O(|dirty|) patch path."""
+    pairs = None if dirty is None else dirty.get("net_pairs")
+    if (prev is None or ex is None or dirty is None
+            or dirty.get("topo")
+            or (dirty.get("net") and pairs is None)):
+        return (compute_assign_static(state, cfg),
+                score_lib.net_extrema_scan(state))
+    if pairs:
+        srt = sorted(pairs)
+        ii = np.array([p[0] for p in srt], np.int32)
+        jj = np.array([p[1] for p in srt], np.int32)
+    else:
+        ii = jj = np.zeros(0, np.int32)
+    if cfg.score_backend == "pallas":
+        return static_replay_pack_delta(state, cfg, prev, ex, ii, jj)
+    return score_lib.static_node_scores_delta(state, cfg, prev, ex, ii, jj)
+
+
+def score_winner_auto(state: ClusterState, pods: PodBatch,
+                      cfg: SchedulerConfig, static=None):
+    """Backend dispatch for the fused winner (:func:`score_pods_auto`'s
+    twin): ``(best f32[P], node i32[P])``, ``node == -1`` infeasible.
+    ``static`` is an optional precomputed :func:`compute_static`.  With
+    ``cfg.enable_winner_fusion`` off the two-stage score → winner path
+    runs instead, with the same results."""
+    if not cfg.enable_winner_fusion:
+        return score_lib.winner_from_scores(
+            score_pods_auto(state, pods, cfg, static))
+    if cfg.score_backend == "pallas":
+        return score_winner_tiled(state, pods, cfg, static)
+    return score_lib.score_winner(state, pods, cfg, static)
 
 
 def score_pods_auto(state: ClusterState, pods: PodBatch,

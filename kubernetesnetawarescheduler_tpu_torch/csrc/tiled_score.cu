@@ -1,6 +1,6 @@
 // Tiled pod x node score kernels for NVIDIA Hopper (sm_90a).
 //
-// Two kernels share one net-accumulation routine, so the fused and
+// Three kernels share one net-accumulation routine, so the fused and
 // unfused scores are the same arithmetic:
 //
 //   static_scores_kernel  raw = T·Cᵀ + base + wsoft·soft and the static
@@ -10,6 +10,10 @@
 //                         epilogue: capacity fit, five bit-mask tests,
 //                         soft bonus, balance penalty, NEG_INF where
 //                         infeasible; the Score/Filter answer.
+//   winner_scores_kernel  the masked kernel's scores (one shared
+//                         epilogue, masked_score) reduced per pod to
+//                         (best, lowest node index) across node tiles;
+//                         writes 8 bytes per pod, never the P x N plane.
 //
 // C[n, k] = wbw·bw[n, k]·inv_bw − wlat·lat[n, k]·inv_lat is formed per
 // tile in shared memory from the raw bw/lat matrices (C never exists in
@@ -32,7 +36,8 @@
 // Params layout (f32[8]): wbw, wlat, inv_bw, inv_lat, wbal, eps, wsoft,
 // row_offset.  Bit masks are int32 words (the u32 bits of the JAX
 // package).  Each entry point launches on the caller's stream, allocates
-// nothing, and returns cudaGetLastError().
+// nothing (the winner's u64 key scratch comes from the caller), and
+// returns the first CUDA error it meets.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -207,6 +212,50 @@ static_scores_kernel(NetIn in, NodeIn nd, PodIn pd, float* raw,
   }
 }
 
+// The masked epilogue of one (pod p, node n) pair, shared by the masked
+// and the winner kernel so both see the same bits: capacity fit, the
+// five bit-mask tests, soft bonus, balance penalty, kNegInf where
+// infeasible.  `acc` is the pair's net accumulation.
+__device__ __forceinline__ float masked_score(float acc, const NodeIn& nd,
+                                              const PodIn& pd,
+                                              const float* params, int p,
+                                              int n, int n_res, int mw,
+                                              int t_soft) {
+  const float wbal = params[4];
+  const float eps = params[5];
+  const float wsoft = params[6];
+  bool good = nd.valid[n] > 0.5f && pd.valid[p] > 0.5f;
+  float bal = 0.f;
+  for (int r = 0; r < n_res; ++r) {
+    const float u = nd.used[(size_t)n * n_res + r];
+    const float c = nd.cap[(size_t)n * n_res + r];
+    const float q = pd.req[(size_t)p * n_res + r];
+    good = good && (q <= __fadd_rn(__fsub_rn(c, u), eps));
+    bal = fmaxf(bal, __fdiv_rn(__fadd_rn(u, q), fmaxf(c, eps)));
+  }
+  const int* taint = nd.taint + (size_t)n * mw;
+  const int* label = nd.label + (size_t)n * mw;
+  const int* group = nd.groups + (size_t)n * mw;
+  const int* ranti = nd.resident_anti + (size_t)n * mw;
+  const int* tol = pd.tol + (size_t)p * mw;
+  const int* sel = pd.sel + (size_t)p * mw;
+  const int* aff = pd.affinity + (size_t)p * mw;
+  const int* anti = pd.anti + (size_t)p * mw;
+  const int* gbit = pd.group_bit + (size_t)p * mw;
+  for (int w = 0; w < mw; ++w) {
+    good = good && ((taint[w] & ~tol[w]) == 0);
+    good = good && ((label[w] & sel[w]) == sel[w]);
+    good = good && ((group[w] & anti[w]) == 0);
+    good = good && ((ranti[w] & gbit[w]) == 0);
+    good = good && ((group[w] & aff[w]) == aff[w]);
+  }
+  const float soft = soft_bonus(label, group, pd, p, mw, t_soft);
+  const float score =
+      __fsub_rn(__fadd_rn(__fadd_rn(acc, nd.base[n]), __fmul_rn(wsoft, soft)),
+                __fmul_rn(wbal, bal));
+  return good ? score : kNegInf;
+}
+
 __global__ void __launch_bounds__(kThreads)
 masked_scores_kernel(NetIn in, NodeIn nd, PodIn pd, float* out, int n_res,
                      int mw, int t_soft) {
@@ -215,9 +264,6 @@ masked_scores_kernel(NetIn in, NodeIn nd, PodIn pd, float* out, int n_res,
   float acc[kRP][kRN];
   net_accum(in, p0, n0, acc);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float wbal = in.params[4];
-  const float eps = in.params[5];
-  const float wsoft = in.params[6];
 #pragma unroll
   for (int i = 0; i < kRP; ++i) {
     const int p = p0 + ty + 16 * i;
@@ -226,39 +272,81 @@ masked_scores_kernel(NetIn in, NodeIn nd, PodIn pd, float* out, int n_res,
     for (int j = 0; j < kRN; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= in.n_out) continue;
-      bool good = nd.valid[n] > 0.5f && pd.valid[p] > 0.5f;
-      float bal = 0.f;
-      for (int r = 0; r < n_res; ++r) {
-        const float u = nd.used[(size_t)n * n_res + r];
-        const float c = nd.cap[(size_t)n * n_res + r];
-        const float q = pd.req[(size_t)p * n_res + r];
-        good = good && (q <= __fadd_rn(__fsub_rn(c, u), eps));
-        bal = fmaxf(bal, __fdiv_rn(__fadd_rn(u, q), fmaxf(c, eps)));
-      }
-      const int* taint = nd.taint + (size_t)n * mw;
-      const int* label = nd.label + (size_t)n * mw;
-      const int* group = nd.groups + (size_t)n * mw;
-      const int* ranti = nd.resident_anti + (size_t)n * mw;
-      const int* tol = pd.tol + (size_t)p * mw;
-      const int* sel = pd.sel + (size_t)p * mw;
-      const int* aff = pd.affinity + (size_t)p * mw;
-      const int* anti = pd.anti + (size_t)p * mw;
-      const int* gbit = pd.group_bit + (size_t)p * mw;
-      for (int w = 0; w < mw; ++w) {
-        good = good && ((taint[w] & ~tol[w]) == 0);
-        good = good && ((label[w] & sel[w]) == sel[w]);
-        good = good && ((group[w] & anti[w]) == 0);
-        good = good && ((ranti[w] & gbit[w]) == 0);
-        good = good && ((group[w] & aff[w]) == aff[w]);
-      }
-      const float soft = soft_bonus(label, group, pd, p, mw, t_soft);
-      const float score =
-          __fsub_rn(__fadd_rn(__fadd_rn(acc[i][j], nd.base[n]),
-                              __fmul_rn(wsoft, soft)),
-                    __fmul_rn(wbal, bal));
-      out[(size_t)p * in.n_out + n] = good ? score : kNegInf;
+      out[(size_t)p * in.n_out + n] = masked_score(
+          acc[i][j], nd, pd, in.params, p, n, n_res, mw, t_soft);
     }
   }
+}
+
+// Winner key of one (score, global node) pair: the score's bits mapped
+// to an unsigned order (flip all bits of negatives, set the sign bit of
+// the rest) in the high half, the inverted node index in the low half.
+// The larger key is the higher score, and among equal scores the LOWER
+// node index — winner_from_scores's tie-break.  -0.0 becomes +0.0
+// first, because the plain version's == treats the two as equal.
+__device__ __forceinline__ unsigned long long winner_key(float s, int n) {
+  s = (s == 0.f) ? 0.f : s;
+  const unsigned u = __float_as_uint(s);
+  const unsigned hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(hi) << 32) |
+         static_cast<unsigned>(~n);
+}
+
+// The masked kernel's scores reduced to one key per pod across node
+// tiles, so the P x N plane never reaches device memory.  Blocks run in
+// no order, so the reduction is an atomicMax on the packed key (max is
+// order-free, hence the result is the same on every run).  Within a
+// 64 x 64 tile the 16 threads of a pod row form a half-warp (tid =
+// ty * 16 + tx); each takes the best of its 4 nodes, a 16-lane xor
+// shuffle finds the tile's best, and lane tx == 0 issues one atomic per
+// pod row.  keys must start at 0 (below every real key).
+__global__ void __launch_bounds__(kThreads)
+winner_scores_kernel(NetIn in, NodeIn nd, PodIn pd, unsigned long long* keys,
+                     int n_res, int mw, int t_soft) {
+  const int n0 = blockIdx.x * kBN;
+  const int p0 = blockIdx.y * kBP;
+  float acc[kRP][kRN];
+  net_accum(in, p0, n0, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < kRP; ++i) {
+    const int p = p0 + ty + 16 * i;
+    unsigned long long best = 0ull;
+    if (p < in.p) {
+#pragma unroll
+      for (int j = 0; j < kRN; ++j) {
+        const int n = n0 + tx + 16 * j;
+        if (n >= in.n_out) continue;
+        const float s = masked_score(acc[i][j], nd, pd, in.params, p, n,
+                                     n_res, mw, t_soft);
+        const unsigned long long key = winner_key(s, n);
+        best = key > best ? key : best;
+      }
+    }
+    // Every lane of the warp shuffles (uniform control flow); offsets
+    // below 16 keep each exchange inside its half-warp.
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, off);
+      best = other > best ? other : best;
+    }
+    if (tx == 0 && p < in.p) atomicMax(keys + p, best);
+  }
+}
+
+// Unpack each pod's key into (best score, node); -1 where the best is
+// infeasible (not above kNegInf / 2), as winner_from_scores does.
+__global__ void winner_finalize_kernel(const unsigned long long* keys,
+                                       float* best, int* node, int p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  const unsigned long long k = keys[i];
+  const unsigned hi = static_cast<unsigned>(k >> 32);
+  const unsigned lo = static_cast<unsigned>(k);
+  const unsigned u = (hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi;
+  const float b = __uint_as_float(u);
+  best[i] = b;
+  node[i] = b > kNegInf * 0.5f ? static_cast<int>(~lo) : -1;
 }
 
 dim3 grid_for(int p, int n_out) {
@@ -307,5 +395,36 @@ extern "C" int tiled_masked_scores(
   masked_scores_kernel<<<grid_for(p, n_out), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       in, nd, pd, out, n_res, mw, t_soft);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Same inputs as tiled_masked_scores; writes best f32[p] and node i32[p]
+// through the caller's u64 scratch `keys` [p].  Three launches on the
+// caller's stream: zero the keys, the winner kernel, the unpack.
+extern "C" int tiled_winner_scores(
+    const float* t, const float* bw, const float* lat, const float* validk,
+    const float* params, const float* base, const float* node_valid,
+    const int* taint, const int* label, const int* groups,
+    const int* resident_anti, const float* used, const float* cap,
+    const float* pod_valid, const float* req, const int* tol, const int* sel,
+    const int* affinity, const int* anti, const int* group_bit,
+    const int* soft_sel, const int* soft_grp, const float* soft_sel_w,
+    const float* soft_grp_w, unsigned long long* keys, float* best,
+    int* node, int p, int n_out, int n_k, int n_res, int mw, int t_soft,
+    int use_bf16, void* stream) {
+  if (p <= 0 || n_out <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(keys, 0, sizeof(*keys) * p, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  NetIn in{t, bw, lat, validk, params, p, n_out, n_k, use_bf16};
+  NodeIn nd{base, node_valid, taint, label, groups, resident_anti, used,
+            cap};
+  PodIn pd{pod_valid, req, tol, sel, affinity, anti, group_bit,
+           soft_sel, soft_grp, soft_sel_w, soft_grp_w};
+  winner_scores_kernel<<<grid_for(p, n_out), kThreads, 0, s>>>(
+      in, nd, pd, keys, n_res, mw, t_soft);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  winner_finalize_kernel<<<(p + 255) / 256, 256, 0, s>>>(keys, best, node, p);
   return static_cast<int>(cudaGetLastError());
 }

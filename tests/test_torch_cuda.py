@@ -25,7 +25,10 @@ from kubernetesnetawarescheduler_tpu_torch.core.replay import (
     batch_from_stream,
     replay_stream,
 )
-from kubernetesnetawarescheduler_tpu_torch.core.score import NEG_HALF
+from kubernetesnetawarescheduler_tpu_torch.core.score import (
+    NEG_HALF,
+    winner_from_scores,
+)
 from kubernetesnetawarescheduler_tpu_torch.core.state import exact_matmul
 
 pytestmark = pytest.mark.gpu
@@ -109,6 +112,90 @@ def test_kernels_match_plain_on_dense_traffic(cuda, bf16):
     m = out_p > NEG_HALF
     assert torch.equal(out > NEG_HALF, m) and bool(m.any())
     assert torch.allclose(out[m], out_p[m], rtol=1e-4, atol=1e-4)
+
+
+def _check_winner(args, tol=1e-4):
+    """The winner kernel against its plain version (``best`` within tol,
+    ``node`` identical wherever the plain top-two gap exceeds the allclose
+    bar at the best's magnitude) and against ``winner_from_scores`` of the
+    masked kernel on the card (identical: best bits once -0.0 is read as
+    +0.0, node)."""
+    best, node = kernels.winner_tile_scores(*args)
+    best_p, node_p = kernels.winner_tile_scores_plain(*args)
+    assert torch.allclose(best, best_p, rtol=tol, atol=tol)
+    top2 = kernels.masked_tile_scores_plain(*args).topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol + tol * top2[:, 0].abs()
+    assert torch.equal(node[clear], node_p[clear])
+    best_m, node_m = winner_from_scores(kernels.masked_tile_scores(*args))
+    assert torch.equal(node, node_m)
+    assert torch.equal((best + 0.0).view(torch.int32),
+                       (best_m + 0.0).view(torch.int32))
+    return best, node
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_winner_kernel_matches_plain(cuda, bf16):
+    _, state, pack, pods = _inputs(cuda, seed=6)
+    # Two invalid pods: their rows are all-infeasible and answer -1.
+    pods = dataclasses.replace(pods, pod_valid=pods.pod_valid.clone())
+    pods.pod_valid[[3, 57]] = 0.0
+    args = (pack, state.used, state.cap, state.group_bits,
+            state.resident_anti, pods, bf16)
+    _, node = _check_winner(args)
+    assert int(node[3]) == -1 and int(node[57]) == -1
+    assert bool((node >= 0).sum() > 90)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_winner_kernel_on_dense_traffic(cuda, bf16):
+    _, state, pack, pods = _inputs(cuda, nodes=5120, max_nodes=5120,
+                                   pods=128, seed=7)
+    rng = np.random.default_rng(7)
+    pods = dataclasses.replace(pods, t=torch.from_numpy(
+        rng.uniform(0.0, 1.0, tuple(pods.t.shape)).astype(np.float32)).to(
+            cuda))
+    _check_winner((pack, state.used, state.cap, state.group_bits,
+                   state.resident_anti, pods, bf16))
+
+
+def test_winner_kernel_ties_go_to_the_lowest_node(cuda):
+    """No traffic, one metric vote, one capacity: every feasible node of
+    a row scores the same, across node tiles, and the lowest feasible
+    index must win."""
+    _, state, pack, pods = _inputs(cuda, seed=8)
+    pack = dataclasses.replace(pack, base=torch.full_like(pack.base, 0.25))
+    pods = dataclasses.replace(
+        pods, t=torch.zeros_like(pods.t),
+        soft_sel_w=torch.zeros_like(pods.soft_sel_w),
+        soft_grp_w=torch.zeros_like(pods.soft_grp_w))
+    cap = torch.full_like(state.cap, 64.0)
+    used = torch.zeros_like(state.used)
+    args = (pack, used, cap, state.group_bits, state.resident_anti, pods,
+            False)
+    _, node = _check_winner(args)
+    ok = kernels.masked_tile_scores_plain(*args) > NEG_HALF
+    first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1), -1)
+    assert torch.equal(node, first.to(torch.int32))
+
+
+def test_fused_winner_takes_the_kernel_unless_a_join_is_live(cuda):
+    cfg, state, _, _ = _inputs(cuda, seed=9)
+    _, stream = synthetic_density(300, 400, cfg, seed=9, device=cuda)
+    pods = batch_from_stream(stream.slice(0, 100),
+                             torch.zeros(400, dtype=torch.int32,
+                                         device=cuda))
+    kernels.reset_launch_counts()
+    best, node = tiled_score.score_winner_tiled(state, pods, cfg)
+    assert kernels.winner_tile_scores.launches == 1
+    assert kernels.masked_tile_scores.launches == 0
+    best_2, node_2 = winner_from_scores(
+        tiled_score.score_pods_tiled(state, pods, cfg))
+    assert torch.equal(node, node_2) and torch.equal(best, best_2)
+    live = dataclasses.replace(pods, ns_term_used=torch.ones_like(
+        pods.ns_term_used))
+    tiled_score.score_winner_tiled(state, live, cfg)
+    assert kernels.winner_tile_scores.launches == 1
+    assert kernels.masked_tile_scores.launches == 2
 
 
 def test_exact_matmul_restores_callers_tf32(cuda):

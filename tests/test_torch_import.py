@@ -39,15 +39,26 @@ bad = sorted(m for m in sys.modules
              or m.startswith("kubernetesnetawarescheduler_tpu.")
              if sys.modules[m] is not None)
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# Every module of the port, the serving seam's included: the walk above
+# must find (and so import) each of them.
+_MODULES = {
+    "config", "bench.density", "bench.fakecluster", "bench.profile_replay",
+    "core.assign", "core.encode", "core.gang", "core.integrity",
+    "core.kernels", "core.replay", "core.score", "core.state",
+    "core.tiled_score", "k8s.client", "k8s.types",
+}
 
 
 def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 10
+    prefix = "kubernetesnetawarescheduler_tpu_torch."
+    walked = {name[len(prefix):] for name in out.stdout.split()}
+    assert _MODULES <= walked, sorted(_MODULES - walked)
 
 
 def test_entry_points_default_to_cuda():
