@@ -10,23 +10,31 @@ It builds the CUDA tile kernels from ``kubernetesnetawarescheduler_tpu_torch/
 csrc`` and prints one JSON object per phase:
 
 1. ``device``   the card (``nvidia-smi`` name and power limit), torch and
-                CUDA versions, the kernels' build time.
+                CUDA versions, the kernels' build time and ``ptxas``
+                report; fails if the static or the masked kernel spills.
 2. ``kernels``  each kernel against its plain PyTorch version on the card
                 at P=128, N=5120, with ``use_bfloat16`` off and on, on a
-                stream batch and on a dense seeded traffic matrix: masks
-                identical and scores within rtol=atol=1e-4; the winner's
-                ``best`` within the same bar, its ``node`` identical on
-                every row whose plain top-two gap exceeds it, and both
-                identical to ``winner_from_scores`` of the masked kernel;
-                kernel, plain, bound and library-yardstick times.
+                stream batch and on a dense seeded traffic matrix: the
+                peer-column compaction identical to its plain version;
+                the static and masked kernels over the compacted columns
+                bit-identical to the same kernels over every column;
+                masks identical and scores within rtol=atol=1e-4; the
+                winner's ``best`` within the same bar, its ``node``
+                identical on every row whose plain top-two gap exceeds
+                it, and both identical to ``winner_from_scores`` of the
+                masked kernel.  Kernel, plain and library-yardstick
+                times, each call with the L2 cache flushed before it,
+                and each kernel's bound from the bytes and operations
+                this batch needs.
 3. ``main``     the density replay: a 65,536-pod backlog on 5,120 nodes
                 (bench.py's shape) through ``replay_stream`` with the
                 kernel backend, then Score/Filter answers
                 (``score_pods_auto``) for a few pending batches against the
                 final state.  Fails unless the static kernel ran once per
-                batch, the answer kernel ran, no node exceeds its capacity,
-                and every placed pod sits on a node its plain static mask
-                allows.
+                batch, the answer kernel ran, the peer columns were
+                compacted once per static and answer launch, no node
+                exceeds its capacity, and every placed pod sits on a node
+                its plain static mask allows.
 4. ``parity``   the first 16 batches replayed at f32 through the kernel
                 path and the dense torch path: identical assignments.
 5. ``serve``    the serving seam: a generated 5,120-node cluster through
@@ -57,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +80,8 @@ ANSWER_BATCHES = 8
 PARITY_BATCHES = 16
 SERVE_PODS, SERVE_BATCHES, CHURN_EVERY = 8192, 64, 8
 TOL = 1e-4
+FLUSH_BYTES = 256 << 20   # > the H100's 50 MB L2
+SPIN_CYCLES = 2_000_000   # ≈1 ms at the H100's clocks
 # Published H100 rates by part (memory bytes/s, f32 FLOP/s without tensor
 # cores); the card's name picks the row.
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
@@ -136,22 +147,45 @@ def peaks(name: str) -> tuple[float, float]:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of one call of ``fn``, with the 50 MB L2 cache
+    flushed before each call (a ``FLUSH_BYTES`` buffer is written), as a
+    caller that moves on to a new batch finds it.  CUDA events bracket
+    each call; a spin kernel after the flush keeps the card busy while
+    the host enqueues the call, so host time is not counted."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                          device="cuda")
+    marks = []
     for _ in range(iters):
+        scratch.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
+        end.record()
+        marks.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(a.elapsed_time(b) for a, b in marks) / iters
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ptxas_spills(log: str) -> dict:
+    """``{function: [spill store bytes, spill load bytes]}`` from an
+    ``nvcc -Xptxas -v`` report."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for", 1)[1].strip()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            out[name] = [int(m.group(1)), int(m.group(2))]
+    return out
 
 
 def phase_device() -> dict:
@@ -161,14 +195,27 @@ def phase_device() -> dict:
     t0 = time.perf_counter()
     kernels.build_library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in kernels.build_library.log.splitlines()
+    log = kernels.build_library.log
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
+    spills = {}
+    for kname in ("static_scores_kernel", "masked_scores_kernel",
+                  "winner_scores_kernel", "peer_flags_kernel",
+                  "peer_scan_kernel"):
+        hits = [v for f, v in ptxas_spills(log).items() if kname in f]
+        spills[kname] = hits[0] if hits else None
     info = {"phase": "device", "ok": True, "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "device_name": torch.cuda.get_device_name(0),
             "device_count": torch.cuda.device_count(),
             "build_s": build_s, "nvcc_s": kernels.build_library.seconds,
-            "ptxas": ptxas}
+            "spills": spills, "ptxas": ptxas}
+    # The peer-walk kernels must keep their register tiles unspilled.
+    for kname in ("static_scores_kernel", "masked_scores_kernel"):
+        if spills[kname] is None or any(spills[kname]):
+            emit({**info, "ok": False})
+            fail("device", f"ptxas reports spills for {kname}: "
+                 f"{spills[kname]}")
     emit(info)
     return info
 
@@ -202,22 +249,48 @@ def kernel_inputs(cfg, state, stream):
     return state, pods
 
 
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def dense_walk(n_k: int):
+    """``peers`` that walk every column: the dense accumulation."""
+    return (torch.arange(n_k, dtype=torch.int32, device="cuda"),
+            torch.tensor([n_k], dtype=torch.int32, device="cuda"))
+
+
 def compare_kernels(pack, st, groups, pp, bf16, label):
-    """Run both kernels and their plain versions on one batch; fail on
-    any mask difference or score outside rtol=atol=TOL.  Returns the two
-    max abs errors (static raw, masked feasible score)."""
+    """Run the compaction, both peer-walk kernels and their plain
+    versions on one batch; fail on a compaction that differs from its
+    plain version, on compacted-column outputs that are not bit-identical
+    to the same kernel's dense walk, on any mask difference, or on a
+    score outside rtol=atol=TOL.  Returns the two max abs errors (static
+    raw, masked feasible score) and the batch's peer-column count."""
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
 
+    n_k = pp.t.shape[1]
+    where = f"({label}, bf16={bf16})"
+    cols, count = K.peer_columns(pp.t)
+    cols_p, count_p = K.peer_columns_plain(pp.t)
+    if not (torch.equal(cols, cols_p) and torch.equal(count, count_p)):
+        fail("kernels", f"peer columns differ from the plain version {where}")
+    margs = (pack, st.used, st.cap, groups, st.resident_anti, pp, bf16)
     raw_k, ok_k = K.static_tile_scores(pack, groups, pp, bf16)
     raw_p, ok_p = K.static_tile_scores_plain(pack, groups, pp, bf16)
     raw_t, ok_t = K.static_tile_scores(pack, groups, pp, bf16,
                                        transposed=True)
-    out_k = K.masked_tile_scores(pack, st.used, st.cap, groups,
-                                 st.resident_anti, pp, bf16)
-    out_p = K.masked_tile_scores_plain(pack, st.used, st.cap, groups,
-                                       st.resident_anti, pp, bf16)
+    raw_d, ok_d = K.static_tile_scores(pack, groups, pp, bf16,
+                                       peers=dense_walk(n_k))
+    out_k = K.masked_tile_scores(*margs)
+    out_p = K.masked_tile_scores_plain(*margs)
+    out_d = K.masked_tile_scores(*margs, peers=dense_walk(n_k))
     torch.cuda.synchronize()
-    where = f"({label}, bf16={bf16})"
+    if not (torch.equal(bits(raw_k), bits(raw_d)) and torch.equal(ok_k, ok_d)
+            and torch.equal(bits(out_k), bits(out_d))):
+        fail("kernels", f"the peer-column walk differs from the dense walk "
+             f"{where}: static raw {int((bits(raw_k) != bits(raw_d)).sum())}"
+             f", ok {int((ok_k != ok_d).sum())}, masked "
+             f"{int((bits(out_k) != bits(out_d)).sum())} entries")
     if not torch.equal(ok_k, ok_p):
         fail("kernels", f"static mask differs {where}: "
              f"{int((ok_k != ok_p).sum())} entries")
@@ -235,7 +308,7 @@ def compare_kernels(pack, st, groups, pp, bf16, label):
         fail("kernels", f"static raw differs {where}: {err_s}")
     if not torch.allclose(out_k[m_k], out_p[m_p], rtol=TOL, atol=TOL):
         fail("kernels", f"masked score differs {where}: {err_m}")
-    return err_s, err_m
+    return err_s, err_m, int(count)
 
 
 def canonical_bits(best: torch.Tensor) -> torch.Tensor:
@@ -295,36 +368,54 @@ def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
     groups = st.group_bits.contiguous()
     nnz = int((pp.t != 0).sum())
     p = pp.t.shape[0]
-    # The stream batch's T is sparse (at most K peers per pod), so most
-    # staged tiles multiply zeros.  A dense seeded T of the same shape
-    # drives every T·C product term and every bf16 rounding of T.
+    # The stream batch's T is sparse (at most K peers per pod).  A dense
+    # seeded T of the same shape drives every column, every T·C product
+    # term and every bf16 rounding of T.
     rng = np.random.default_rng(SEED + 11)
     dense = dataclasses.replace(pp, t=torch.from_numpy(
         rng.uniform(0.0, 1.0, (p, n)).astype(np.float32)).to(st.device))
-    # The product T·Cᵀ needs 2·nnz(T)·N FLOPs for this data; the kernels
-    # as written do the dense 2·P·N·N.
-    ops = 2.0 * nnz * n
-    dense_ops = 2.0 * p * n * n
-    pod_in = nbytes(pp.t, pp.pod_valid, pp.tol, pp.sel, pp.soft_sel,
-                    pp.soft_grp, pp.soft_sel_w, pp.soft_grp_w)
-    node_in = nbytes(pack.bw, pack.lat, pack.validk, pack.params, pack.base,
-                     pack.node_valid, pack.taint, pack.label, groups)
-    static_bytes = pod_in + node_in + p * n * (4 + 1)
-    masked_bytes = (pod_in + node_in + p * n * 4
-                    + nbytes(pp.req, pp.affinity, pp.anti, pp.group_bit,
-                             st.resident_anti, st.used, st.cap))
-    # The winner reads what the masked kernel reads and writes 8 bytes
-    # per pod instead of the P x N plane.
-    winner_bytes = masked_bytes - p * n * 4 + p * 8
+    # No traffic: a walk of zero steps, the epilogue and fixed costs.
+    quiet = dataclasses.replace(pp, t=torch.zeros_like(pp.t))
+
+    def bound(nb: float, ops: float) -> dict:
+        t_bytes, t_ops = nb / mem_bw * 1e3, ops / f32_peak * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nb, "ops": ops}
+
+    def needs(t_in, count: int) -> dict:
+        """Bytes and operations that this batch needs, per kernel: T
+        once, the bw/lat (and validk, cols) entries of its ``count`` peer
+        columns, the node and pod planes, each output once; FLOPs
+        2·nnz(T)·N.  The winner writes 8 bytes per pod instead of the
+        P x N plane."""
+        nz = int((t_in != 0).sum())
+        ops = 2.0 * nz * n
+        net = nbytes(t_in) + (2 * n + 2) * count * 4 + 4
+        pod = nbytes(pp.pod_valid, pp.tol, pp.sel, pp.soft_sel, pp.soft_grp,
+                     pp.soft_sel_w, pp.soft_grp_w)
+        node = nbytes(pack.params, pack.base, pack.node_valid, pack.taint,
+                      pack.label, groups)
+        masked_more = nbytes(pp.req, pp.affinity, pp.anti, pp.group_bit,
+                             st.resident_anti, st.used, st.cap)
+        static_b = net + pod + node + p * n * (4 + 1)
+        masked_b = net + pod + node + masked_more + p * n * 4
+        return {"static_scores_kernel": bound(static_b, ops),
+                "masked_scores_kernel": bound(masked_b, ops),
+                "winner_scores_kernel": bound(masked_b - p * n * 4 + p * 8,
+                                              ops),
+                "peer_columns": bound(nbytes(t_in) + (n + 1) * 4,
+                                      float(t_in.numel()))}
+
     # Yardstick: one library product of T with a precomputed Cᵀ.
     c_t = K.desirability_plain(pack).T.contiguous()
-    wargs = (pack, st.used, st.cap, groups, st.resident_anti, pp)
+    wargs = (pack, st.used, st.cap, groups, st.resident_anti)
     results = {}
     for bf16 in (False, True):
-        err_s, err_m = compare_kernels(pack, st, groups, pp, bf16,
-                                       "stream batch")
-        dense_s, dense_m = compare_kernels(pack, st, groups, dense, bf16,
-                                           "dense T")
+        err_s, err_m, count = compare_kernels(pack, st, groups, pp, bf16,
+                                              "stream batch")
+        dense_s, dense_m, dense_count = compare_kernels(
+            pack, st, groups, dense, bf16, "dense T")
         err_w, clear_w = compare_winner(pack, st, groups, pp, bf16,
                                         "stream batch")
         dense_w, dense_clear_w = compare_winner(pack, st, groups, dense,
@@ -334,38 +425,49 @@ def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
         else:
             t_l, c_l = pp.t, c_t
         lib_ms = time_ms(lambda: torch.matmul(t_l, c_l))
+        need, dense_need = needs(pp.t, count), needs(dense.t, dense_count)
+
+        def static_on(b, **kw):
+            return lambda: K.static_tile_scores(pack, groups, b, bf16, **kw)
+
+        def masked_on(b, **kw):
+            return lambda: K.masked_tile_scores(*wargs, b, bf16, **kw)
+
+        walk = dense_walk(n)
         row = {}
-        for name, kern, plain, nb, err, dense_err in (
-                ("static_scores_kernel",
-                 lambda: K.static_tile_scores(pack, groups, pp, bf16),
+        for name, kern, plain, err, dense_err, lib, extra in (
+                ("static_scores_kernel", static_on(pp),
                  lambda: K.static_tile_scores_plain(pack, groups, pp, bf16),
-                 static_bytes, err_s, dense_s),
-                ("masked_scores_kernel",
-                 lambda: K.masked_tile_scores(pack, st.used, st.cap, groups,
-                                              st.resident_anti, pp, bf16),
-                 lambda: K.masked_tile_scores_plain(
-                     pack, st.used, st.cap, groups, st.resident_anti, pp,
-                     bf16),
-                 masked_bytes, err_m, dense_m),
+                 err_s, dense_s, lib_ms,
+                 {"dense_t_ms": time_ms(static_on(dense)),
+                  "dense_walk_ms": time_ms(static_on(pp, peers=walk)),
+                  "no_traffic_ms": time_ms(static_on(quiet))}),
+                ("masked_scores_kernel", masked_on(pp),
+                 lambda: K.masked_tile_scores_plain(*wargs, pp, bf16),
+                 err_m, dense_m, lib_ms,
+                 {"dense_t_ms": time_ms(masked_on(dense)),
+                  "dense_walk_ms": time_ms(masked_on(pp, peers=walk)),
+                  "no_traffic_ms": time_ms(masked_on(quiet))}),
                 ("winner_scores_kernel",
-                 lambda: K.winner_tile_scores(*wargs, bf16),
-                 lambda: K.winner_tile_scores_plain(*wargs, bf16),
-                 winner_bytes, err_w, dense_w)):
-            t_bytes, t_ops = nb / mem_bw * 1e3, ops / f32_peak * 1e3
+                 lambda: K.winner_tile_scores(*wargs, pp, bf16),
+                 lambda: K.winner_tile_scores_plain(*wargs, pp, bf16),
+                 err_w, dense_w, lib_ms,
+                 {"node_rows_held": clear_w,
+                  "dense_t_node_rows_held": dense_clear_w}),
+                # No single library call returns the compacted columns.
+                ("peer_columns", lambda: K.peer_columns(pp.t),
+                 lambda: K.peer_columns_plain(pp.t), 0.0, 0.0, None, {})):
             row[name] = {
                 "max_abs_err": err, "dense_t_max_abs_err": dense_err,
-                "kernel_ms": time_ms(kern),
-                "plain_ms": time_ms(plain), "library_ms": lib_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nb, "ops": ops, "dense_ops": dense_ops,
-                "dense_ops_ms": dense_ops / f32_peak * 1e3}
-        row["winner_scores_kernel"].update(
-            node_rows_held=clear_w, dense_t_node_rows_held=dense_clear_w)
+                "kernel_ms": time_ms(kern), "plain_ms": time_ms(plain),
+                "library_ms": lib, **need[name],
+                "dense_t_bound_ms": dense_need[name]["bound_ms"], **extra}
         results["bf16" if bf16 else "f32"] = row
         emit({"phase": "kernels", "ok": True, "use_bfloat16": bf16,
-              "p": p, "n": n, "nnz_t": nnz, "peak_bytes_per_s": mem_bw,
-              "peak_f32_flops": f32_peak, **row})
+              "p": p, "n": n, "nnz_t": nnz, "count": count,
+              "dense_t_count": dense_count, "l2": "flushed",
+              "peak_bytes_per_s": mem_bw, "peak_f32_flops": f32_peak,
+              "card": nvidia_smi(), **row})
     return results
 
 
@@ -424,6 +526,10 @@ def phase_main(state, stream, cfg):
              f"{launches['static_scores_kernel']} times for {nb} batches")
     if launches["masked_scores_kernel"] < 1:
         fail("main", "the Score/Filter kernel was never launched")
+    if launches["peer_columns"] != (launches["static_scores_kernel"]
+                                    + launches["masked_scores_kernel"]):
+        fail("main", f"peer columns compacted {launches['peer_columns']} "
+             "times, not once per static and answer kernel launch")
     over = final.used > final.cap + score_lib._EPS
     if bool(over.any()):
         fail("main", f"{int(over.any(dim=1).sum())} nodes over capacity")
@@ -772,12 +878,16 @@ def main() -> int:
     src = "kubernetesnetawarescheduler_tpu/core/pallas_score.py"
     replaces = {"static_scores_kernel": f"{src}:278",
                 "masked_scores_kernel": f"{src}:193",
-                "winner_scores_kernel": f"{src}:217"}
+                "winner_scores_kernel": f"{src}:217",
+                # The compaction picks the columns _net_accum walks.
+                "peer_columns": f"{src}:60"}
     # Each kernel's launches on the path it belongs to: the replay for
-    # the static and the answer kernel, the serving seam for the winner.
+    # the static and the answer kernel and their compaction, the serving
+    # seam for the winner.
     path_of = {"static_scores_kernel": "main",
                "masked_scores_kernel": "main",
-               "winner_scores_kernel": "serve"}
+               "winner_scores_kernel": "serve",
+               "peer_columns": "main"}
     by_path = {"main": main_res["launches"], "serve": serve_res["launches"]}
     rows = []
     for kname in K.KERNELS:
@@ -791,7 +901,8 @@ def main() -> int:
             "launches_by_path": {p: c[kname] for p, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "l2": "flushed"})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

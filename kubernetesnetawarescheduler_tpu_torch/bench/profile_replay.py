@@ -7,8 +7,9 @@ Replays ``WARMUP`` batches of the density backlog (5,120 nodes, batches
 of 128, bench.py's shape) so in-stream peers resolve as they would
 mid-run, then profiles the next ``BATCHES`` with ``torch.profiler``.
 Prints one JSON object: per-batch wall time, the device's busy and idle
-share, kernel launches and host syncs per batch, conflict rounds, and the
-top operators by device time and by host time.  Needs a CUDA device.
+share, kernel launches and host syncs per batch, conflict rounds, the
+device time of each hand-written kernel, and the top operators by device
+time and by host time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ from kubernetesnetawarescheduler_tpu_torch.core.tiled_score import (
 
 NODES, BATCH = 5120, 128  # bench.py's density shape
 WARMUP, BATCHES = 40, 24
+# The CUDA kernels of csrc/tiled_score.cu, as the profiler names them.
+TILE_KERNELS = ("peer_flags_kernel", "peer_scan_kernel",
+                "peer_traffic_kernel", "static_scores_kernel",
+                "masked_scores_kernel", "winner_scores_kernel",
+                "winner_finalize_kernel")
 
 
 def main() -> None:
@@ -98,6 +104,9 @@ def main() -> None:
         "rounds_mean": sum(rounds) / nb,
         "tile_kernel_launches": {k: f.launches
                                  for k, f in kernels.KERNELS.items()},
+        "tile_kernel_device_us_per_batch": {
+            k: sum(e.self_device_time_total for e in gpu if k in e.key) / nb
+            for k in TILE_KERNELS},
         "top_device_us_per_batch": [
             [e.key, e.self_device_time_total / nb, int(e.count) / nb]
             for e in top_dev],

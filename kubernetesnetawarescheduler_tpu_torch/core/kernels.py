@@ -22,22 +22,38 @@ Pallas kernels share ``_net_accum``:
   bits high, inverted node index low).  It writes 8 bytes per pod and
   never the P×N plane.
 
-What bounds them on an H100: per call they read the two f32 ``[N, N]``
-network matrices once (≈210 MB at N=5120, ≈0.063 ms at 3.35 TB/s) and,
-as written, do a dense ``2·P·N·N`` f32 FMA contraction (6.7 GFLOP at
-P=128, ≈0.10 ms at 67 TFLOP/s without tensor cores).  ``T`` holds at most
-``K`` peers per pod, so the work the data needs is far smaller and the
-memory side is the true bound.  The design reads ``bw``/``lat`` exactly
-once per pod tile, forms ``C`` in shared memory (it never reaches device
-memory), masks its ragged edges itself (the host pads nothing), and
-writes each output once.  It does not yet skip all-zero ``T`` tiles or
-use tensor cores; that is later work.
+What bounds them on an H100: ``T`` holds at most ``max_peers`` non-zeros
+per pod (192 of 5,120 columns in a 128-pod stream batch), so the function
+needs only ``T``, the ``bw``/``lat`` columns of the batch's peers
+(``2·N·count·4`` bytes), the node and pod planes and the outputs: ≈13 MB
+at P=128, N=5,120, a bytes bound of ≈0.004 ms at 3.35 TB/s; the
+``2·nnz(T)·N`` FLOPs are negligible.
+
+The static and the masked kernel walk only those peer columns:
+:func:`peer_columns` compacts them on the device (two small kernels,
+``peer_flags_kernel`` and ``peer_scan_kernel``: the ascending columns
+with any non-zero ``T`` and their count, which stays in device memory).
+Each score call then copies ``T[:, cols]`` into a peer-major scratch
+(``peer_traffic_kernel``) and walks the columns 32 at a time, copying
+the traffic rows and gathering the ``bw``/``lat`` columns with
+``cp.async``, two stages deep, forming ``C`` in shared memory (it never
+reaches device memory).  Skipped columns would add
+``fmaf(0, c, acc) == acc``, so the result has the same bits as the dense
+walk; ``peers=(arange(n_k), [n_k])`` runs that dense walk through the
+same kernel.  Tiles are 128 pods × 16 nodes (320 blocks at P=128,
+N=5,120, three resident per SM), and the output tile goes through shared
+memory so that both the ``[P, N]`` and the node-major ``[N, P]`` layout
+are stored in contiguous runs.  What is left of the time is mostly the
+scattered ``bw``/``lat`` gathers, one 32-byte sector per element in the
+row-major layout.  The winner kernel still walks every column (64×64
+tiles, synchronous staging); it moves onto the peer walk later.
 
 Beside each kernel is its plain PyTorch version (same function, same
 bf16 rounding rule: bf16-rounded inputs when ``use_bfloat16`` is set,
-f32 accumulation, f32 out).  A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches the kernel or raises — it never
-falls back.  Each wrapper counts its kernel launches in ``.launches``.
+f32 accumulation, f32 out); the plain score versions compute the dense
+product.  A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches the kernel or raises — it never falls back.  Each
+wrapper counts its kernel launches in ``.launches``.
 
 The library is built on first use with ``nvcc`` for ``sm_90a`` into
 ``kubernetesnetawarescheduler_tpu_torch/_build/`` and bound with
@@ -133,13 +149,15 @@ def build_library() -> ctypes.CDLL:
     """Compile ``csrc/tiled_score.cu`` (once per source content) and load
     it.  ``build_library.seconds`` holds the compile time of this
     process's build (0 when a cached library was loaded) and
-    ``build_library.log`` the compiler's ``-Xptxas -v`` report."""
+    ``build_library.log`` the compiler's ``-Xptxas -v`` report, kept
+    beside the library so a cached load reads it too."""
     global _LIB
     if _LIB is not None:
         return _LIB
     src = SOURCE.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"libtiled_score_{digest[:16]}.so"
+    log = out.with_suffix(".log")
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -148,17 +166,21 @@ def build_library() -> ctypes.CDLL:
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
             capture_output=True, text=True, check=False)
         build_library.seconds = time.perf_counter() - t0
-        build_library.log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_library.log}")
+            raise RuntimeError(f"nvcc failed on {SOURCE}:\n"
+                               f"{proc.stdout + proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
+    build_library.log = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(out))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tiled_peer_columns.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
+    lib.tiled_peer_columns.restype = i32
     lib.tiled_static_scores.argtypes = (
-        [ptr] * 17 + [ptr, ptr, i64, i64] + [i32] * 6 + [ptr])
+        [ptr] * 20 + [ptr, ptr, i64, i64] + [i32] * 6 + [ptr])
     lib.tiled_static_scores.restype = i32
     lib.tiled_masked_scores.argtypes = (
-        [ptr] * 24 + [ptr] + [i32] * 7 + [ptr])
+        [ptr] * 27 + [ptr] + [i32] * 7 + [ptr])
     lib.tiled_masked_scores.restype = i32
     lib.tiled_winner_scores.argtypes = (
         [ptr] * 24 + [ptr, ptr, ptr] + [i32] * 7 + [ptr])
@@ -250,6 +272,18 @@ def _raise_on(err: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 # Plain versions (the same functions in PyTorch).
 # ---------------------------------------------------------------------------
+
+
+def peer_columns_plain(t: torch.Tensor):
+    """Plain version of :func:`peer_columns`: ``(cols i32[n_k],
+    count i32[1])``, ``cols[:count]`` the ascending columns of ``t`` with
+    any non-zero entry (NaN counts as non-zero), ``cols[count:] == -1``."""
+    n_k = t.shape[1]
+    hit = torch.nonzero((t != 0).any(dim=0)).flatten().to(torch.int32)
+    cols = torch.full((n_k,), -1, dtype=torch.int32, device=t.device)
+    cols[:hit.numel()] = hit
+    return cols, torch.tensor([hit.numel()], dtype=torch.int32,
+                              device=t.device)
 
 
 def desirability_plain(pack: StaticPack) -> torch.Tensor:
@@ -356,15 +390,59 @@ def winner_tile_scores_plain(pack: StaticPack, used: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def peer_columns(t: torch.Tensor):
+    """``(cols i32[n_k], count i32[1])``: the ascending columns of the
+    traffic matrix ``t f32[P, n_k]`` with any non-zero entry, ``-1`` past
+    ``count``.  CPU tensors take :func:`peer_columns_plain`; CUDA tensors
+    launch ``peer_flags_kernel`` and ``peer_scan_kernel`` on the current
+    stream, and ``count`` stays on the device (no host sync)."""
+    dev = t.device
+    if dev.type == "cpu":
+        return peer_columns_plain(t)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    p, n_k = t.shape
+    ptr = _check(t, torch.float32, (p, n_k), "t", dev)
+    flags = torch.empty((n_k,), dtype=torch.int32, device=dev)
+    cols = torch.empty((n_k,), dtype=torch.int32, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    lib = build_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tiled_peer_columns(ptr, flags.data_ptr(), cols.data_ptr(),
+                                     count.data_ptr(), p, n_k, stream)
+    _raise_on(err, "peer_columns")
+    peer_columns.launches += 1
+    return cols, count
+
+
+peer_columns.launches = 0
+
+
+def _peer_buffers(peers, pods: PodPack, dev: torch.device):
+    """``(cols, count, tk)``: ``peers`` (compacted from ``pods.t`` by
+    :func:`peer_columns` when None), checked, and the kernels' scratch
+    for the peer columns' traffic, ``f32[n_k, P rounded up to 4]``.  The
+    caller holds all three until its launch is enqueued."""
+    p, n_k = pods.t.shape
+    cols, count = peer_columns(pods.t) if peers is None else peers
+    _check(cols, torch.int32, (n_k,), "peer cols", dev)
+    _check(count, torch.int32, (1,), "peer count", dev)
+    tk = torch.empty((n_k, (p + 3) // 4 * 4), dtype=torch.float32,
+                     device=dev)
+    return cols, count, tk
+
+
 def static_tile_scores(pack: StaticPack, groups: torch.Tensor,
                        pods: PodPack, use_bfloat16: bool,
-                       transposed: bool = False):
+                       transposed: bool = False, peers=None):
     """``(raw f32, ok bool)`` of ``_static_kernel``'s function, shaped
     ``[P, N]`` or, with ``transposed``, node-major ``[N, P]`` (the
     conflict loop's layout, written directly by the kernel).
 
     CPU tensors take :func:`static_tile_scores_plain`; CUDA tensors
-    launch ``static_scores_kernel`` on the current stream."""
+    launch :func:`peer_columns` (unless ``peers=(cols, count)`` is given)
+    and ``static_scores_kernel`` on the current stream."""
     dev = pack.bw.device
     if dev.type == "cpu":
         raw, ok = static_tile_scores_plain(pack, groups, pods, use_bfloat16)
@@ -379,6 +457,8 @@ def static_tile_scores(pack: StaticPack, groups: torch.Tensor,
         _check(pods.tol, i32, (p, mw), "tol", dev),
         _check(pods.sel, i32, (p, mw), "sel", dev),
     ] + _soft_args(pods, dev)
+    bufs = _peer_buffers(peers, pods, dev)
+    args += [b.data_ptr() for b in bufs]
     shape = (n_out, p) if transposed else (p, n_out)
     raw = torch.empty(shape, dtype=f32, device=dev)
     ok = torch.empty(shape, dtype=torch.bool, device=dev)
@@ -400,9 +480,10 @@ static_tile_scores.launches = 0
 def masked_tile_scores(pack: StaticPack, used: torch.Tensor,
                        cap: torch.Tensor, groups: torch.Tensor,
                        resident_anti: torch.Tensor, pods: PodPack,
-                       use_bfloat16: bool) -> torch.Tensor:
+                       use_bfloat16: bool, peers=None) -> torch.Tensor:
     """Masked score ``f32[P, N]`` of ``_kernel``'s function.  CPU tensors
     take :func:`masked_tile_scores_plain`; CUDA tensors launch
+    :func:`peer_columns` (unless ``peers=(cols, count)`` is given) and
     ``masked_scores_kernel`` on the current stream."""
     dev = pack.bw.device
     if dev.type == "cpu":
@@ -412,6 +493,8 @@ def masked_tile_scores(pack: StaticPack, used: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     p, n_out, n_k, r, mw, t_soft = _shapes(pack, pods)
     args = _masked_args(pack, used, cap, groups, resident_anti, pods, dev)
+    bufs = _peer_buffers(peers, pods, dev)
+    args += [b.data_ptr() for b in bufs]
     out = torch.empty((p, n_out), dtype=torch.float32, device=dev)
     lib = build_library()
     with torch.cuda.device(dev):
@@ -463,13 +546,13 @@ winner_tile_scores.launches = 0
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    static_tile_scores.launches = 0
-    masked_tile_scores.launches = 0
-    winner_tile_scores.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 KERNELS = {
     "static_scores_kernel": static_tile_scores,
     "masked_scores_kernel": masked_tile_scores,
     "winner_scores_kernel": winner_tile_scores,
+    "peer_columns": peer_columns,
 }

@@ -24,6 +24,10 @@ from kubernetesnetawarescheduler_tpu_torch.core import state as tstate
 
 from tests import gen
 
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
+
 KW = dict(max_nodes=160, max_pods=24, max_peers=6, use_bfloat16=False)
 SMALL = dict(max_nodes=16, max_pods=12, max_peers=4, use_bfloat16=False)
 

@@ -31,6 +31,10 @@ from kubernetesnetawarescheduler_tpu_torch.core.score import (
 )
 from kubernetesnetawarescheduler_tpu_torch.core.state import exact_matmul
 
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.gpu
 
 
@@ -109,6 +113,85 @@ def test_kernels_match_plain_on_dense_traffic(cuda, bf16):
             state.resident_anti, pods, bf16)
     out = kernels.masked_tile_scores(*args)
     out_p = kernels.masked_tile_scores_plain(*args)
+    m = out_p > NEG_HALF
+    assert torch.equal(out > NEG_HALF, m) and bool(m.any())
+    assert torch.allclose(out[m], out_p[m], rtol=1e-4, atol=1e-4)
+
+
+def _dense_walk(t):
+    """``peers`` that walk every column of ``t``: the dense walk."""
+    n_k = t.shape[1]
+    return (torch.arange(n_k, dtype=torch.int32, device=t.device),
+            torch.tensor([n_k], dtype=torch.int32, device=t.device))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(100, 320), (128, 5120), (7, 301)])
+def test_peer_columns_kernel_matches_plain(cuda, shape):
+    """All-zero, dense and sparse traffic (a NaN counts as traffic),
+    including a column count that is not a multiple of 32."""
+    p, n_k = shape
+    rng = np.random.default_rng(n_k)
+    sparse = np.zeros(shape, np.float32)
+    pick = rng.choice(n_k, 40, replace=False)
+    sparse[rng.integers(0, p, 40), pick] = rng.uniform(0.1, 5.0, 40)
+    sparse[0, pick[0]] = np.nan
+    cases = [np.zeros(shape, np.float32),
+             rng.uniform(0.5, 1.0, shape).astype(np.float32), sparse]
+    kernels.reset_launch_counts()
+    for t_np in cases:
+        t = torch.from_numpy(t_np).to(cuda)
+        cols, count = kernels.peer_columns(t)
+        cols_p, count_p = kernels.peer_columns_plain(t)
+        torch.cuda.synchronize()
+        assert torch.equal(cols, cols_p) and torch.equal(count, count_p)
+    assert kernels.peer_columns.launches == 3
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("traffic", ["stream", "dense", "none"])
+@pytest.mark.parametrize("n_pods", [99, 150])
+def test_peer_walk_is_bit_identical_to_dense_walk(cuda, bf16, traffic,
+                                                  n_pods):
+    """The static and the masked kernel over the compacted peer columns
+    give the same bits as the same kernels over every column, with P and
+    N not tile multiples (P not a multiple of 4; one and two pod tiles);
+    without traffic (``count == 0``) they still run the epilogue."""
+    _, state, pack, pods = _inputs(cuda, nodes=290, max_nodes=301,
+                                   pods=n_pods, seed=10)
+    if traffic == "dense":
+        rng = np.random.default_rng(10)
+        pods = dataclasses.replace(pods, t=torch.from_numpy(
+            rng.uniform(0.0, 1.0, tuple(pods.t.shape)).astype(np.float32))
+            .to(cuda))
+    elif traffic == "none":
+        pods = dataclasses.replace(pods, t=torch.zeros_like(pods.t))
+    n_k = pods.t.shape[1]
+    count = int(kernels.peer_columns(pods.t)[1])
+    assert (count == 0) if traffic == "none" else (0 < count <= n_k)
+    assert (count == n_k) == (traffic == "dense")
+    groups, walk = state.group_bits, _dense_walk(pods.t)
+    raw, ok = kernels.static_tile_scores(pack, groups, pods, bf16)
+    raw_d, ok_d = kernels.static_tile_scores(pack, groups, pods, bf16,
+                                             peers=walk)
+    raw_t, ok_t = kernels.static_tile_scores(pack, groups, pods, bf16,
+                                             transposed=True)
+    args = (pack, state.used, state.cap, groups, state.resident_anti, pods,
+            bf16)
+    out = kernels.masked_tile_scores(*args)
+    out_d = kernels.masked_tile_scores(*args, peers=walk)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(raw), _bits(raw_d)) and torch.equal(ok, ok_d)
+    assert torch.equal(_bits(out), _bits(out_d))
+    assert torch.equal(_bits(raw_t), _bits(raw.T)) and torch.equal(ok_t,
+                                                                   ok.T)
+    raw_p, ok_p = kernels.static_tile_scores_plain(pack, groups, pods, bf16)
+    out_p = kernels.masked_tile_scores_plain(*args)
+    assert torch.equal(ok, ok_p)
+    assert torch.allclose(raw, raw_p, rtol=1e-4, atol=1e-4)
     m = out_p > NEG_HALF
     assert torch.equal(out > NEG_HALF, m) and bool(m.any())
     assert torch.allclose(out[m], out_p[m], rtol=1e-4, atol=1e-4)
@@ -234,6 +317,14 @@ def test_wrapper_rejects_bad_inputs_and_counts_launches(cuda):
     kernels.reset_launch_counts()
     kernels.static_tile_scores(pack, state.group_bits, pods, False)
     assert kernels.static_tile_scores.launches == 1
+    assert kernels.peer_columns.launches == 1
+    cols, count = kernels.peer_columns(pods.t)
+    with pytest.raises(TypeError):
+        kernels.static_tile_scores(pack, state.group_bits, pods, False,
+                                   peers=(cols.long(), count))
+    with pytest.raises(ValueError):
+        kernels.static_tile_scores(pack, state.group_bits, pods, False,
+                                   peers=(cols[:-1], count))
     with pytest.raises(TypeError):
         kernels.static_tile_scores(pack, state.group_bits.float(), pods,
                                    False)

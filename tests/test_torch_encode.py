@@ -32,6 +32,10 @@ from kubernetesnetawarescheduler_tpu_torch.core.encode import (
     split_stream_waves,
 )
 
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
+
 KW = dict(max_nodes=48, max_pods=16, max_peers=4)
 NODES = 40
 JAX = types.SimpleNamespace(fc=jfc, make=lambda cfg: jencode.Encoder(

@@ -8,9 +8,14 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from kubernetesnetawarescheduler_tpu.bench import fakecluster as jfc
 from kubernetesnetawarescheduler_tpu_torch.bench import fakecluster as tfc
+
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
 
 CLASSES = dict(node_classes=(
     dict(name="gpu", fraction=0.25, cpu_range=(32.0, 96.0), lat_scale=0.5,

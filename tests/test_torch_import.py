@@ -24,6 +24,10 @@ from kubernetesnetawarescheduler_tpu_torch.core.state import (
     init_pod_batch,
 )
 
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 _BLOCKED_IMPORT = r"""

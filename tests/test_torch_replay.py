@@ -38,6 +38,10 @@ from kubernetesnetawarescheduler_tpu_torch.core import replay as treplay
 from kubernetesnetawarescheduler_tpu_torch.core import state as tstate
 from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
 
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
+
 # The JAX package's u32 mask fields (i32 with the same bits in the port).
 STATE_U32 = {"label_bits", "taint_bits", "group_bits", "resident_anti",
              "az_anti"}

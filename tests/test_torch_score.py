@@ -22,6 +22,10 @@ from kubernetesnetawarescheduler_tpu_torch.core import state as tstate
 
 from tests import gen
 
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
+
 # K=6 takes the peer-gather form (6 * 16 <= 160); K=12 the dense product.
 GATHER = dict(max_nodes=160, max_pods=24, max_peers=6, use_bfloat16=False)
 DENSE = dict(GATHER, max_peers=12)

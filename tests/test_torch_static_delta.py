@@ -38,6 +38,10 @@ from kubernetesnetawarescheduler_tpu_torch.core.tiled_score import (
 )
 from kubernetesnetawarescheduler_tpu_torch.k8s.types import Node as TNode
 
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
+
 ZONES = ("z0", "z1", "z2")
 
 

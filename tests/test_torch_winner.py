@@ -31,6 +31,10 @@ from kubernetesnetawarescheduler_tpu_torch.core.score import NEG_HALF
 
 from tests import gen
 
+# One intra-op thread per test process: the suite runs in parallel
+# workers beside wall-clock tests.
+torch.set_num_threads(1)
+
 KW = dict(max_nodes=64, max_pods=16, max_peers=4, use_bfloat16=False)
 BLOCKS = dict(block_p=8, block_n=32, block_k=32, interpret=True)
 
