@@ -11,13 +11,13 @@ csrc`` and prints one JSON object per phase:
 
 1. ``device``   the card (``nvidia-smi`` name and power limit), torch and
                 CUDA versions, the kernels' build time and ``ptxas``
-                report; fails if the static or the masked kernel spills.
+                report; fails if a score kernel spills.
 2. ``kernels``  each kernel against its plain PyTorch version on the card
                 at P=128, N=5120, with ``use_bfloat16`` off and on, on a
                 stream batch and on a dense seeded traffic matrix: the
                 peer-column compaction identical to its plain version;
-                the static and masked kernels over the compacted columns
-                bit-identical to the same kernels over every column;
+                each score kernel over the compacted columns
+                bit-identical to the same kernel over every column;
                 masks identical and scores within rtol=atol=1e-4; the
                 winner's ``best`` within the same bar, its ``node``
                 identical on every row whose plain top-two gap exceeds
@@ -45,8 +45,10 @@ csrc`` and prints one JSON object per phase:
                 ``fused_schedule_step`` with its state digest and committed
                 back into the encoder, with link and metric churn every 8
                 batches.  Fails unless the winner kernel ran once per
-                batch and agrees with the two-stage winner, the fused step
-                equals ``assign_parallel`` + ``commit_assignments``, every
+                batch and agrees with the two-stage winner, the peer
+                columns were compacted once per score kernel launch, the
+                fused step equals ``assign_parallel`` +
+                ``commit_assignments``, every
                 digest equals the host digest of the state, every
                 incremental prep equals a full one, the final snapshot
                 equals ``expected_device_arrays()``, no node exceeds its
@@ -211,7 +213,8 @@ def phase_device() -> dict:
             "build_s": build_s, "nvcc_s": kernels.build_library.seconds,
             "spills": spills, "ptxas": ptxas}
     # The peer-walk kernels must keep their register tiles unspilled.
-    for kname in ("static_scores_kernel", "masked_scores_kernel"):
+    for kname in ("static_scores_kernel", "masked_scores_kernel",
+                  "winner_scores_kernel"):
         if spills[kname] is None or any(spills[kname]):
             emit({**info, "ok": False})
             fail("device", f"ptxas reports spills for {kname}: "
@@ -320,10 +323,10 @@ def canonical_bits(best: torch.Tensor) -> torch.Tensor:
 def compare_winner(pack, st, groups, pp, bf16, label):
     """The winner kernel against its plain version (``best`` within
     rtol=atol=TOL, ``node`` identical on every row whose plain top-two gap
-    exceeds the allclose bar) and against ``winner_from_scores`` of the
-    masked kernel on the card (identical).  Returns the max abs error of
-    ``best`` and the number of rows whose node was held to the plain
-    version."""
+    exceeds the allclose bar), and against ``winner_from_scores`` of the
+    masked kernel on the card and its own dense walk (both identical).
+    Returns the max abs error of ``best`` and the number of rows whose
+    node was held to the plain version."""
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
     from kubernetesnetawarescheduler_tpu_torch.core.score import (
         winner_from_scores,
@@ -331,6 +334,8 @@ def compare_winner(pack, st, groups, pp, bf16, label):
 
     args = (pack, st.used, st.cap, groups, st.resident_anti, pp, bf16)
     best_k, node_k = K.winner_tile_scores(*args)
+    best_d, node_d = K.winner_tile_scores(*args,
+                                          peers=dense_walk(pp.t.shape[1]))
     scores_p = K.masked_tile_scores_plain(*args)
     best_p, node_p = winner_from_scores(scores_p)
     best_m, node_m = winner_from_scores(K.masked_tile_scores(*args))
@@ -351,6 +356,12 @@ def compare_winner(pack, st, groups, pp, bf16, label):
             and torch.equal(canonical_bits(best_k), canonical_bits(best_m))):
         fail("kernels", f"winner kernel differs from winner_from_scores of "
              f"the masked kernel {where}")
+    if not (torch.equal(node_k, node_d)
+            and torch.equal(canonical_bits(best_k), canonical_bits(best_d))):
+        fail("kernels", f"the winner's peer-column walk differs from its "
+             f"dense walk {where}: {int((node_k != node_d).sum())} nodes, "
+             f"{int((canonical_bits(best_k) != canonical_bits(best_d)).sum())}"
+             f" best values")
     if not bool((node_k >= 0).any()):
         fail("kernels", f"winner kernel found no feasible node {where}")
     return float((best_k - best_p).abs().max()), int(clear.sum())
@@ -433,6 +444,9 @@ def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
         def masked_on(b, **kw):
             return lambda: K.masked_tile_scores(*wargs, b, bf16, **kw)
 
+        def winner_on(b, **kw):
+            return lambda: K.winner_tile_scores(*wargs, b, bf16, **kw)
+
         walk = dense_walk(n)
         row = {}
         for name, kern, plain, err, dense_err, lib, extra in (
@@ -448,11 +462,13 @@ def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
                  {"dense_t_ms": time_ms(masked_on(dense)),
                   "dense_walk_ms": time_ms(masked_on(pp, peers=walk)),
                   "no_traffic_ms": time_ms(masked_on(quiet))}),
-                ("winner_scores_kernel",
-                 lambda: K.winner_tile_scores(*wargs, pp, bf16),
+                ("winner_scores_kernel", winner_on(pp),
                  lambda: K.winner_tile_scores_plain(*wargs, pp, bf16),
                  err_w, dense_w, lib_ms,
-                 {"node_rows_held": clear_w,
+                 {"dense_t_ms": time_ms(winner_on(dense)),
+                  "dense_walk_ms": time_ms(winner_on(pp, peers=walk)),
+                  "no_traffic_ms": time_ms(winner_on(quiet)),
+                  "node_rows_held": clear_w,
                   "dense_t_node_rows_held": dense_clear_w}),
                 # No single library call returns the compacted columns.
                 ("peer_columns", lambda: K.peer_columns(pp.t),
@@ -803,6 +819,11 @@ def phase_serve():
     check(launches["static_scores_kernel"] == SERVE_BATCHES,
           f"static kernel launched {launches['static_scores_kernel']} "
           f"times for {SERVE_BATCHES} fused steps")
+    check(launches["peer_columns"] == (launches["static_scores_kernel"]
+                                       + launches["masked_scores_kernel"]
+                                       + launches["winner_scores_kernel"]),
+          f"peer columns compacted {launches['peer_columns']} times, not "
+          "once per score kernel launch")
     check(delta_batches > 0, "no batch took the static delta path")
     check(peers_resolved > 0, "no peer resolved to a placed pod")
 

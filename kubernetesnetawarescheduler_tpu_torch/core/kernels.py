@@ -29,7 +29,7 @@ needs only ``T``, the ``bw``/``lat`` columns of the batch's peers
 at P=128, N=5,120, a bytes bound of ≈0.004 ms at 3.35 TB/s; the
 ``2·nnz(T)·N`` FLOPs are negligible.
 
-The static and the masked kernel walk only those peer columns:
+All three kernels walk only those peer columns:
 :func:`peer_columns` compacts them on the device (two small kernels,
 ``peer_flags_kernel`` and ``peer_scan_kernel``: the ascending columns
 with any non-zero ``T`` and their count, which stays in device memory).
@@ -43,10 +43,13 @@ walk; ``peers=(arange(n_k), [n_k])`` runs that dense walk through the
 same kernel.  Tiles are 128 pods × 16 nodes (320 blocks at P=128,
 N=5,120, three resident per SM), and the output tile goes through shared
 memory so that both the ``[P, N]`` and the node-major ``[N, P]`` layout
-are stored in contiguous runs.  What is left of the time is mostly the
-scattered ``bw``/``lat`` gathers, one 32-byte sector per element in the
-row-major layout.  The winner kernel still walks every column (64×64
-tiles, synchronous staging); it moves onto the peer walk later.
+are stored in contiguous runs; the winner stores no tile and reduces it
+in registers, an 8-lane shuffle per pod row and one ``atomicMax`` per
+pod row and tile.  What is left of the time is the scattered
+``bw``/``lat`` gathers, one 32-byte sector per element in the row-major
+layout, and the epilogue; a peer-major copy of ``bw``/``lat`` would
+remove the first, at the cost of another N×N pair kept in step with the
+encoder's delta patches.
 
 Beside each kernel is its plain PyTorch version (same function, same
 bf16 rounding rule: bf16-rounded inputs when ``use_bfloat16`` is set,
@@ -183,7 +186,7 @@ def build_library() -> ctypes.CDLL:
         [ptr] * 27 + [ptr] + [i32] * 7 + [ptr])
     lib.tiled_masked_scores.restype = i32
     lib.tiled_winner_scores.argtypes = (
-        [ptr] * 24 + [ptr, ptr, ptr] + [i32] * 7 + [ptr])
+        [ptr] * 27 + [ptr, ptr, ptr] + [i32] * 7 + [ptr])
     lib.tiled_winner_scores.restype = i32
     _LIB = lib
     return lib
@@ -513,11 +516,12 @@ masked_tile_scores.launches = 0
 def winner_tile_scores(pack: StaticPack, used: torch.Tensor,
                        cap: torch.Tensor, groups: torch.Tensor,
                        resident_anti: torch.Tensor, pods: PodPack,
-                       use_bfloat16: bool):
+                       use_bfloat16: bool, peers=None):
     """``(best f32[P], node i32[P])`` of ``_winner_kernel``'s function:
     per pod, the highest masked score and the LOWEST node index holding
     it, ``node == -1`` where the row is all-infeasible.  CPU tensors take
     :func:`winner_tile_scores_plain`; CUDA tensors launch
+    :func:`peer_columns` (unless ``peers=(cols, count)`` is given) and
     ``winner_scores_kernel`` on the current stream."""
     dev = pack.bw.device
     if dev.type == "cpu":
@@ -527,6 +531,8 @@ def winner_tile_scores(pack: StaticPack, used: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     p, n_out, n_k, r, mw, t_soft = _shapes(pack, pods)
     args = _masked_args(pack, used, cap, groups, resident_anti, pods, dev)
+    bufs = _peer_buffers(peers, pods, dev)
+    args += [b.data_ptr() for b in bufs]
     keys = torch.empty((p,), dtype=torch.int64, device=dev)
     best = torch.empty((p,), dtype=torch.float32, device=dev)
     node = torch.empty((p,), dtype=torch.int32, device=dev)

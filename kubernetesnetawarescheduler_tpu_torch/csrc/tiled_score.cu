@@ -29,11 +29,11 @@
 // (192 columns of 5,120 in a 128-pod stream batch), so the function
 // needs only T, the bw/lat columns of the peers the batch uses, the
 // node and pod planes and the outputs: ≈13 MB at P=128, N=5,120, a
-// bytes bound of ≈0.004 ms at 3.35 TB/s; the 2·nnz(T)·N FLOPs are
-// nothing.  Walking all n_k columns instead reads the full 210 MB of
-// bw/lat.
+// bytes bound of ≈0.004 ms at 3.35 TB/s (≈10 MB for the winner, which
+// writes 8 bytes per pod); the 2·nnz(T)·N FLOPs are nothing.  Walking
+// all n_k columns instead reads the full 210 MB of bw/lat.
 //
-// Static and masked kernels (the peer-column walk):
+// All three kernels walk the batch's peer columns only:
 // - peer_flags_kernel and peer_scan_kernel compact the batch's peer
 //   columns on the device: cols = the ascending k with any T[:, k] != 0,
 //   count in device memory (never on the host), cols[count:] = -1.
@@ -45,8 +45,8 @@
 //   bw[n, cols[j]], lat[n, cols[j]] and validk[cols[j]] (4 bytes a
 //   thread) into shared memory with cp.async, two stages deep, so the
 //   next step's copies fly while this step's FMAs run.  C is formed
-//   from the staged raw values with the same _rn operations as the
-//   dense walk; the diagonal pin and validk use the gathered column
+//   from the staged raw values with the _rn operations of the plain
+//   version; the diagonal pin and validk use the gathered column
 //   cols[j].  Each (p, n) accumulates with fmaf over cols in ascending
 //   order, and a skipped column would have added fmaf(0, c, acc) == acc
 //   (c finite), so the result has the same bits as the dense walk over
@@ -59,9 +59,12 @@
 //   tile.  The output tile is staged in shared memory and stored in the
 //   layout asked for: [P, N] in 64-byte pod-row runs, node-major [N, P]
 //   in 512-byte node-row runs.
-//
-// The winner kernel keeps the dense walk (net_accum): 64 x 64 tiles over
-// all n_k columns in steps of 32, synchronous staging.
+// - The winner runs the same walk and the masked kernel's epilogue on the
+//   same tile, then reduces it in registers: the 8 lanes of a pod row
+//   each take the best of their 2 nodes, a 3-step xor shuffle the row's
+//   best, and one atomicMax per pod row and tile (40,960 at P=128,
+//   N=5,120, 320 per pod) folds the tiles.  It stores no output tile;
+//   zeroing the keys and unpacking them are two more short launches.
 //
 // Every ragged edge is masked in the kernels, so the host pads nothing.
 // Elementwise arithmetic outside the accumulation uses the _rn
@@ -81,12 +84,6 @@
 
 namespace {
 
-constexpr int kBP = 64;   // pods per block tile
-constexpr int kBN = 64;   // output nodes per block tile
-constexpr int kBK = 32;   // peer-axis step
-constexpr int kThreads = 256;
-constexpr int kRP = kBP / 16;  // pods per thread
-constexpr int kRN = kBN / 16;  // nodes per thread
 constexpr float kNegInf = -1e30f;
 
 struct NetIn {
@@ -127,70 +124,8 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// acc[i][j] = Σ_k T[p0 + ty + 16i, k] · C[n0 + tx + 16j, k].
-__device__ __forceinline__ void net_accum(const NetIn& in, int p0, int n0,
-                                          float (&acc)[kRP][kRN]) {
-  __shared__ float ts[kBK][kBP + 1];
-  __shared__ float cs[kBK][kBN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const float wbw = in.params[0];
-  const float wlat = in.params[1];
-  const float inv_bw = in.params[2];
-  const float inv_lat = in.params[3];
-  const int row_off = static_cast<int>(in.params[7]);
-
-#pragma unroll
-  for (int i = 0; i < kRP; ++i)
-#pragma unroll
-    for (int j = 0; j < kRN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < in.n_k; k0 += kBK) {
-    // Neighbouring threads take neighbouring k: coalesced row reads,
-    // and the +1 padding keeps the transposed shared stores free of
-    // bank conflicts.
-    for (int e = tid; e < kBP * kBK; e += kThreads) {
-      const int pp = e / kBK, kk = e % kBK;
-      const int p = p0 + pp, k = k0 + kk;
-      float v = 0.f;
-      if (p < in.p && k < in.n_k) v = in.t[(size_t)p * in.n_k + k];
-      if (in.use_bf16) v = bf16_round(v);
-      ts[kk][pp] = v;
-    }
-    for (int e = tid; e < kBN * kBK; e += kThreads) {
-      const int nn = e / kBK, kk = e % kBK;
-      const int n = n0 + nn, k = k0 + kk;
-      float c = 0.f;
-      if (n < in.n_out && k < in.n_k) {
-        const size_t off = (size_t)n * in.n_k + k;
-        c = __fsub_rn(__fmul_rn(__fmul_rn(wbw, in.bw[off]), inv_bw),
-                      __fmul_rn(__fmul_rn(wlat, in.lat[off]), inv_lat));
-        if (row_off + n == k) c = wbw;
-        c = __fmul_rn(c, in.validk[k]);
-        if (in.use_bf16) c = bf16_round(c);
-      }
-      cs[kk][nn] = c;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kRP], b[kRN];
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) a[i] = ts[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kRN; ++j) b[j] = cs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kRP; ++i)
-#pragma unroll
-        for (int j = 0; j < kRN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------
-// The peer-column walk of the static and the masked kernel.
+// The peer-column walk of the three score kernels.
 // ---------------------------------------------------------------------
 
 constexpr int kQThreads = 256;  // threads per block
@@ -351,8 +286,8 @@ __device__ __forceinline__ void net_accum_peers(const NetIn& in,
     const int col_after = s + 2 < steps ? step_col(pr, count, s + 2) : -1;
     cp_async_wait_prev();
     __syncthreads();
-    // Form C in place, as net_accum forms each tile (the traffic rows
-    // arrive bf16-rounded already when use_bf16 is set).
+    // Form C in place, in desirability_plain's operation order (the
+    // traffic rows arrive bf16-rounded already when use_bf16 is set).
 #pragma unroll
     for (int i = 0; i < kQN / kRows; ++i) {
       const int nn = r + kRows * i;
@@ -565,26 +500,28 @@ __device__ __forceinline__ unsigned long long winner_key(float s, int n) {
 // tiles, so the P x N plane never reaches device memory.  Blocks run in
 // no order, so the reduction is an atomicMax on the packed key (max is
 // order-free, hence the result is the same on every run).  Within a
-// 64 x 64 tile the 16 threads of a pod row form a half-warp (tid =
-// ty * 16 + tx); each takes the best of its 4 nodes, a 16-lane xor
-// shuffle finds the tile's best, and lane tx == 0 issues one atomic per
-// pod row.  keys must start at 0 (below every real key).
-__global__ void __launch_bounds__(kThreads)
-winner_scores_kernel(NetIn in, NodeIn nd, PodIn pd, unsigned long long* keys,
-                     int n_res, int mw, int t_soft) {
-  const int n0 = blockIdx.x * kBN;
-  const int p0 = blockIdx.y * kBP;
-  float acc[kRP][kRN];
-  net_accum(in, p0, n0, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// 128 x 16 tile the kTN = 8 threads of a pod row are 8 consecutive
+// lanes (tid = ty * kTN + tx); each takes the best of its kQRN nodes, an
+// 8-lane xor shuffle finds the tile's best, and lane tx == 0 issues one
+// atomic per pod row.  keys must start at 0 (below every real key).
+__global__ void __launch_bounds__(kQThreads, 3)
+winner_scores_kernel(NetIn in, PeersIn pr, NodeIn nd, PodIn pd,
+                     unsigned long long* keys, int n_res, int mw,
+                     int t_soft) {
+  __shared__ PeerSmem sm;
+  const int n0 = blockIdx.x * kQN;
+  const int p0 = blockIdx.y * kQP;
+  float acc[kQRP][kQRN];
+  net_accum_peers(in, pr, p0, n0, sm, acc);
+  const int tx = threadIdx.x % kTN, ty = threadIdx.x / kTN;
 #pragma unroll
-  for (int i = 0; i < kRP; ++i) {
-    const int p = p0 + ty + 16 * i;
+  for (int i = 0; i < kQRP; ++i) {
+    const int p = p0 + ty + kTP * i;
     unsigned long long best = 0ull;
     if (p < in.p) {
 #pragma unroll
-      for (int j = 0; j < kRN; ++j) {
-        const int n = n0 + tx + 16 * j;
+      for (int j = 0; j < kQRN; ++j) {
+        const int n = n0 + tx + kTN * j;
         if (n >= in.n_out) continue;
         const float s = masked_score(acc[i][j], nd, pd, in.params, p, n,
                                      n_res, mw, t_soft);
@@ -593,9 +530,9 @@ winner_scores_kernel(NetIn in, NodeIn nd, PodIn pd, unsigned long long* keys,
       }
     }
     // Every lane of the warp shuffles (uniform control flow); offsets
-    // below 16 keep each exchange inside its half-warp.
+    // below kTN keep each exchange inside its pod row's lanes.
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
+    for (int off = kTN / 2; off > 0; off >>= 1) {
       const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, off);
       best = other > best ? other : best;
     }
@@ -618,10 +555,6 @@ __global__ void winner_finalize_kernel(const unsigned long long* keys,
   node[i] = b > kNegInf * 0.5f ? static_cast<int>(~lo) : -1;
 }
 
-dim3 grid_for(int p, int n_out) {
-  return dim3((n_out + kBN - 1) / kBN, (p + kBP - 1) / kBP);
-}
-
 dim3 peer_grid_for(int p, int n_out) {
   return dim3((n_out + kQN - 1) / kQN, (p + kQP - 1) / kQP);
 }
@@ -632,9 +565,10 @@ dim3 peer_grid_for(int p, int n_out) {
 // the same scattered entries once per node tile.  A block takes 32
 // columns and transposes them through shared memory in 32-pod pieces;
 // blocks past count return at once.
-constexpr int kTrafficRows = kThreads / kQK;
+constexpr int kTrafficThreads = 256;
+constexpr int kTrafficRows = kTrafficThreads / kQK;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTrafficThreads)
 peer_traffic_kernel(const float* t, const int* cols, const int* count,
                     float* tk, int p, int p_pad, int n_k, int use_bf16) {
   __shared__ float tile[kQK][kQK + 1];
@@ -752,7 +686,7 @@ int pad4(int p) { return (p + 3) / 4 * 4; }
 int launch_peer_traffic(const NetIn& in, const PeersIn& pr, float* tk,
                         void* stream) {
   if (in.n_k <= 0) return 0;
-  peer_traffic_kernel<<<(in.n_k + kQK - 1) / kQK, kThreads, 0,
+  peer_traffic_kernel<<<(in.n_k + kQK - 1) / kQK, kTrafficThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       in.t, pr.cols, pr.count, tk, in.p, pr.p_pad, in.n_k, in.use_bf16);
   return static_cast<int>(cudaGetLastError());
@@ -826,10 +760,10 @@ extern "C" int tiled_masked_scores(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Same inputs as tiled_masked_scores without the peer columns (the
-// winner keeps the dense walk); writes best f32[p] and node i32[p]
-// through the caller's u64 scratch `keys` [p].  Three launches on the
-// caller's stream: zero the keys, the winner kernel, the unpack.
+// Same inputs as tiled_masked_scores; writes best f32[p] and node i32[p]
+// through the caller's u64 scratch `keys` [p].  Four launches on the
+// caller's stream: zero the keys, the traffic copy, the winner kernel,
+// the unpack.
 extern "C" int tiled_winner_scores(
     const float* t, const float* bw, const float* lat, const float* validk,
     const float* params, const float* base, const float* node_valid,
@@ -838,20 +772,23 @@ extern "C" int tiled_winner_scores(
     const float* pod_valid, const float* req, const int* tol, const int* sel,
     const int* affinity, const int* anti, const int* group_bit,
     const int* soft_sel, const int* soft_grp, const float* soft_sel_w,
-    const float* soft_grp_w, unsigned long long* keys, float* best,
-    int* node, int p, int n_out, int n_k, int n_res, int mw, int t_soft,
-    int use_bf16, void* stream) {
+    const float* soft_grp_w, const int* cols, const int* count, float* tk,
+    unsigned long long* keys, float* best, int* node, int p, int n_out,
+    int n_k, int n_res, int mw, int t_soft, int use_bf16, void* stream) {
   if (p <= 0 || n_out <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(keys, 0, sizeof(*keys) * p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   NetIn in{t, bw, lat, validk, params, p, n_out, n_k, use_bf16};
+  PeersIn pr{cols, count, tk, pad4(p)};
+  const int terr = launch_peer_traffic(in, pr, tk, stream);
+  if (terr != 0) return terr;
   NodeIn nd{base, node_valid, taint, label, groups, resident_anti, used,
             cap};
   PodIn pd{pod_valid, req, tol, sel, affinity, anti, group_bit,
            soft_sel, soft_grp, soft_sel_w, soft_grp_w};
-  winner_scores_kernel<<<grid_for(p, n_out), kThreads, 0, s>>>(
-      in, nd, pd, keys, n_res, mw, t_soft);
+  winner_scores_kernel<<<peer_grid_for(p, n_out), kQThreads, 0, s>>>(
+      in, pr, nd, pd, keys, n_res, mw, t_soft);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   winner_finalize_kernel<<<(p + 255) / 256, 256, 0, s>>>(keys, best, node, p);

@@ -197,22 +197,27 @@ def test_peer_walk_is_bit_identical_to_dense_walk(cuda, bf16, traffic,
     assert torch.allclose(out[m], out_p[m], rtol=1e-4, atol=1e-4)
 
 
+def _same_winner(a, b):
+    """Two ``(best, node)`` answers identical: ``node``, and ``best``
+    bits once -0.0 is read as +0.0."""
+    return (torch.equal(a[1], b[1])
+            and torch.equal((a[0] + 0.0).view(torch.int32),
+                            (b[0] + 0.0).view(torch.int32)))
+
+
 def _check_winner(args, tol=1e-4):
     """The winner kernel against its plain version (``best`` within tol,
     ``node`` identical wherever the plain top-two gap exceeds the allclose
     bar at the best's magnitude) and against ``winner_from_scores`` of the
-    masked kernel on the card (identical: best bits once -0.0 is read as
-    +0.0, node)."""
+    masked kernel on the card (identical)."""
     best, node = kernels.winner_tile_scores(*args)
     best_p, node_p = kernels.winner_tile_scores_plain(*args)
     assert torch.allclose(best, best_p, rtol=tol, atol=tol)
     top2 = kernels.masked_tile_scores_plain(*args).topk(2, dim=1).values
     clear = (top2[:, 0] - top2[:, 1]) > tol + tol * top2[:, 0].abs()
     assert torch.equal(node[clear], node_p[clear])
-    best_m, node_m = winner_from_scores(kernels.masked_tile_scores(*args))
-    assert torch.equal(node, node_m)
-    assert torch.equal((best + 0.0).view(torch.int32),
-                       (best_m + 0.0).view(torch.int32))
+    assert _same_winner((best, node),
+                        winner_from_scores(kernels.masked_tile_scores(*args)))
     return best, node
 
 
@@ -259,6 +264,90 @@ def test_winner_kernel_ties_go_to_the_lowest_node(cuda):
     ok = kernels.masked_tile_scores_plain(*args) > NEG_HALF
     first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1), -1)
     assert torch.equal(node, first.to(torch.int32))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("traffic", ["stream", "dense", "none"])
+@pytest.mark.parametrize("n_pods", [99, 130])
+def test_winner_peer_walk_is_bit_identical_to_dense_walk(cuda, bf16,
+                                                         traffic, n_pods):
+    """The winner over the compacted peer columns gives the same answer
+    as its own walk over every column and as ``winner_from_scores`` of
+    the masked kernel, with P not a multiple of 4 (one and two pod
+    tiles) and without traffic (``count == 0``)."""
+    _, state, pack, pods = _inputs(cuda, nodes=290, max_nodes=301,
+                                   pods=n_pods, seed=12)
+    if traffic == "dense":
+        rng = np.random.default_rng(12)
+        pods = dataclasses.replace(pods, t=torch.from_numpy(
+            rng.uniform(0.0, 1.0, tuple(pods.t.shape)).astype(np.float32))
+            .to(cuda))
+    elif traffic == "none":
+        pods = dataclasses.replace(pods, t=torch.zeros_like(pods.t))
+    n_k = pods.t.shape[1]
+    count = int(kernels.peer_columns(pods.t)[1])
+    assert (count == 0) if traffic == "none" else (0 < count <= n_k)
+    assert (count == n_k) == (traffic == "dense")
+    args = (pack, state.used, state.cap, state.group_bits,
+            state.resident_anti, pods, bf16)
+    win = _check_winner(args)
+    win_d = kernels.winner_tile_scores(*args, peers=_dense_walk(pods.t))
+    torch.cuda.synchronize()
+    assert _same_winner(win, win_d)
+    assert bool((win[1] >= 0).any())
+
+
+def test_winner_row_shard_with_offset_on_card(cuda):
+    """A row shard (``params[7]`` = its first global row) pins the
+    diagonal by global index: its winner equals ``winner_from_scores`` of
+    the full masked plane's columns, and its own dense walk."""
+    _, state, full, pods = _inputs(cuda, seed=13)
+    lo, hi = 70, 250
+
+    def rows(x):
+        return x[lo:hi].contiguous()
+
+    shard = dataclasses.replace(
+        full, bw=rows(full.bw), lat=rows(full.lat), base=rows(full.base),
+        node_valid=rows(full.node_valid), taint=rows(full.taint),
+        label=rows(full.label),
+        params=torch.cat([full.params[:7],
+                          torch.tensor([float(lo)], device=cuda)]))
+    scores = kernels.masked_tile_scores(
+        full, state.used, state.cap, state.group_bits, state.resident_anti,
+        pods, False)
+    args = (shard, rows(state.used), rows(state.cap), rows(state.group_bits),
+            rows(state.resident_anti), pods, False)
+    win = kernels.winner_tile_scores(*args)
+    win_d = kernels.winner_tile_scores(*args, peers=_dense_walk(pods.t))
+    torch.cuda.synchronize()
+    assert _same_winner(win, winner_from_scores(scores[:, lo:hi]))
+    assert _same_winner(win, win_d)
+    assert bool((win[1] >= 0).any())
+
+
+def test_winner_wrapper_rejects_bad_peers_and_counts_launches(cuda):
+    _, state, pack, pods = _inputs(cuda, seed=14)
+    args = (pack, state.used, state.cap, state.group_bits,
+            state.resident_anti, pods, False)
+    kernels.reset_launch_counts()
+    kernels.winner_tile_scores(*args)
+    assert kernels.winner_tile_scores.launches == 1
+    assert kernels.peer_columns.launches == 1
+    cols, count = kernels.peer_columns(pods.t)
+    kernels.winner_tile_scores(*args, peers=(cols, count))
+    assert kernels.winner_tile_scores.launches == 2
+    assert kernels.peer_columns.launches == 2
+    with pytest.raises(TypeError):
+        kernels.winner_tile_scores(*args, peers=(cols.long(), count))
+    with pytest.raises(ValueError):
+        kernels.winner_tile_scores(*args, peers=(cols[:-1], count))
+    with pytest.raises(ValueError):
+        kernels.winner_tile_scores(*args, peers=(cols, count.repeat(2)))
+    with pytest.raises(ValueError):
+        kernels.winner_tile_scores(*args, peers=(cols.cpu(), count))
+    assert kernels.winner_tile_scores.launches == 2
+    assert kernels.peer_columns.launches == 2
 
 
 def test_fused_winner_takes_the_kernel_unless_a_join_is_live(cuda):

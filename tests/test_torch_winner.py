@@ -189,3 +189,24 @@ def test_winner_wrapper_takes_plain_version_on_cpu(bf16):
     want = tscore.winner_from_scores(kernels.masked_tile_scores_plain(*args))
     assert torch.equal(best, want[0]) and torch.equal(node, want[1])
     assert kernels.winner_tile_scores.launches == 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("seed", [6, 7])
+def test_winner_wrapper_with_given_peers_on_cpu(seed, bf16):
+    """``peers=`` (the compaction a caller may pass in) leaves the CPU
+    answer as it is without them."""
+    _, tcfg, _, _, ts, tp = _both(seed, with_constraints=False)
+    pack = tiled_score.static_replay_pack(ts, tcfg)
+    pods = tiled_score.pack_pods(tp, ts.num_nodes)
+    args = (pack, ts.used, ts.cap, ts.group_bits, ts.resident_anti, pods,
+            bf16)
+    peers = kernels.peer_columns_plain(pods.t)
+    assert 0 < int(peers[1]) < pods.t.shape[1]
+    kernels.reset_launch_counts()
+    best, node = kernels.winner_tile_scores(*args, peers=peers)
+    want_best, want_node = kernels.winner_tile_scores(*args)
+    assert torch.equal(best, want_best) and torch.equal(node, want_node)
+    assert bool((node >= 0).any())
+    assert kernels.winner_tile_scores.launches == 0
+    assert kernels.peer_columns.launches == 0
