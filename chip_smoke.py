@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's density replay and serving seam on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's density replay, serving seam and scheduling
+loop on one NVIDIA GPU and check them.
 
 Run from the repository root:
 
@@ -55,6 +55,25 @@ csrc`` and prints one JSON object per phase:
                 capacity, and a batch with live nodeAffinity terms takes
                 the masked kernel instead of the winner.  Then
                 ``measure_device_latency`` at the same size.
+6. ``loop``     the scheduling loop (``SchedulerLoop``) at the serving
+                width: a 2,048-pod backlog (``serve``'s workload) drained
+                by fresh loops on 5,120-node fake clusters through the
+                serial, burst (8 batches), pipelined and multicycle (K=8,
+                coalesced async binds) paths.  Fails unless the four give
+                the same bindings, final ``used`` and counters, each
+                non-serial path engaged, the static kernel ran at least
+                once per real batch with one compaction per launch, and
+                no node exceeds its capacity.  Then ``run_density(5120,
+                8192, batch_size=128, mode="host")`` with the default burst
+                and pipelined (pods/s, per-batch phase percentiles,
+                rounds, static refreshes and kernel launches, reported
+                without a bar); a ``generate_gang_workload`` backlog that
+                must bind every gang whole or not at all, each gang the
+                gate released accounted bound or rolled back; and a
+                checkpoint of the density loop's encoder saved and loaded
+                into a fresh ``Encoder(device="cuda")``, whose manifest
+                must verify and whose snapshot must equal the saved one
+                bit for bit.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -72,6 +91,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -81,6 +101,7 @@ NODES, PODS, BATCH, PEERS = 5120, 65536, 128, 4
 ANSWER_BATCHES = 8
 PARITY_BATCHES = 16
 SERVE_PODS, SERVE_BATCHES, CHURN_EVERY = 8192, 64, 8
+LOOP_PODS, DENSITY_PODS, GANG_FILLER = 2048, 8192, 256
 TOL = 1e-4
 FLUSH_BYTES = 256 << 20   # > the H100's 50 MB L2
 SPIN_CYCLES = 2_000_000   # ≈1 ms at the H100's clocks
@@ -859,6 +880,263 @@ def phase_serve():
     return info
 
 
+class _ZeroLaunches:
+    """``run_density``'s sampler: started after the warm-up loop, it sets
+    every kernel count to 0, so the counts read after the drain are the
+    measured window's."""
+
+    def start(self) -> None:
+        from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+
+        K.reset_launch_counts()
+
+
+def phase_loop():
+    import tempfile
+
+    from kubernetesnetawarescheduler_tpu_torch.bench.density import (
+        run_density,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        WorkloadSpec,
+        build_fake_cluster,
+        feed_metrics,
+        generate_gang_workload,
+        generate_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+        verify_manifest,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.core.score import _EPS
+
+    t_phase = time.perf_counter()
+    errors: list[str] = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    def over_capacity(s) -> int:
+        return int(((s.used > s.cap + _EPS).any(dim=1) & s.node_valid)
+                   .sum())
+
+    def fresh_loop(cfg, **loop_kw):
+        cluster, lat, bw = build_fake_cluster(ClusterSpec(num_nodes=NODES,
+                                                          seed=SEED))
+        loop = SchedulerLoop(cluster, cfg, method="parallel",
+                             device="cuda", **loop_kw)
+        loop.encoder.set_network(lat, bw)
+        feed_metrics(cluster, loop.encoder, np.random.default_rng(SEED + 3))
+        return cluster, loop
+
+    def counts() -> dict:
+        return {n: fn.launches for n, fn in K.KERNELS.items()}
+
+    # 1. Four paths, one backlog: the serving width, bf16 inputs.
+    cfg = SchedulerConfig(max_nodes=NODES, max_pods=BATCH, max_peers=PEERS,
+                          score_backend="pallas",
+                          queue_capacity=LOOP_PODS + BATCH)
+    paths = {"serial": (cfg, dict(burst_batches=1)),
+             "burst": (cfg, dict(burst_batches=8)),
+             "pipelined": (cfg, dict(burst_batches=8, pipelined=True)),
+             "multicycle": (dataclasses.replace(
+                 cfg, bind_coalesce_window=4, bind_max_inflight=2,
+                 multicycle_queue_depth=8),
+                 dict(burst_batches=8, multicycle=8, async_bind=True))}
+    real_batches = -(-LOOP_PODS // BATCH)
+    runs: dict[str, dict] = {}
+    launches = {n: 0 for n in K.KERNELS}
+    for name, (c, kw) in paths.items():
+        cluster, loop = fresh_loop(c, **kw)
+        pods = generate_workload(
+            WorkloadSpec(num_pods=LOOP_PODS, seed=SEED + 5, services=8,
+                         peer_fraction=0.5, affinity_fraction=0.1,
+                         anti_fraction=0.1),
+            scheduler_name=c.scheduler_name)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            cluster.add_pods(pods)
+            loop.run_until_drained()
+            loop.flush_binds()
+            torch.cuda.synchronize()
+        finally:
+            loop.stop_bind_worker()
+        wall = time.perf_counter() - t0
+        run_launches = counts()
+        for n, v in run_launches.items():
+            launches[n] += v
+        snap = loop.encoder.snapshot()
+        runs[name] = {
+            "bindings": {b.pod_name: b.node_name for b in cluster.bindings},
+            "used": snap.used.cpu(), "over": over_capacity(snap),
+            "scheduled": loop.scheduled,
+            "unschedulable": loop.unschedulable,
+            "burst_cycles": loop.burst_cycles,
+            "multicycle_windows": loop.multicycle_windows,
+            "rounds": list(loop.round_samples),
+            "launches": run_launches, "wall_s": wall,
+            "pods_per_s": loop.scheduled / wall,
+            "budgets": loop.timer.pipeline_budgets(),
+        }
+    base = runs["serial"]
+    for name, r in runs.items():
+        check(r["bindings"] == base["bindings"],
+              f"{name}: bindings differ from the serial path on "
+              f"{sum(base['bindings'].get(k) != v for k, v in r['bindings'].items())}"
+              " pods")
+        check(torch.equal(r["used"], base["used"]),
+              f"{name}: final used differs from the serial path")
+        check((r["scheduled"], r["unschedulable"])
+              == (base["scheduled"], base["unschedulable"]),
+              f"{name}: scheduled/unschedulable "
+              f"{r['scheduled']}/{r['unschedulable']} differ from serial "
+              f"{base['scheduled']}/{base['unschedulable']}")
+        check(r["over"] == 0, f"{name}: {r['over']} nodes over capacity")
+        n_static = r["launches"]["static_scores_kernel"]
+        check(n_static >= real_batches,
+              f"{name}: static kernel launched {n_static} times for "
+              f"{real_batches} batches")
+        check(r["launches"]["peer_columns"] == n_static,
+              f"{name}: peer columns compacted "
+              f"{r['launches']['peer_columns']} times for {n_static} "
+              "static launches")
+    check(base["scheduled"] > 0, "the serial path bound nothing")
+    for name in ("burst", "pipelined"):
+        check(runs[name]["burst_cycles"] > 0, f"{name}: no burst cycle")
+    check(runs["multicycle"]["multicycle_windows"] > 0,
+          "multicycle: no window dispatched")
+
+    # 2. Throughput of the host-mode density run, default burst and
+    # pipelined; the first one's encoder is checkpointed (4.).
+    density: dict[str, dict] = {}
+    saved: dict = {}
+
+    def keep_encoder(loop) -> None:
+        saved["encoder"] = loop.encoder
+        saved["launches"] = counts()
+
+    for name, kw in (("burst", {}), ("pipelined", {"pipelined": True})):
+        res = run_density(NODES, DENSITY_PODS, batch_size=BATCH,
+                          score_backend="pallas", mode="host",
+                          sampler=_ZeroLaunches(), after_drain=keep_encoder,
+                          device="cuda", **kw)
+        density[name] = {
+            "pods_per_s": res.pods_per_sec, "wall_s": res.wall_s,
+            "pods_bound": res.pods_bound,
+            "pods_unschedulable": res.pods_unschedulable,
+            "score_assign_ms": {"p50": res.score_p50_ms,
+                                "p99": res.score_p99_ms},
+            "encode_ms": {"p50": res.encode_p50_ms,
+                          "p99": res.encode_p99_ms},
+            "bind_ms": {"p50": res.bind_p50_ms, "p99": res.bind_p99_ms},
+            "rounds": {"p50": res.rounds_p50, "p99": res.rounds_p99,
+                       "max": res.rounds_max},
+            "score_samples": res.score_samples,
+            "pipeline_budgets": res.pipeline_budgets,
+            "static_refresh_count": res.static_refresh_count,
+            "static_sync_builds": res.static_sync_builds,
+            "launches": saved["launches"],
+            "worst_cycle": res.trace_provenance.get("worst_cycle"),
+        }
+        check(res.pods_bound > 0, f"density {name}: nothing bound")
+        if name == "burst":
+            saved["checkpoint_encoder"] = saved["encoder"]
+
+    # 3. Gangs: slice-shaped pod groups among filler pods, one loop.
+    gcfg = dataclasses.replace(cfg, queue_capacity=4096)
+    cluster, loop = fresh_loop(gcfg)
+    gpods = generate_gang_workload(filler_pods=GANG_FILLER, seed=SEED + 7,
+                                   scheduler_name=gcfg.scheduler_name)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cluster.add_pods(gpods)
+    loop.run_until_drained()
+    torch.cuda.synchronize()
+    gang_wall = time.perf_counter() - t0
+    gang_launches = counts()
+    bound = {b.pod_name for b in cluster.bindings}
+    groups: dict[str, list[str]] = {}
+    for p in gpods:
+        if p.pod_group:
+            groups.setdefault(p.pod_group, []).append(p.name)
+    half = [g for g, m in groups.items()
+            if 0 < sum(x in bound for x in m) < len(m)]
+    whole = [g for g, m in groups.items() if all(x in bound for x in m)]
+    reg = loop.gangs.snapshot()["counters"]
+    check(not half, f"half-bound gangs: {half}")
+    check(reg["admitted"] == reg["bound"] + reg["rolled_back"],
+          f"gangs released by the gate {reg['admitted']} != bound "
+          f"{reg['bound']} + rolled back {reg['rolled_back']}")
+    check(loop.gangs_bound == reg["bound"] == len(whole),
+          f"gangs bound: loop {loop.gangs_bound}, registry {reg['bound']}, "
+          f"whole on the server {len(whole)}")
+    check(len(whole) > 0, "no gang bound")
+    check(over_capacity(loop.encoder.snapshot()) == 0,
+          "gangs: a node is over capacity")
+    loop.stop_bind_worker()
+
+    # 4. Checkpoint round trip from the density loop's encoder.
+    enc = saved["checkpoint_encoder"]
+    build_dir = (Path(__file__).resolve().parent
+                 / "kubernetesnetawarescheduler_tpu_torch" / "_build")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, enc)
+        save_s = time.perf_counter() - t0
+        manifest = verify_manifest(tmp)
+        t0 = time.perf_counter()
+        restored = load_checkpoint(tmp, device="cuda")
+        load_s = time.perf_counter() - t0
+    check(manifest == [], f"checkpoint manifest: {manifest}")
+    a, b = enc.snapshot(), restored.snapshot()
+    differ = [f.name for f in dataclasses.fields(a)
+              if not (getattr(a, f.name).dtype == getattr(b, f.name).dtype
+                      and torch.equal(
+                          getattr(a, f.name).contiguous().view(torch.uint8),
+                          getattr(b, f.name).contiguous().view(torch.uint8)))]
+    check(not differ, f"restored snapshot differs on {differ}")
+    check(restored.device.type == "cuda", "restored encoder is not on cuda")
+    check(len(restored._committed) == len(enc._committed),
+          "restored ledger size differs")
+
+    info = {
+        "phase": "loop", "nodes": NODES, "batch": BATCH, "pods": LOOP_PODS,
+        "card": nvidia_smi(),
+        "paths": {n: {k: r[k] for k in ("scheduled", "unschedulable",
+                                        "burst_cycles", "multicycle_windows",
+                                        "launches", "wall_s", "pods_per_s",
+                                        "budgets")}
+                  | {"rounds_mean": float(np.mean(r["rounds"]))
+                     if r["rounds"] else 0.0}
+                  for n, r in runs.items()},
+        "density": density,
+        "gangs": {"gangs": len(groups), "bound_whole": len(whole),
+                  "half_bound": len(half), "registry": reg,
+                  "loop_rolled_back": loop.gangs_rolled_back,
+                  "pods": len(gpods), "bound_pods": len(bound),
+                  "wall_s": gang_wall, "launches": gang_launches},
+        "checkpoint": {"save_s": save_s, "load_s": load_s,
+                       "committed": len(enc._committed)},
+        "launches": launches,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("loop", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -892,6 +1170,7 @@ def main() -> int:
     main_res = run_phase("main", phase_main, state, stream, cfg)
     run_phase("parity", phase_parity, state, stream, cfg)
     serve_res = run_phase("serve", phase_serve)
+    loop_res = run_phase("loop", phase_loop)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -904,12 +1183,14 @@ def main() -> int:
                 "peer_columns": f"{src}:60"}
     # Each kernel's launches on the path it belongs to: the replay for
     # the static and the answer kernel and their compaction, the serving
-    # seam for the winner.
+    # seam for the winner.  The scheduling loop (its four identity drives)
+    # runs the static kernel and its compaction.
     path_of = {"static_scores_kernel": "main",
                "masked_scores_kernel": "main",
                "winner_scores_kernel": "serve",
                "peer_columns": "main"}
-    by_path = {"main": main_res["launches"], "serve": serve_res["launches"]}
+    by_path = {"main": main_res["launches"], "serve": serve_res["launches"],
+               "loop": loop_res["launches"]}
     rows = []
     for kname in K.KERNELS:
         r = kres[prec][kname]

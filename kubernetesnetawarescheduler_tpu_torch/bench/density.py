@@ -19,12 +19,20 @@ bits directly into the mask layout instead of interning labels:
 decision (``assign_parallel`` + ``commit_assignments``, and the fused
 step beside it) on a cluster built the way the serving loop builds it:
 ``bench/fakecluster.py`` nodes through the :class:`~..core.encode.Encoder`.
+
+:func:`run_density` is the JAX package's clusterloader2-style density
+run in its ``mode="host"``: a generated fake cluster, a backlog of
+generated pods, and the live :class:`~..core.loop.SchedulerLoop` draining
+it, reporting pods/s and the loop's per-batch phase percentiles.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import subprocess
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -35,6 +43,7 @@ from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
     build_fake_cluster,
     feed_metrics,
     generate_workload,
+    sample_metrics,
 )
 from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
 from kubernetesnetawarescheduler_tpu_torch.core.assign import (
@@ -42,6 +51,7 @@ from kubernetesnetawarescheduler_tpu_torch.core.assign import (
     fused_schedule_step,
 )
 from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
+from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
 from kubernetesnetawarescheduler_tpu_torch.core.replay import (
     PodStream,
     fold_stream,
@@ -410,3 +420,361 @@ def _fusion_ab_leg(state, batch, static, cfg, scan_k: int) -> dict:
         "steps_per_leg": int(scan_k),
         "ab_source": "per_dispatch_chain",
     }
+
+
+# ---------------------------------------------------------------------------
+# The live serving loop under a density backlog (the JAX package's
+# run_density, mode="host").
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DensityResult:
+    """The JAX package's density record, field for field, plus the p50s
+    of the encode and bind phases.  ``rounds_*`` come from the loop's
+    conflict-round samples (one per real batch)."""
+
+    num_nodes: int
+    pods_submitted: int
+    pods_bound: int
+    pods_unschedulable: int
+    wall_s: float
+    pods_per_sec: float
+    score_p50_ms: float
+    score_p99_ms: float
+    encode_p99_ms: float
+    bind_p99_ms: float
+    score_samples: int = 0
+    rounds_p50: float = 0.0
+    rounds_p99: float = 0.0
+    rounds_max: int = 0
+    bind_tail_ms: float = 0.0
+    pipeline_budgets: dict = dataclasses.field(default_factory=dict)
+    static_refresh_count: int = 0
+    static_refresh_p99_ms: float = 0.0
+    static_sync_builds: int = 0
+    staleness_at_score_p50_ms: float = 0.0
+    staleness_at_score_p99_ms: float = 0.0
+    staleness_bound_s: float = 0.0
+    delta_bytes: int = 0
+    full_bytes: int = 0
+    trace_provenance: dict = dataclasses.field(default_factory=dict)
+    bind_queue_wait_p99_ms: float = 0.0
+    bind_rtt_p99_ms: float = 0.0
+    bind_retry_count: int = 0
+    multicycle_k: int = 0
+    multicycle_queue_depth: int = 0
+    multicycle_windows: int = 0
+    multicycle_overflow: int = 0
+    retire_lag_p99: float = 0.0
+    bind_max_inflight: int = 0
+    bind_coalesce_window: int = 0
+    bind_coalesced_total: int = 0
+    bind_inflight_peak: int = 0
+    encode_p50_ms: float = 0.0
+    bind_p50_ms: float = 0.0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _static_stats(loop: SchedulerLoop) -> dict:
+    """Static-refresh and delta-ingest counters the serving loop and
+    its encoder accumulated over the run (all zero when static never
+    moved).  ``_static_refresh_ms`` samples are already milliseconds;
+    ``_staleness_samples`` are seconds."""
+    enc = loop.encoder
+    return {
+        "static_refresh_count": int(loop.static_refresh_total),
+        "static_refresh_p99_ms": round(_percentile(
+            list(loop._static_refresh_ms), 99), 3),
+        "static_sync_builds": int(loop.static_sync_builds),
+        "staleness_at_score_p50_ms": round(_percentile_ms(
+            list(loop._staleness_samples), 50), 3),
+        "staleness_at_score_p99_ms": round(_percentile_ms(
+            list(loop._staleness_samples), 99), 3),
+        "delta_bytes": int(enc.snapshot_delta_bytes_total),
+        "full_bytes": int(enc.snapshot_full_bytes_total),
+    }
+
+
+def _flight_stats(loop: SchedulerLoop,
+                  trace_out: str | None = None) -> dict:
+    """Flight-recorder provenance: ring accounting plus the worst
+    retained cycle span, and — when ``trace_out`` is set — the whole
+    recorder dumped as a Perfetto-loadable trace."""
+    flight = loop.flight
+    if flight is None:
+        return {}
+    if trace_out:
+        with open(trace_out, "w", encoding="utf-8") as fh:
+            json.dump(flight.to_chrome_trace(), fh, indent=1,
+                      sort_keys=True)
+    worst = flight.worst_cycle()
+    worst_doc: dict = {}
+    if worst is not None:
+        worst_doc = {
+            "cycle_id": int(worst.cycle_id),
+            "dur_ms": round(worst.dur_s * 1e3, 3),
+            "path": worst.path,
+            "phases": [[name, round(rel * 1e3, 3), round(dur * 1e3, 3)]
+                       for name, rel, dur in worst.phases],
+        }
+    return {
+        "trace_provenance": {
+            "spans": len(flight),
+            "capacity": int(flight.capacity),
+            "dropped": int(flight.dropped),
+            "worst_cycle": worst_doc,
+            "trace_out": trace_out or "",
+        },
+    }
+
+
+def _churn_fn(encoder: Encoder, node_names: list, rng: np.random.Generator,
+              churn_links: int):
+    """A zero-arg closure that perturbs ``churn_links`` random links
+    (probe results, ``update_link``) plus one node's metrics sample — the
+    steady measurement drizzle a live cluster sees, which keeps
+    ``static_version`` moving so the run exercises the delta-ingest and
+    incremental-refresh machinery."""
+    n = len(node_names)
+
+    def tick() -> None:
+        for _ in range(churn_links):
+            i, j = rng.choice(n, size=2, replace=False)
+            encoder.update_link(
+                node_names[int(i)], node_names[int(j)],
+                lat_ms=float(rng.uniform(0.05, 2.0)),
+                bw_bps=float(rng.uniform(1e8, 1e10)))
+        encoder.update_metrics(node_names[int(rng.integers(n))],
+                               sample_metrics(rng))
+
+    return tick
+
+
+def _warm_churn_path(loop: SchedulerLoop, churn_tick,
+                     ticks: int = 3) -> None:
+    """Run the delta-ingest / incremental-refresh path a few times
+    outside the timed window, then zero the refresh counters so the
+    result's static-refresh block covers the measured steady state."""
+    for _ in range(ticks):
+        churn_tick()
+        st, ver = loop.encoder.snapshot_versioned()
+        loop._static_for(st, ver)
+    # Drain any queued async rebuild; the measured run restarts the
+    # worker on first use (_ensure_static_worker clears the stop flag).
+    loop.stop_static_refresher()
+    loop.static_refresh_total = 0
+    loop.static_sync_builds = 0
+    loop._static_refresh_ms.clear()
+    loop._staleness_samples.clear()
+    loop.encoder.snapshot_delta_bytes_total = 0
+    loop.encoder.snapshot_full_bytes_total = 0
+
+
+def _drain_with_churn(loop: SchedulerLoop, churn_tick,
+                      max_cycles: int = 10_000) -> int:
+    """``run_until_drained`` with one churn tick before every serving
+    cycle, so each ``snapshot_versioned`` sees a moved static version
+    and ``_static_for`` runs its refresh path inside the timed window."""
+    total = 0
+    for _ in range(max_cycles):
+        churn_tick()
+        n = loop.run_once(timeout=0.0)
+        if n == 0 and len(loop.queue) == 0:
+            loop.flush_binds()
+            if len(loop.queue) == 0:
+                break
+        total += n
+    return total
+
+
+def _throwaway_loop(num_nodes: int, seed: int, cfg: SchedulerConfig,
+                    method: str, multicycle: int | None = None,
+                    device="cuda") -> SchedulerLoop:
+    """A scheduler loop on a throwaway cluster with the measured run's
+    shapes, to pay one-time costs (the kernels' build, the allocator's
+    first blocks) outside the timed window."""
+    wcluster, wlat, wbw = build_fake_cluster(
+        ClusterSpec(num_nodes=num_nodes, seed=seed + 999))
+    wloop = SchedulerLoop(wcluster, cfg, method=method,
+                          multicycle=multicycle, device=device)
+    wloop.encoder.set_network(wlat, wbw)
+    feed_metrics(wcluster, wloop.encoder, np.random.default_rng(seed + 2))
+    return wloop
+
+
+def _multicycle_stats(loop: SchedulerLoop, cfg: SchedulerConfig) -> dict:
+    """Multi-cycle and coalesced-bind accounting the drain accumulated.
+    ``retire_lag_p99`` comes from the loop's LogHistogram."""
+    lag = loop._retire_lag
+    return {
+        "multicycle_k": int(loop.multicycle),
+        "multicycle_queue_depth": int(cfg.multicycle_queue_depth),
+        "multicycle_windows": int(loop.multicycle_windows),
+        "multicycle_overflow": int(loop.multicycle_overflow_total),
+        "retire_lag_p99": float(lag.percentile(99)) if len(lag) else 0.0,
+        "bind_max_inflight": int(cfg.bind_max_inflight),
+        "bind_coalesce_window": int(cfg.bind_coalesce_window),
+        "bind_coalesced_total": int(loop.bind_coalesced_total),
+        "bind_inflight_peak": int(loop.bind_inflight_peak),
+    }
+
+
+def run_density(num_nodes: int = 100, num_pods: int = 300,
+                batch_size: int = 64, method: str = "parallel",
+                seed: int = 0, cfg: SchedulerConfig | None = None,
+                warmup: bool = True,
+                metric_drop_fraction: float = 0.0,
+                mode: str = "host",
+                chunk_batches: int = 2,
+                score_backend: str = "xla",
+                sampler=None, mesh=None,
+                pipelined: bool = False,
+                churn_links: int = 0,
+                multicycle: int = 1,
+                bind_coalesce_window: int = 1,
+                bind_max_inflight: int = 1,
+                trace_out: str | None = None,
+                device="cuda",
+                after_drain: Callable[[SchedulerLoop], None] | None = None
+                ) -> DensityResult:
+    """Schedule ``num_pods`` generated pods onto a ``num_nodes`` fake
+    cluster through the live :class:`~..core.loop.SchedulerLoop`;
+    returns throughput and per-batch latency stats, one-time costs
+    excluded by a warm-up loop.
+
+    ``mode="host"`` is the JAX package's host mode: one device step per
+    batch when the queue is shallow, bursts of up to ``burst_batches``
+    batches (default 8) under a deep backlog, the pipelined cycle with
+    ``pipelined=True`` and the K-wave window with ``multicycle=K``.  The
+    device and pipeline modes drive the chunked replay feeds, which are
+    not ported yet (ROADMAP Queue A item 5): they raise
+    :class:`NotImplementedError`.
+
+    ``churn_links`` > 0 injects seeded link-probe + metrics churn before
+    every serving cycle (and then turns ``enable_async_static`` on in
+    the default cfg).  ``sampler``, if given, is started after warm-up.
+    ``after_drain(loop)``, if given, is called with the measured loop
+    after its drain (its binds flushed, its refresher stopped), before
+    the result is built.  The loop builds on ``device``."""
+    if mode != "host":
+        raise NotImplementedError(
+            f"run_density mode={mode!r} drives the chunked replay feeds "
+            "(ROADMAP Queue A item 5), which are not ported yet; "
+            "mode='host' runs the serving loop")
+    if cfg is None:
+        cfg = SchedulerConfig(
+            max_nodes=round_up(num_nodes, 128),
+            max_pods=batch_size,
+            max_peers=4,
+            queue_capacity=max(300, num_pods + batch_size,
+                               multicycle * batch_size),
+            score_backend=score_backend,
+            enable_async_static=(churn_links > 0),
+            multicycle=max(1, multicycle),
+            # Ring depth follows K: the run measures the window, not
+            # the overflow fallback (a caller-passed cfg keeps its own
+            # depth).
+            multicycle_queue_depth=max(4, multicycle),
+            bind_coalesce_window=max(1, bind_coalesce_window),
+            bind_max_inflight=max(1, bind_max_inflight),
+        )
+    # Effective K: an explicitly-passed cfg keeps its own knob; the
+    # param only overrides when the caller actually asked for K>1.
+    eff_multicycle = multicycle if multicycle > 1 else int(cfg.multicycle)
+    # Coalesced async binds only exist on the bind-worker path: turn
+    # the worker on when the knobs ask for coalescing/inflight > 1
+    # (pipelined mode already implies it inside SchedulerLoop).
+    auto_async_bind = (eff_multicycle > 1 and (
+        int(cfg.bind_coalesce_window) > 1
+        or int(cfg.bind_max_inflight) > 1))
+    cluster, lat, bw = build_fake_cluster(ClusterSpec(num_nodes=num_nodes,
+                                                      seed=seed))
+    loop = SchedulerLoop(cluster, cfg, method=method, mesh=mesh,
+                         pipelined=pipelined, async_bind=auto_async_bind,
+                         multicycle=eff_multicycle, device=device)
+    loop.encoder.set_network(lat, bw)
+    rng = np.random.default_rng(seed + 1)
+    feed_metrics(cluster, loop.encoder, rng,
+                 drop_fraction=metric_drop_fraction)
+    pods = generate_workload(WorkloadSpec(num_pods=num_pods, seed=seed),
+                             scheduler_name=cfg.scheduler_name)
+
+    if warmup:
+        wloop = _throwaway_loop(num_nodes, seed, cfg, method,
+                                multicycle=eff_multicycle, device=device)
+        # The waves the JAX run warms its compiled programs with, kept
+        # so both packages drive the same paths: a K-batch multicycle
+        # window, a 2-batch burst, then a lone small batch for the
+        # per-batch cycle.
+        waves = []
+        if (eff_multicycle > 1
+                and cfg.queue_capacity >= eff_multicycle * cfg.max_pods):
+            waves.append(eff_multicycle * cfg.max_pods)
+        if (wloop.burst_batches > 1
+                and cfg.queue_capacity >= 2 * cfg.max_pods):
+            waves.append(2 * cfg.max_pods)
+        waves.append(min(cfg.max_pods, 8))
+        for i, n_warm in enumerate(waves):
+            warm = generate_workload(
+                WorkloadSpec(num_pods=n_warm, seed=seed + 99 + i),
+                scheduler_name=cfg.scheduler_name)
+            wloop.client.add_pods(warm)
+            wloop.run_until_drained()
+        wloop.stop_bind_worker()
+
+    churn_tick = None
+    if churn_links > 0:
+        churn_tick = _churn_fn(
+            loop.encoder, [n.name for n in cluster.list_nodes()],
+            np.random.default_rng(seed + 13), churn_links)
+        if warmup:
+            _warm_churn_path(loop, churn_tick)
+    if sampler is not None:
+        sampler.start()
+    dev = loop.encoder.device
+    _sync(dev)
+    start = time.perf_counter()
+    cluster.add_pods(pods)
+    if churn_tick is not None:
+        _drain_with_churn(loop, churn_tick)
+    else:
+        loop.run_until_drained()
+    loop.flush_binds()
+    _sync(dev)
+    wall = time.perf_counter() - start
+    # Quiesce the background workers (off the timed window) so the
+    # counters below are final.
+    loop.stop_bind_worker()
+    if after_drain is not None:
+        after_drain(loop)
+
+    rounds = list(loop.round_samples)
+    bound = loop.scheduled
+    return DensityResult(
+        num_nodes=num_nodes,
+        pods_submitted=len(pods),
+        pods_bound=bound,
+        pods_unschedulable=loop.unschedulable,
+        wall_s=wall,
+        pods_per_sec=bound / wall if wall > 0 else 0.0,
+        score_p50_ms=loop.timer.percentile("score_assign", 50) * 1e3,
+        score_p99_ms=loop.timer.percentile("score_assign", 99) * 1e3,
+        encode_p99_ms=loop.timer.percentile("encode", 99) * 1e3,
+        bind_p99_ms=loop.timer.percentile("bind", 99) * 1e3,
+        encode_p50_ms=loop.timer.percentile("encode", 50) * 1e3,
+        bind_p50_ms=loop.timer.percentile("bind", 50) * 1e3,
+        score_samples=loop.timer.count("score_assign"),
+        rounds_p50=_percentile(rounds, 50),
+        rounds_p99=_percentile(rounds, 99),
+        rounds_max=int(max(rounds, default=0)),
+        pipeline_budgets=loop.timer.pipeline_budgets(),
+        bind_rtt_p99_ms=loop.timer.percentile("bind", 99) * 1e3,
+        bind_retry_count=int(loop.bind_failures),
+        staleness_bound_s=float(cfg.static_max_staleness_s),
+        **_static_stats(loop),
+        **_flight_stats(loop, trace_out),
+        **_multicycle_stats(loop, cfg),
+    )

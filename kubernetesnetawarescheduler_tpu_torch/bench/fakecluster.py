@@ -10,16 +10,20 @@ and pods in both packages):
   matrices the probe pipeline would measure;
 - node_exporter-shaped metric samples;
 - workloads of services whose pods exchange traffic (peers), with
-  optional affinity/anti-affinity groups.
+  optional affinity/anti-affinity groups;
+- gang workloads of TPU-slice-shaped pod groups
+  (:func:`generate_gang_workload`).
 
-The fault-injecting exporter fleet, the gang workload and the ``chaos``
-wrapper of :func:`build_fake_cluster` follow with the ingest, gang and
-chaos modules they serve.
+The fault-injecting exporter fleet and the ``chaos`` wrapper of
+:func:`build_fake_cluster` follow with the ingest and chaos modules they
+serve.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
+
 import numpy as np
 
 from kubernetesnetawarescheduler_tpu_torch.config import Metric
@@ -244,6 +248,53 @@ def feed_metrics(cluster: FakeCluster, encoder, rng: np.random.Generator,
         if drop_fraction and rng.random() < drop_fraction:
             continue
         encoder.update_metrics(node.name, sample_metrics(rng), age_s=0.0)
+
+
+def generate_gang_workload(num_gangs: int = 12,
+                           member_counts: Sequence[int] = (8, 16, 32),
+                           filler_pods: int = 0,
+                           seed: int = 0,
+                           cpu: float = 7.0,
+                           mem: float = 12.0,
+                           netbw: float = 1.0,
+                           scheduler_name: str = "netAwareScheduler"
+                           ) -> list[Pod]:
+    """TPU-slice-job shaped workload: ``num_gangs`` pod groups cycling
+    through ``member_counts`` members each (the gang annotation
+    contract, core/gang.py), plus ``filler_pods`` independent pods,
+    interleaved so the gang gate actually absorbs partial groups.
+    Members are homogeneous (one slice = identical workers) and
+    node-sized — a real TPU slice runs ~one worker per host, so the
+    defaults request enough cpu/mem that a gang CANNOT collapse onto
+    one node and placement quality is decided by which rack/zone the
+    members spread across."""
+    rng = np.random.default_rng(seed)
+    pods: list[Pod] = []
+    for g in range(num_gangs):
+        m = int(member_counts[g % len(member_counts)])
+        group = f"slice-{g:03d}"
+        for i in range(m):
+            pods.append(Pod(
+                name=f"{group}-w{i:03d}",
+                scheduler_name=scheduler_name,
+                requests={"cpu": cpu, "mem": mem, "net_bw": netbw},
+                pod_group=group,
+                gang_min_member=m,
+                priority=5.0,
+            ))
+    for i in range(filler_pods):
+        pods.append(Pod(
+            name=f"filler-{i:05d}",
+            scheduler_name=scheduler_name,
+            requests={
+                "cpu": float(rng.uniform(0.1, 1.0)),
+                "mem": float(rng.uniform(0.2, 2.0)),
+                "net_bw": float(rng.uniform(0.02, 0.5)),
+            },
+            priority=float(rng.uniform(0, 10)),
+        ))
+    order = rng.permutation(len(pods))
+    return [pods[int(j)] for j in order]
 
 
 def generate_workload(spec: WorkloadSpec,

@@ -60,7 +60,15 @@ def _static_parts(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
     ``static`` is the backend's precomputed prep
     (:func:`~.tiled_score.compute_assign_static`).  With
     ``cfg.score_backend == "pallas"`` the raw score and static mask come
-    from the static tile kernel; otherwise from the dense torch path."""
+    from the static tile kernel; otherwise from the dense torch path.
+
+    A ``{"raw": f32[P, N], "ok": bool[P, N]}`` dict is the caller's own
+    precomputed pair, returned as it is (transposed when asked): the
+    gang path injects its co-placement bias through this seam
+    (:func:`~.gang.place_gang`)."""
+    if isinstance(static, dict):
+        raw, ok = static["raw"], static["ok"]
+        return (raw.T, ok.T) if transposed else (raw, ok)
     if cfg.score_backend == "pallas":
         return tiled_score.static_scores_tiled(state, pods, cfg, static,
                                                transposed=transposed)

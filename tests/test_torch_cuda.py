@@ -439,3 +439,64 @@ def test_kernel_and_dense_replays_agree(cuda):
                            dataclasses.replace(cfg, score_backend="xla"))
     assert torch.equal(a_k, a_d)
     assert bool((final.used <= final.cap + 1e-9).all())
+
+
+def _loop_drive(dev, nodes=256, pods=384, **over):
+    """Drain one seeded backlog through a fresh ``SchedulerLoop`` on a
+    ``nodes``-node fake cluster; the bindings, final ``used``, counters
+    and static-kernel launches."""
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        WorkloadSpec,
+        build_fake_cluster,
+        feed_metrics,
+        generate_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+
+    loop_kw = {k: over.pop(k) for k in ("burst_batches", "pipelined")
+               if k in over}
+    cfg = SchedulerConfig(max_nodes=nodes, max_pods=32, max_peers=4,
+                          queue_capacity=pods + 32, **over)
+    cluster, lat, bw = build_fake_cluster(ClusterSpec(num_nodes=nodes,
+                                                      seed=11))
+    loop = SchedulerLoop(cluster, cfg, device=dev, **loop_kw)
+    try:
+        loop.encoder.set_network(lat, bw)
+        feed_metrics(cluster, loop.encoder, np.random.default_rng(12))
+        cluster.add_pods(generate_workload(
+            WorkloadSpec(num_pods=pods, seed=13, services=8,
+                         peer_fraction=0.5, affinity_fraction=0.1,
+                         anti_fraction=0.1),
+            scheduler_name=cfg.scheduler_name))
+        kernels.reset_launch_counts()
+        loop.run_until_drained()
+        loop.flush_binds()
+        torch.cuda.synchronize()
+    finally:
+        loop.stop_bind_worker()
+    snap = loop.encoder.snapshot()
+    return {"bindings": {b.pod_name: b.node_name for b in cluster.bindings},
+            "used": snap.used.cpu(),
+            "counts": (loop.scheduled, loop.unschedulable),
+            "static_launches": kernels.static_tile_scores.launches,
+            "burst_cycles": loop.burst_cycles}
+
+
+def test_loop_pallas_drive_matches_xla_on_card(cuda):
+    """A 256-node loop drive at f32: the static kernel's bindings equal
+    the dense torch path's."""
+    k = _loop_drive(cuda, score_backend="pallas", use_bfloat16=False)
+    d = _loop_drive(cuda, score_backend="xla", use_bfloat16=False)
+    assert k["bindings"] and k["static_launches"] >= 384 // 32
+    assert d["static_launches"] == 0
+    assert k["bindings"] == d["bindings"] and k["counts"] == d["counts"]
+
+
+def test_loop_serial_and_burst_identical_on_card(cuda):
+    serial = _loop_drive(cuda, score_backend="pallas", burst_batches=1)
+    burst = _loop_drive(cuda, score_backend="pallas", burst_batches=4)
+    assert serial["bindings"] and burst["burst_cycles"] > 0
+    assert burst["bindings"] == serial["bindings"]
+    assert burst["counts"] == serial["counts"]
+    assert torch.equal(burst["used"], serial["used"])

@@ -46,13 +46,15 @@ assert not bad, bad
 print(" ".join(names))
 """
 
-# Every module of the port, the serving seam's included: the walk above
+# Every module of the port, the scheduling loop's included: the walk above
 # must find (and so import) each of them.
 _MODULES = {
     "config", "bench.density", "bench.fakecluster", "bench.profile_replay",
-    "core.assign", "core.encode", "core.gang", "core.integrity",
-    "core.kernels", "core.replay", "core.score", "core.state",
-    "core.tiled_score", "k8s.client", "k8s.types",
+    "core.assign", "core.checkpoint", "core.encode", "core.gang",
+    "core.integrity", "core.kernels", "core.loop", "core.preempt",
+    "core.replay", "core.score", "core.state", "core.tiled_score",
+    "k8s.client", "k8s.informer", "k8s.types", "utils.flight",
+    "utils.timeseries", "utils.tracing",
 }
 
 
