@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's density replay, serving seam and scheduling
-loop on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's density replay, serving seam, scheduling
+loop and Score/Filter webhook on one NVIDIA GPU and check them.
 
 Run from the repository root:
 
@@ -74,6 +74,27 @@ csrc`` and prints one JSON object per phase:
                 into a fresh ``Encoder(device="cuda")``, whose manifest
                 must verify and whose snapshot must equal the saved one
                 bit for bit.
+7. ``webhook``  the Score/Filter webhook at deploy/scorer.yaml's config
+                (5,120 nodes, ``max_pods`` 256, ``max_peers`` 8): the
+                masked kernel against its plain version on the batcher's
+                own encoded batches at P = 8 … 256; 64 seeded
+                ExtenderArgs (half with peers; 1, 16, 512 and 5,120
+                candidates) from 16 clients under the kernel backend and
+                the dense backend on one state, which must give identical
+                filter lists and priorities at f32 (ties within 1e-4·span
+                of a rounding boundary counted; at bf16 the two round
+                different operands and their differences are reported);
+                masked-kernel launches equal
+                to the batcher's dispatches with one compaction each;
+                one ``/prioritize`` of all 5,120 candidates through
+                ``call_uds`` and through the native shim (``make -C
+                native``) over HTTP, per backend; the daemon
+                (``serve.main``, ``fake:5120``) answering ``/filter``,
+                ``/prioritize``, ``/readyz`` and ``/metrics`` (no repeated
+                ``# TYPE``) over its socket; ``drain_daemon(512, 2048)``
+                against the fake API server, every pod bound exactly
+                once; and ``run_qps`` under both backends (32 sequential
+                requests, then 128 clients × 2,048 requests).
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -102,6 +123,16 @@ ANSWER_BATCHES = 8
 PARITY_BATCHES = 16
 SERVE_PODS, SERVE_BATCHES, CHURN_EVERY = 8192, 64, 8
 LOOP_PODS, DENSITY_PODS, GANG_FILLER = 2048, 8192, 256
+# The webhook phase: deploy/scorer.yaml's config.json (max_pods 256,
+# max_peers 8), the pod-axis sizes the batcher pads to, the requests'
+# candidate counts, the bench legs and the daemon drain.
+WEBHOOK_MAX_PODS, WEBHOOK_PEERS = 256, 8
+WEBHOOK_P = (8, 16, 32, 64, 128, 256)
+WEBHOOK_SETUP_PODS, WEBHOOK_REQUESTS = 512, 64
+WEBHOOK_CANDS = (1, 16, 512, NODES)
+QPS_SEQ, QPS_CLIENTS, QPS_REQUESTS = 32, 128, 2048
+DRAIN_NODES, DRAIN_PODS = 512, 2048
+HOP_REPS = 50
 TOL = 1e-4
 FLUSH_BYTES = 256 << 20   # > the H100's 50 MB L2
 SPIN_CYCLES = 2_000_000   # ≈1 ms at the H100's clocks
@@ -1137,6 +1168,374 @@ def phase_loop():
     return info
 
 
+def webhook_args(rng, i: int, names: list, bound: list, n_cand: int):
+    """A seeded ExtenderArgs: even requests carry ``netaware/peers`` naming
+    up to ``WEBHOOK_PEERS`` placed pods; the candidates are ``n_cand``
+    distinct nodes (all of them at ``n_cand >= len(names)``)."""
+    meta = {"name": f"hook-{i}", "uid": f"hook-{i}", "namespace": "default",
+            "annotations": {}}
+    if i % 2 == 0 and bound:
+        chosen = rng.choice(len(bound), size=min(WEBHOOK_PEERS, len(bound)),
+                            replace=False)
+        meta["annotations"]["netaware/peers"] = json.dumps(
+            {bound[int(j)]: float(rng.uniform(0.5, 5.0)) for j in chosen})
+    req = {"cpu": f"{int(rng.integers(100, 2000))}m",
+           "memory": f"{int(rng.integers(1, 8))}Gi"}
+    cand = (list(names) if n_cand >= len(names) else
+            [names[int(j)] for j in np.sort(rng.choice(len(names), n_cand,
+                                                       replace=False))])
+    return {"pod": {"metadata": meta,
+                    "spec": {"schedulerName": "netAwareScheduler",
+                             "containers": [{"resources":
+                                             {"requests": req}}]}},
+            "nodenames": cand}
+
+
+def pct_ms(samples_s) -> dict:
+    ms = np.asarray(samples_s, dtype=float) * 1e3
+    return {"p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)), "n": int(ms.size)}
+
+
+def phase_webhook():
+    import concurrent.futures
+    import http.client
+    import os
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    from kubernetesnetawarescheduler_tpu_torch import serve
+    from kubernetesnetawarescheduler_tpu_torch.api.extender import (
+        ExtenderHandlers,
+        _pod_from_k8s,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.api.server import (
+        ScorerServer,
+        call_uds,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.bench.daemon_smoke import (
+        drain_daemon,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.bench.extender_qps import (
+        build_webhook,
+        run_qps,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        WorkloadSpec,
+        generate_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.core.tiled_score import (
+        _masked_kernel_args,
+        compute_static,
+    )
+
+    t_phase = time.perf_counter()
+    errors: list[str] = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    root = Path(__file__).resolve().parent
+    build = root / "kubernetesnetawarescheduler_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=build))
+    # deploy/scorer.yaml's config.json under the kernel backend; the
+    # other configurations share its encoder (one state for all).
+    loop, hk = build_webhook(NODES, WEBHOOK_MAX_PODS, WEBHOOK_PEERS,
+                             "pallas", seed=SEED, device="cuda")
+    cluster = loop.client
+    loops, servers, procs = [(loop, hk)], [], []
+
+    def sibling(**over):
+        lp = SchedulerLoop(cluster, dataclasses.replace(loop.cfg, **over),
+                           encoder=loop.encoder, device="cuda")
+        loops.append((lp, ExtenderHandlers(lp)))
+        return loops[-1][1]
+
+    hx = sibling(score_backend="xla")
+    # At bf16 the two backends round different operands (the kernel T and
+    # C, the dense gather C only), so their answers are held to each
+    # other at f32, as the parity phase holds the replay.
+    hk32 = sibling(use_bfloat16=False)
+    hx32 = sibling(score_backend="xla", use_bfloat16=False)
+    try:
+        # Placed pods for the requests' peers to name.
+        setup = generate_workload(
+            WorkloadSpec(num_pods=WEBHOOK_SETUP_PODS, seed=SEED + 5,
+                         services=8, peer_fraction=0.5),
+            scheduler_name=loop.cfg.scheduler_name)
+        cluster.add_pods(setup)
+        loop.run_until_drained()
+        bound = sorted(b.pod_name for b in cluster.bindings)
+        names = loop.encoder.known_node_names()
+        rng = np.random.default_rng(SEED + 13)
+
+        # 1. The masked kernel at each pod-axis size the batcher pads to,
+        # on its own encoded batches.
+        batch_pods = [_pod_from_k8s(webhook_args(
+            rng, i, names, bound, 1)["pod"]) for i in range(WEBHOOK_MAX_PODS)]
+        state = loop.encoder.snapshot()
+        static = compute_static(state, loop.cfg)
+        sizes = {}
+        with uncounted():
+            for p in WEBHOOK_P:
+                enc = loop.encoder.encode_pods(
+                    batch_pods[:p], node_of=loop._peer_node, lenient=True,
+                    pad_to=p)
+                args = _masked_kernel_args(state, enc, loop.cfg, static)
+                got = K.masked_tile_scores(*args)
+                want = K.masked_tile_scores_plain(*args)
+                torch.cuda.synchronize()
+                mg, mw = got > -5e29, want > -5e29
+                err = (float((got[mg] - want[mw]).abs().max())
+                       if bool(mg.any()) else 0.0)
+                sizes[p] = {"shape": list(got.shape),
+                            "feasible": int(mg.sum()), "max_abs_err": err,
+                            "peers": int((enc.peers >= 0).sum())}
+                check(tuple(got.shape) == (p, NODES),
+                      f"P={p}: kernel output shape {tuple(got.shape)}")
+                check(torch.equal(mg, mw),
+                      f"P={p}: infeasible entries differ on "
+                      f"{int((mg != mw).sum())}")
+                check(bool(mg.any()), f"P={p}: no feasible entry")
+                check(torch.equal(mg, mw) and torch.allclose(
+                    got[mg], want[mw], rtol=TOL, atol=TOL),
+                      f"P={p}: feasible scores differ by {err}")
+
+        # 2-3. The same requests under both backends, 16 clients each.
+        reqs = [webhook_args(rng, i, names, bound,
+                             WEBHOOK_CANDS[i % len(WEBHOOK_CANDS)])
+                for i in range(WEBHOOK_REQUESTS)]
+
+        def answer(h):
+            def one(a):
+                return h.filter(a), h.prioritize(a), h._score_row(a)[2]
+            with concurrent.futures.ThreadPoolExecutor(16) as ex:
+                return list(ex.map(one, reqs))
+
+        def compare(got_k, got_x):
+            """(filter lists that differ, priorities that differ away from
+            a rounding boundary, priorities that differ within 1e-4·span
+            of one)."""
+            filt, prio, ties = 0, 0, 0
+            for (fk, pk, _), (fx, px, sx) in zip(got_k, got_x):
+                filt += fk["nodenames"] != fx["nodenames"]
+                ok = sx > -5e29
+                if not ok.any():
+                    continue
+                lo, hi = float(sx[ok].min()), float(sx[ok].max())
+                span = max(hi - lo, 1e-9)
+                # Distance to the nearest boundary (k + 0.5)·span/10.
+                pos = (sx - lo) / span * 10
+                near = ok & (np.abs(pos - np.floor(pos) - 0.5) * span / 10
+                             <= 1e-4 * span)
+                for j, (a, b) in enumerate(zip(pk, px)):
+                    if a != b:
+                        ties += bool(near[j])
+                        prio += not near[j]
+            return filt, prio, ties
+
+        for h in (hk, hx):
+            answer(h)  # warm: the first waves allocate
+        d0 = hk._batcher.dispatches
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got_k = answer(hk)
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in K.KERNELS.items()}
+        dispatches = hk._batcher.dispatches - d0
+        bf16_filt, bf16_prio, bf16_ties = compare(got_k, answer(hx))
+        with uncounted():
+            filt_diff, prio_diff, ties = compare(answer(hk32), answer(hx32))
+        check(filt_diff == 0, f"{filt_diff} filter lists differ between "
+              "the backends at f32")
+        check(prio_diff == 0, f"{prio_diff} priorities differ between the "
+              "backends at f32 away from a rounding boundary")
+        check(launches["masked_scores_kernel"] == dispatches,
+              f"masked kernel launched {launches['masked_scores_kernel']} "
+              f"times for {dispatches} batcher dispatches")
+        check(launches["peer_columns"] == launches["masked_scores_kernel"],
+              f"peer columns compacted {launches['peer_columns']} times for "
+              f"{launches['masked_scores_kernel']} masked launches")
+        check(dispatches > 0, "the webhook drive dispatched nothing")
+
+        # One /prioritize of every candidate, one client, per hop.
+        full = json.dumps(webhook_args(rng, 9999, names, bound,
+                                       len(names))).encode()
+        hops: dict = {}
+        make = subprocess.run(["make", "-C", str(root / "native")],
+                              capture_output=True, text=True, timeout=300)
+        check(make.returncode == 0,
+              f"make -C native failed: {make.stderr[-500:]}")
+        for backend, h in (("pallas", hk), ("xla", hx)):
+            sock = str(tmp / f"{backend}.sock")
+            srv = ScorerServer(h, sock)
+            srv.start()
+            servers.append(srv)
+            uds_lat = []
+            for i in range(HOP_REPS + 3):
+                t0 = time.perf_counter()
+                out = call_uds(sock, "/prioritize", full, timeout_s=120)
+                if i >= 3:
+                    uds_lat.append(time.perf_counter() - t0)
+            check(len(json.loads(out)) == len(names),
+                  f"{backend}: UDS /prioritize answered "
+                  f"{len(json.loads(out))} of {len(names)} hosts")
+            hops[backend] = {"uds_ms": pct_ms(uds_lat)}
+            if make.returncode != 0:
+                continue
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            proc = subprocess.Popen(
+                [str(root / "native" / "netaware_extender"), str(port),
+                 sock], stderr=subprocess.DEVNULL)
+            procs.append(proc)
+            conn = None
+            for _ in range(100):
+                try:
+                    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                      timeout=120)
+                    conn.request("GET", "/healthz")
+                    conn.getresponse().read()
+                    break
+                except OSError:
+                    conn = None
+                    time.sleep(0.05)
+            check(conn is not None, f"{backend}: the native shim never "
+                  "answered /healthz")
+            if conn is None:
+                continue
+            shim_lat = []
+            for i in range(HOP_REPS + 3):
+                t0 = time.perf_counter()
+                conn.request("POST", "/prioritize", body=full,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = resp.read()
+                if i >= 3:
+                    shim_lat.append(time.perf_counter() - t0)
+            conn.close()
+            check(resp.status == 200 and len(json.loads(body)) == len(names),
+                  f"{backend}: shim /prioritize gave {resp.status}")
+            hops[backend]["native_shim_ms"] = pct_ms(shim_lat)
+
+        # The daemon at the deploy config: answers over its socket.
+        cfgp = tmp / "config.json"
+        cfgp.write_text(json.dumps({
+            "max_nodes": NODES, "max_pods": WEBHOOK_MAX_PODS,
+            "max_peers": WEBHOOK_PEERS, "score_backend": "pallas"}))
+        dsock = str(tmp / "daemon.sock")
+        stop = threading.Event()
+        t0 = time.perf_counter()
+        # --probe-period-s 0: the fake prober's stalest-first pair pick
+        # walks all N²/2 pairs in Python, seconds at this width.
+        th = threading.Thread(target=serve.main, args=(
+            ["--cluster", f"fake:{NODES}", "--uds", dsock, "--config",
+             str(cfgp), "--device", "cuda", "--probe-period-s", "0"],
+            stop), daemon=True)
+        th.start()
+        daemon = {}
+        try:
+            ready = None
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline and th.is_alive():
+                try:
+                    ready = json.loads(call_uds(dsock, "/readyz", b""))
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            daemon["start_s"] = time.perf_counter() - t0
+            check(bool(ready and ready["ready"]), "daemon never ready")
+            if ready:
+                dn = [f"node-{j:04d}" for j in range(NODES)]
+                a = dict(webhook_args(rng, 7, dn, [], 64))
+                body = json.dumps(a).encode()
+                f = json.loads(call_uds(dsock, "/filter", body,
+                                        timeout_s=120))
+                pr = json.loads(call_uds(dsock, "/prioritize", body,
+                                         timeout_s=120))
+                metrics = call_uds(dsock, "/metrics", b"").decode()
+                types = [ln.split()[2] for ln in metrics.splitlines()
+                         if ln.startswith("# TYPE ")]
+                check(len(f["nodenames"]) + len(f["failedNodes"]) == 64
+                      and len(f["nodenames"]) > 0,
+                      "daemon /filter answer is wrong")
+                check([p["host"] for p in pr] == a["nodenames"],
+                      "daemon /prioritize answer is wrong")
+                check(len(types) == len(set(types)),
+                      "daemon /metrics repeats a # TYPE family")
+                check("netaware_extender_dispatches_total" in types,
+                      "daemon /metrics lacks the batcher's families")
+                daemon.update({"filter_passed": len(f["nodenames"]),
+                               "metric_families": len(types),
+                               "readyz": ready})
+        finally:
+            stop.set()
+            th.join(timeout=120)
+            check(not th.is_alive(), "the daemon did not stop")
+
+        # The daemon draining a backlog from the fake API server.
+        drain = drain_daemon(DRAIN_NODES, DRAIN_PODS, deadline_s=300,
+                             collect_phases=True, device="cuda")
+        # The daemon's own phase timer: seconds and counts per phase.
+        drain["phase_budget"] = {
+            k.replace("netaware_phase_latency_seconds", ""): v
+            for k, v in drain["phase_budget"].items()
+            if "_hist" not in k and ("_sum{" in k or "_count{" in k)}
+        check(drain["distinct_pods_bound"] == DRAIN_PODS
+              and drain["max_binds_per_pod"] == 1,
+              f"drain: {drain['distinct_pods_bound']} pods bound, at most "
+              f"{drain['max_binds_per_pod']} binds per pod")
+
+        # Webhook throughput and per-request latency, both backends.
+        qps = {b: run_qps(NODES, WEBHOOK_MAX_PODS, QPS_SEQ, QPS_CLIENTS,
+                          QPS_REQUESTS, seed=SEED, max_peers=WEBHOOK_PEERS,
+                          score_backend=b, device="cuda").to_dict()
+               for b in ("pallas", "xla")}
+    finally:
+        for srv in servers:
+            srv.stop()
+        for proc in procs:
+            proc.terminate()
+            proc.wait(timeout=10)
+        for lp, h in loops:
+            h.close()
+            lp.stop_bind_worker()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    info = {
+        "phase": "webhook", "nodes": NODES, "max_pods": WEBHOOK_MAX_PODS,
+        "max_peers": WEBHOOK_PEERS, "card": nvidia_smi(),
+        "masked_by_p": sizes, "requests": len(reqs),
+        "drive_s": drive_s, "dispatches": dispatches,
+        "f32_priority_ties": ties,
+        "bf16_differ": {"filter_lists": bf16_filt, "priorities": bf16_prio,
+                        "priority_ties": bf16_ties},
+        "launches": launches,
+        "hops_5120_candidates": hops, "daemon": daemon,
+        "drain": drain,
+        "qps": {b: {k: r[k] for k in (
+            "seq_qps", "seq_ms", "seq_maxpods_qps", "conc_qps_best",
+            "conc_qps_mean", "conc_qps_passes", "conc_ms", "mean_batch",
+            "conc_dispatches", "conc512_qps", "rtt_budget")}
+            for b, r in qps.items()},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("webhook", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1171,6 +1570,7 @@ def main() -> int:
     run_phase("parity", phase_parity, state, stream, cfg)
     serve_res = run_phase("serve", phase_serve)
     loop_res = run_phase("loop", phase_loop)
+    webhook_res = run_phase("webhook", phase_webhook)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -1182,15 +1582,17 @@ def main() -> int:
                 # The compaction picks the columns _net_accum walks.
                 "peer_columns": f"{src}:60"}
     # Each kernel's launches on the path it belongs to: the replay for
-    # the static and the answer kernel and their compaction, the serving
-    # seam for the winner.  The scheduling loop (its four identity drives)
-    # runs the static kernel and its compaction.
+    # the static kernel and the compaction, the serving seam for the
+    # winner, the webhook's Score/Filter drive for the masked kernel.  The
+    # scheduling loop (its four identity drives) runs the static kernel
+    # and its compaction.
     path_of = {"static_scores_kernel": "main",
-               "masked_scores_kernel": "main",
+               "masked_scores_kernel": "webhook",
                "winner_scores_kernel": "serve",
                "peer_columns": "main"}
     by_path = {"main": main_res["launches"], "serve": serve_res["launches"],
-               "loop": loop_res["launches"]}
+               "loop": loop_res["launches"],
+               "webhook": webhook_res["launches"]}
     rows = []
     for kname in K.KERNELS:
         r = kres[prec][kname]

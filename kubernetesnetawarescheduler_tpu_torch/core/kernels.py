@@ -56,7 +56,8 @@ bf16 rounding rule: bf16-rounded inputs when ``use_bfloat16`` is set,
 f32 accumulation, f32 out); the plain score versions compute the dense
 product.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises — it never falls back.  Each
-wrapper counts its kernel launches in ``.launches``.
+wrapper counts its kernel launches in ``.launches`` (under a lock: the
+webhook's handler threads launch beside the loop's cycle thread).
 
 The library is built on first use with ``nvcc`` for ``sm_90a`` into
 ``kubernetesnetawarescheduler_tpu_torch/_build/`` and bound with
@@ -72,6 +73,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -392,6 +394,15 @@ def winner_tile_scores_plain(pack: StaticPack, used: torch.Tensor,
 # Wrappers.
 # ---------------------------------------------------------------------------
 
+# Webhook handler threads, the loop's cycle thread and the static
+# refresher all launch kernels; the counts are incremented under a lock.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(fn) -> None:
+    with _COUNT_LOCK:
+        fn.launches += 1
+
 
 def peer_columns(t: torch.Tensor):
     """``(cols i32[n_k], count i32[1])``: the ascending columns of the
@@ -415,7 +426,7 @@ def peer_columns(t: torch.Tensor):
         err = lib.tiled_peer_columns(ptr, flags.data_ptr(), cols.data_ptr(),
                                      count.data_ptr(), p, n_k, stream)
     _raise_on(err, "peer_columns")
-    peer_columns.launches += 1
+    _count_launch(peer_columns)
     return cols, count
 
 
@@ -473,7 +484,7 @@ def static_tile_scores(pack: StaticPack, groups: torch.Tensor,
             *args, raw.data_ptr(), ok.data_ptr(), sp, sn, p, n_out, n_k,
             mw, t_soft, int(use_bfloat16), stream)
     _raise_on(err, "static_scores_kernel")
-    static_tile_scores.launches += 1
+    _count_launch(static_tile_scores)
     return raw, ok
 
 
@@ -506,7 +517,7 @@ def masked_tile_scores(pack: StaticPack, used: torch.Tensor,
             *args, out.data_ptr(), p, n_out, n_k, r, mw, t_soft,
             int(use_bfloat16), stream)
     _raise_on(err, "masked_scores_kernel")
-    masked_tile_scores.launches += 1
+    _count_launch(masked_tile_scores)
     return out
 
 
@@ -543,7 +554,7 @@ def winner_tile_scores(pack: StaticPack, used: torch.Tensor,
             *args, keys.data_ptr(), best.data_ptr(), node.data_ptr(), p,
             n_out, n_k, r, mw, t_soft, int(use_bfloat16), stream)
     _raise_on(err, "winner_scores_kernel")
-    winner_tile_scores.launches += 1
+    _count_launch(winner_tile_scores)
     return best, node
 
 
@@ -552,8 +563,9 @@ winner_tile_scores.launches = 0
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for fn in KERNELS.values():
-        fn.launches = 0
+    with _COUNT_LOCK:
+        for fn in KERNELS.values():
+            fn.launches = 0
 
 
 KERNELS = {

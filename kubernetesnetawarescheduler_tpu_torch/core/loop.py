@@ -12,9 +12,9 @@ reconcile paths.  What differs from the JAX loop:
   is the encode-ahead of the next burst against the retire of the last.
 - The assignment reaches the host through ``.cpu()`` (:func:`_to_host`),
   which waits for the kernels that wrote it.
-- The optional layers the JAX loop gates off by default — placement
-  quality, SLOs, the learned policy, rebalancing, the mesh and
-  ``enable_explain`` — are not ported yet: switching one on raises
+- The optional layers the JAX package gates off by default — placement
+  quality, SLOs, the learned policy, the topology model, rebalancing,
+  the mesh and ``enable_explain`` — are not ported yet: switching one on raises
   :class:`NotImplementedError` when the loop is built, never mid-cycle.
 - torch keeps no executable cache, so ``jit_cache_miss_total`` stays 0.
 
@@ -86,6 +86,7 @@ _UNPORTED_LAYERS = (
     ("enable_slo", "obs/slo.py (ROADMAP Queue A item 12)"),
     ("enable_learned_score", "policy/ (ROADMAP Queue A item 12)"),
     ("enable_rebalance", "core/rebalance.py (ROADMAP Queue A item 11)"),
+    ("enable_netmodel", "netmodel/ (ROADMAP Queue A item 12)"),
     ("enable_explain",
      "score.explain_scores (deferred under ROADMAP Queue A item 2)"),
 )

@@ -2,11 +2,12 @@
 
 The PyTorch package's own copies of the JAX package's ``k8s/types.py``
 (:class:`~.types.Node`, :class:`~.types.Pod`, :class:`~.types.Binding`
-and the rest) and of ``k8s/client.py`` (the abstract
+and the rest), ``k8s/client.py`` (the abstract
 :class:`~.client.ClusterClient` and the in-memory
-:class:`~.client.FakeCluster` used by tests and benchmarks).  The
-informer, the HTTP kube client, the chaos proxy and the conformance
-suite follow with the scheduling loop.
+:class:`~.client.FakeCluster` used by tests and benchmarks),
+``k8s/informer.py``, ``k8s/kubeclient.py`` (the HTTP API-server client)
+and ``k8s/conformance.py`` (the wire-contract schemas).  The chaos proxy
+(``k8s/chaos.py``) is not ported yet.
 """
 
 from kubernetesnetawarescheduler_tpu_torch.k8s.types import (  # noqa: F401

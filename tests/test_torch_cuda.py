@@ -500,3 +500,60 @@ def test_loop_serial_and_burst_identical_on_card(cuda):
     assert burst["bindings"] == serial["bindings"]
     assert burst["counts"] == serial["counts"]
     assert torch.equal(burst["used"], serial["used"])
+
+
+_WEBHOOK: dict = {}
+
+
+def _webhook_encoder(dev):
+    """A 5,120-node encoder at deploy/scorer.yaml's config (``max_pods``
+    256, ``max_peers`` 8) with 256 seeded pods whose peers sit on seeded
+    nodes; built once per process."""
+    if "enc" not in _WEBHOOK:
+        from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+            ClusterSpec,
+            WorkloadSpec,
+            build_fake_cluster,
+            feed_metrics,
+            generate_workload,
+        )
+        from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
+
+        cfg = SchedulerConfig(max_nodes=5120, max_pods=256, max_peers=8,
+                              score_backend="pallas")
+        cluster, lat, bw = build_fake_cluster(ClusterSpec(num_nodes=5120,
+                                                          seed=0))
+        enc = Encoder(cfg, device=dev)
+        for node in cluster.list_nodes():
+            enc.upsert_node(node)
+        enc.set_network(lat, bw)
+        rng = np.random.default_rng(1)
+        feed_metrics(cluster, enc, rng)
+        pods = generate_workload(WorkloadSpec(num_pods=512, seed=2,
+                                              services=8, peer_fraction=0.9))
+        names = enc.known_node_names()
+        home = {p.name: names[int(rng.integers(0, len(names)))]
+                for p in pods[:256]}
+        _WEBHOOK.update(cfg=cfg, enc=enc, pods=pods[256:],
+                        node_of=lambda n: home.get(n, ""))
+    return _WEBHOOK
+
+
+@pytest.mark.parametrize("p", [8, 16, 32, 64, 128, 256])
+def test_masked_kernel_at_each_webhook_pod_pad(cuda, p):
+    """The batcher pads a wave's pod axis to a power of two in [8,
+    max_pods]: the masked kernel equals its plain version at each size,
+    at N=5,120 with up to 8 peers per pod."""
+    w = _webhook_encoder(cuda)
+    batch = w["enc"].encode_pods(w["pods"][:p], node_of=w["node_of"],
+                                 lenient=True, pad_to=p)
+    assert int((batch.peers >= 0).sum()) > 0
+    state = w["enc"].snapshot()
+    args = tiled_score._masked_kernel_args(state, batch, w["cfg"])
+    out = kernels.masked_tile_scores(*args)
+    out_p = kernels.masked_tile_scores_plain(*args)
+    assert out.shape == (p, 5120)
+    m = out_p > NEG_HALF
+    assert torch.equal(out > NEG_HALF, m)
+    assert bool(m.any())
+    assert torch.allclose(out[m], out_p[m], rtol=1e-4, atol=1e-4)

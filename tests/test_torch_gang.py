@@ -147,21 +147,15 @@ def test_gang_drive_matches_jax(drive):
 
 def test_gang_workload_drive_matches_jax():
     """``generate_gang_workload`` (gangs of 4 and 8 among filler pods,
-    interleaved) through both loops on a 48-node cluster: every gang is
-    bound whole or not at all, alike in both packages."""
+    interleaved) through both loops on a 32-node cluster at the other
+    drives' config (so the JAX loop reuses their compiled steps): every
+    gang is bound whole or not at all, alike in both packages."""
     outs = []
     for pkg in (JAX, TORCH):
-        cfg = pkg.cfg(max_nodes=64, max_pods=16, max_peers=4,
-                      queue_capacity=256)
-        cluster, lat, bw = pkg.fc.build_fake_cluster(
-            pkg.fc.ClusterSpec(num_nodes=48, seed=21))
-        loop = pkg.loop(cluster, cfg, method="parallel", **pkg.kw)
-        loop.encoder.set_network(lat, bw)
-        pkg.fc.feed_metrics(cluster, loop.encoder,
-                            np.random.default_rng(22))
+        cluster, loop = _loop(pkg, num_nodes=32, seed=21)
         pods = pkg.fc.generate_gang_workload(
             num_gangs=5, member_counts=(4, 8), filler_pods=24, seed=23,
-            cpu=2.0, mem=4.0, scheduler_name=cfg.scheduler_name)
+            cpu=2.0, mem=4.0, scheduler_name=pkg.cfg().scheduler_name)
         cluster.add_pods(pods)
         loop.run_until_drained()
         out = _outcome(cluster, loop)

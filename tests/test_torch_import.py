@@ -55,6 +55,12 @@ _MODULES = {
     "core.replay", "core.score", "core.state", "core.tiled_score",
     "k8s.client", "k8s.informer", "k8s.types", "utils.flight",
     "utils.timeseries", "utils.tracing",
+    # The webhook and the daemon.
+    "api", "api.extender", "api.server", "api.grpc_server",
+    "utils.selfmetrics", "bench.extender_qps", "bench.daemon_smoke",
+    "bench.fakeapi", "ingest", "ingest.prometheus", "ingest.iperf",
+    "ingest.native", "ingest.scraper", "ingest.probe", "k8s.kubeclient",
+    "k8s.conformance", "serve", "__main__",
 }
 
 

@@ -176,7 +176,8 @@ def test_pallas_backend_serial_drive_matches_jax():
 
 @pytest.mark.parametrize("flag", ["enable_quality_obs", "enable_slo",
                                   "enable_learned_score", "enable_rebalance",
-                                  "enable_explain", "mesh"])
+                                  "enable_netmodel", "enable_explain",
+                                  "mesh"])
 def test_unported_layer_refused_at_construction(flag):
     cfg_kw = dict(max_nodes=8, max_pods=4, max_peers=2)
     loop_kw = {}
