@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's density replay, serving seam, scheduling
-loop and Score/Filter webhook on one NVIDIA GPU and check them.
+loop, Score/Filter webhook and device-replay feeds on one NVIDIA GPU and
+check them.
 
 Run from the repository root:
 
@@ -95,6 +96,26 @@ csrc`` and prints one JSON object per phase:
                 against the fake API server, every pod bound exactly
                 once; and ``run_qps`` under both backends (32 sequential
                 requests, then 128 clients × 2,048 requests).
+8. ``feed``     the chunked device-replay feeds and explain capture:
+                bench.py's headline drain, ``run_density(5120, 65536,
+                batch_size=128, mode="pipeline", chunk_batches=16,
+                churn_links=4)`` with the kernel backend (its warm-up
+                replays the stream once), which must bind or leave
+                unschedulable every pod exactly once, leave no node over
+                capacity, launch the static kernel once per batch with one
+                compaction each, and whose 200th measured static launch is
+                held against the plain version; the identity drive
+                (16,384 pods, no churn): ``mode="host"``, ``"device"`` and
+                ``"pipeline"`` with encode overlap on and off must bind
+                alike (the dense backend's pipeline drain is reported);
+                ``measure_multicycle_latency(5120, 128, k=8, reps=10)`` and
+                ``multicycle_identity_check()``, which must be identical;
+                and the ``loop`` phase's backlog over the serial, burst,
+                pipelined and multicycle paths plus a gang backlog with
+                ``enable_explain`` on and off: the same bindings, a record
+                for every bound pod naming its node, winners whose
+                components sum to their score, ``explains_failed`` 0, and
+                the host ms per captured batch.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -1536,6 +1557,329 @@ def phase_webhook():
     return info
 
 
+# The feed phase: bench.py's headline drain (run_density(5120, 65536,
+# batch_size=128, mode="pipeline", chunk_batches=16, churn_links=4)), the
+# identity drive, the multicycle measurements and the explain drive.
+FEED_CHUNK_BATCHES, FEED_CHURN_LINKS = 16, 4
+FEED_CAPTURE_AT = 200          # the measured drain's launch held vs plain
+IDENTITY_PODS = 16384
+MULTICYCLE_K, MULTICYCLE_REPS = 8, 10
+
+
+class _FeedSampler:
+    """``run_density``'s sampler for the feed phase: started after the
+    warm-up, it sets every kernel count to 0 and arms the capture of one
+    static-kernel call of the measured drain."""
+
+    def __init__(self, armed: dict) -> None:
+        self.armed = armed
+
+    def start(self) -> None:
+        from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+
+        K.reset_launch_counts()
+        self.armed["on"] = True
+
+
+def phase_feed():
+    import os
+
+    from kubernetesnetawarescheduler_tpu_torch.bench import density
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        WorkloadSpec,
+        build_fake_cluster,
+        feed_metrics,
+        generate_gang_workload,
+        generate_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.core.score import _EPS
+
+    t_phase = time.perf_counter()
+    errors: list[str] = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    def over_capacity(s) -> int:
+        return int(((s.used > s.cap + _EPS).any(dim=1) & s.node_valid)
+                   .sum())
+
+    def counts() -> dict:
+        return {n: fn.launches for n, fn in K.KERNELS.items()}
+
+    # 1. The headline drain, as bench.py calls it; one static-kernel call
+    # of the measured drain is kept to hold against the plain version.
+    armed: dict = {"on": False, "calls": 0}
+    real_static = tiled_score.static_tile_scores
+
+    def capturing(pack, groups, pods, use_bfloat16, transposed=False,
+                  peers=None):
+        if armed["on"]:
+            armed["calls"] += 1
+            if armed["calls"] == FEED_CAPTURE_AT:
+                armed["args"] = (pack, groups.clone(), pods, use_bfloat16)
+        return real_static(pack, groups, pods, use_bfloat16,
+                           transposed=transposed, peers=peers)
+
+    seen: dict = {}
+
+    def keep(loop) -> None:
+        seen["launches"] = counts()
+        seen["bindings"] = [(b.pod_name, b.node_name)
+                            for b in loop.client.bindings]
+        seen["over"] = over_capacity(loop.encoder.snapshot())
+
+    tiled_score.static_tile_scores = capturing
+    try:
+        res = density.run_density(
+            NODES, PODS, batch_size=BATCH, mode="pipeline",
+            chunk_batches=FEED_CHUNK_BATCHES, churn_links=FEED_CHURN_LINKS,
+            score_backend="pallas", sampler=_FeedSampler(armed),
+            after_drain=keep, device="cuda")
+    finally:
+        tiled_score.static_tile_scores = real_static
+    batches = -(-PODS // BATCH)
+    names = [n for n, _ in seen["bindings"]]
+    launches = seen["launches"]
+    check(res.pods_bound + res.pods_unschedulable == PODS,
+          f"headline: {res.pods_bound} bound + {res.pods_unschedulable} "
+          f"unschedulable != {PODS} pods")
+    check(len(names) == len(set(names)) == res.pods_bound,
+          f"headline: {len(names)} bindings of {len(set(names))} pods for "
+          f"{res.pods_bound} bound")
+    check(seen["over"] == 0, f"headline: {seen['over']} nodes over capacity")
+    check(launches["static_scores_kernel"] == batches,
+          f"headline: static kernel launched "
+          f"{launches['static_scores_kernel']} times for {batches} batches")
+    check(launches["peer_columns"] == launches["static_scores_kernel"],
+          f"headline: peer columns compacted {launches['peer_columns']} "
+          f"times for {launches['static_scores_kernel']} static launches")
+    kernel_check = {}
+    if "args" not in armed:
+        check(False, "headline: no static-kernel call was captured")
+    else:
+        pack, groups, pods, bf16 = armed["args"]
+        with uncounted():
+            raw_t, ok_t = K.static_tile_scores(pack, groups, pods, bf16,
+                                               transposed=True)
+            raw, ok = K.static_tile_scores_plain(pack, groups, pods, bf16)
+        torch.cuda.synchronize()
+        raw_t, ok_t = raw_t.T, ok_t.T
+        err = (float((raw_t[ok] - raw[ok]).abs().max())
+               if bool(ok.any()) else 0.0)
+        kernel_check = {"launch": FEED_CAPTURE_AT,
+                        "shape": list(raw_t.shape),
+                        "feasible": int(ok.sum()), "max_abs_err": err,
+                        "peer_columns": int((pods.t != 0).any(0).sum())}
+        check(torch.equal(ok_t, ok),
+              f"headline: static mask differs on {int((ok_t != ok).sum())}")
+        check(bool(ok.any()), "headline: the captured batch has no "
+              "feasible entry")
+        check(torch.equal(ok_t, ok) and torch.allclose(
+            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
+              f"headline: static kernel differs from plain by {err}")
+    headline = {
+        "pods_per_s": res.pods_per_sec, "wall_s": res.wall_s,
+        "pods_bound": res.pods_bound,
+        "pods_unschedulable": res.pods_unschedulable,
+        "score_ms": {"p50": res.score_p50_ms, "p99": res.score_p99_ms,
+                     "samples": res.score_samples},
+        "bind_tail_ms": res.bind_tail_ms,
+        "bind_queue_wait_p99_ms": res.bind_queue_wait_p99_ms,
+        "bind_rtt_p99_ms": res.bind_rtt_p99_ms,
+        "bind_ms": {"p50": res.bind_p50_ms, "p99": res.bind_p99_ms},
+        "rounds": {"p50": res.rounds_p50, "p99": res.rounds_p99,
+                   "max": res.rounds_max},
+        "encode_p99_ms": res.encode_p99_ms,
+        "encode_overlap": res.encode_overlap,
+        "static_refresh_count": res.static_refresh_count,
+        "static_sync_builds": res.static_sync_builds,
+        "launches": launches, "batches": batches,
+        "kernel_vs_plain": kernel_check,
+        "worst_cycle": res.trace_provenance.get("worst_cycle"),
+    }
+
+    # 2. The identity drive: host, device and pipeline (encode overlap on
+    # and off) must bind alike; the dense backend is reported.
+    ident: dict = {}
+
+    def drain(mode: str, overlap: str, backend: str = "pallas") -> dict:
+        got: dict = {}
+
+        def take(loop) -> None:
+            got["bindings"] = {b.pod_name: b.node_name
+                               for b in loop.client.bindings}
+            got["over"] = over_capacity(loop.encoder.snapshot())
+
+        os.environ["BENCH_ENCODE_OVERLAP"] = overlap
+        try:
+            r = density.run_density(
+                NODES, IDENTITY_PODS, batch_size=BATCH, mode=mode,
+                chunk_batches=FEED_CHUNK_BATCHES, score_backend=backend,
+                warmup=False, after_drain=take, device="cuda")
+        finally:
+            os.environ.pop("BENCH_ENCODE_OVERLAP", None)
+        ident[f"{mode}/{backend}/overlap={overlap}"] = {
+            "pods_per_s": r.pods_per_sec, "wall_s": r.wall_s,
+            "pods_bound": r.pods_bound,
+            "pods_unschedulable": r.pods_unschedulable,
+            "encode_overlap": r.encode_overlap,
+            "score_ms": {"p50": r.score_p50_ms, "p99": r.score_p99_ms}}
+        check(got["over"] == 0, f"identity {mode}: nodes over capacity")
+        return got["bindings"]
+
+    base = drain("host", "0")
+    for mode, ov in (("device", "0"), ("pipeline", "1"), ("pipeline", "0")):
+        b = drain(mode, ov)
+        diff = sum(base.get(k) != v for k, v in b.items()) + abs(
+            len(b) - len(base))
+        check(b == base, f"identity {mode} overlap={ov}: bindings differ "
+              f"from host on {diff} pods")
+    dense = drain("pipeline", "1", backend="xla")
+    ident["xla_vs_pallas_differ"] = sum(base.get(k) != v
+                                        for k, v in dense.items())
+
+    # 3. The multicycle measurements.
+    mc_lat = density.measure_multicycle_latency(
+        NODES, BATCH, k=MULTICYCLE_K, reps=MULTICYCLE_REPS, device="cuda")
+    mc_id = density.multicycle_identity_check(device="cuda")
+    check(mc_id["identical"], f"multicycle identity: {mc_id}")
+
+    # 4. The explain drive: the loop phase's backlog over the four paths
+    # and a gang backlog, explain on and off.
+    capture_s: list[float] = []
+    real_capture = SchedulerLoop._capture_explains
+
+    def timed_capture(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real_capture(self, *args, **kwargs)
+        finally:
+            if self.cfg.enable_explain:
+                capture_s.append(time.perf_counter() - t0)
+
+    ecfg = SchedulerConfig(max_nodes=NODES, max_pods=BATCH, max_peers=PEERS,
+                           score_backend="pallas", queue_capacity=4096,
+                           explain_retain=4096)
+    paths = {"serial": (ecfg, dict(burst_batches=1)),
+             "burst": (ecfg, dict(burst_batches=8)),
+             "pipelined": (ecfg, dict(burst_batches=8, pipelined=True)),
+             "multicycle": (dataclasses.replace(
+                 ecfg, bind_coalesce_window=4, bind_max_inflight=2,
+                 multicycle_queue_depth=8),
+                 dict(burst_batches=8, multicycle=8, async_bind=True)),
+             "gang": (ecfg, dict(burst_batches=1))}
+    explain: dict = {}
+    SchedulerLoop._capture_explains = timed_capture
+    try:
+        for name, (c, kw) in paths.items():
+            out = {}
+            for on in (True, False):
+                cluster, lat, bw = build_fake_cluster(
+                    ClusterSpec(num_nodes=NODES, seed=SEED))
+                loop = SchedulerLoop(cluster, dataclasses.replace(
+                    c, enable_explain=on), method="parallel",
+                    device="cuda", **kw)
+                try:
+                    loop.encoder.set_network(lat, bw)
+                    feed_metrics(cluster, loop.encoder,
+                                 np.random.default_rng(SEED + 3))
+                    if name == "gang":
+                        pods = generate_gang_workload(
+                            filler_pods=GANG_FILLER, seed=SEED + 7,
+                            scheduler_name=c.scheduler_name)
+                    else:
+                        pods = generate_workload(
+                            WorkloadSpec(num_pods=LOOP_PODS, seed=SEED + 5,
+                                         services=8, peer_fraction=0.5,
+                                         affinity_fraction=0.1,
+                                         anti_fraction=0.1),
+                            scheduler_name=c.scheduler_name)
+                    n0 = len(capture_s)
+                    t0 = time.perf_counter()
+                    cluster.add_pods(pods)
+                    loop.run_until_drained()
+                    loop.flush_binds()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    loop.stop_bind_worker()
+                out[on] = {"bindings": {b.pod_name: b.node_name
+                                        for b in cluster.bindings},
+                           "wall_s": wall, "loop": loop, "pods": pods,
+                           "captures": capture_s[n0:]}
+            on, off = out[True], out[False]
+            loop, bound = on["loop"], on["bindings"]
+            check(on["bindings"] == off["bindings"],
+                  f"explain {name}: bindings differ with explain on")
+            check(bool(bound), f"explain {name}: nothing bound")
+            missing = wrong = 0
+            summed = bad_sum = 0
+            for pod in on["pods"]:
+                if pod.name not in bound:
+                    continue
+                rec = loop.flight.get_explain(pod.uid)
+                if rec is None:
+                    missing += 1
+                    continue
+                if rec["decision"] != "bound" or rec["node"] != bound[
+                        pod.name]:
+                    wrong += 1
+                win = [x for x in rec["candidates"]
+                       if x["node_index"] == rec["node_index"]]
+                if win:
+                    summed += 1
+                    recon = sum(win[0]["components"].values())
+                    if abs(recon - rec["score"]) > 1e-3 + 1e-4 * abs(recon):
+                        bad_sum += 1
+            failed = loop.flight.explains_failed
+            check(missing == 0, f"explain {name}: {missing} bound pods "
+                  "without a record")
+            check(wrong == 0, f"explain {name}: {wrong} records name "
+                  "another node than the binding")
+            check(bad_sum == 0, f"explain {name}: {bad_sum} winners whose "
+                  "components do not sum to the score")
+            check(summed > 0, f"explain {name}: no winner among the "
+                  "records' candidates")
+            check(failed == 0, f"explain {name}: explains_failed {failed}")
+            caps = on["captures"]
+            explain[name] = {
+                "bound": len(bound), "records": loop.flight.explains_len(),
+                "winner_in_top_k": summed, "explains_failed": failed,
+                "captured_batches": len(caps),
+                "capture_ms": {"p50": float(np.percentile(caps, 50)) * 1e3,
+                               "p99": float(np.percentile(caps, 99)) * 1e3}
+                if caps else None,
+                "wall_s": {"explain_on": on["wall_s"],
+                           "explain_off": off["wall_s"]}}
+    finally:
+        SchedulerLoop._capture_explains = real_capture
+
+    info = {
+        "phase": "feed", "nodes": NODES, "batch": BATCH, "pods": PODS,
+        "chunk_batches": FEED_CHUNK_BATCHES,
+        "churn_links": FEED_CHURN_LINKS, "card": nvidia_smi(),
+        "headline": headline,
+        "identity": {"pods": IDENTITY_PODS, "runs": ident},
+        "multicycle": {"latency": mc_lat, "identity": mc_id},
+        "explain": explain,
+        "launches": launches,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("feed", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1571,6 +1915,7 @@ def main() -> int:
     serve_res = run_phase("serve", phase_serve)
     loop_res = run_phase("loop", phase_loop)
     webhook_res = run_phase("webhook", phase_webhook)
+    feed_res = run_phase("feed", phase_feed)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -1585,14 +1930,15 @@ def main() -> int:
     # the static kernel and the compaction, the serving seam for the
     # winner, the webhook's Score/Filter drive for the masked kernel.  The
     # scheduling loop (its four identity drives) runs the static kernel
-    # and its compaction.
+    # and its compaction, and so does the feed phase's headline drain.
     path_of = {"static_scores_kernel": "main",
                "masked_scores_kernel": "webhook",
                "winner_scores_kernel": "serve",
                "peer_columns": "main"}
     by_path = {"main": main_res["launches"], "serve": serve_res["launches"],
                "loop": loop_res["launches"],
-               "webhook": webhook_res["launches"]}
+               "webhook": webhook_res["launches"],
+               "feed": feed_res["launches"]}
     rows = []
     for kname in K.KERNELS:
         r = kres[prec][kname]

@@ -26,10 +26,10 @@ module:
 - Mesh-sharded scoring is not ported (ROADMAP Queue A item 15; the loop
   refuses a mesh at construction), so the wave always scores on the one
   device the encoder lives on.
-- Explain capture is not ported yet (ROADMAP Queue A item 2): the loop
-  refuses ``enable_explain``, so ``/explain/<uid>`` answers "no explain
-  record", and the ``/debug/*`` pages of the unported layers answer
-  ``{"enabled": false}``, as the JAX package does with those layers off.
+- ``/explain/<uid>`` returns the loop's explain record for the pod
+  (``enable_explain``), under either score backend; the ``/debug/*``
+  pages of the unported layers answer ``{"enabled": false}``, as the
+  JAX package does with those layers off.
 
 Every thread (webhook handlers, the loop's cycle thread, the static
 refresher) enqueues on the device's current stream, which torch shares

@@ -21,16 +21,24 @@ step beside it) on a cluster built the way the serving loop builds it:
 ``bench/fakecluster.py`` nodes through the :class:`~..core.encode.Encoder`.
 
 :func:`run_density` is the JAX package's clusterloader2-style density
-run in its ``mode="host"``: a generated fake cluster, a backlog of
-generated pods, and the live :class:`~..core.loop.SchedulerLoop` draining
-it, reporting pods/s and the loop's per-batch phase percentiles.
+run: a generated fake cluster, a backlog of generated pods, and either
+the live :class:`~..core.loop.SchedulerLoop` draining it
+(``mode="host"``) or the device replay feeds (``mode="device"``, one
+whole-stream replay, and ``mode="pipeline"``, the chunked replay with a
+binder thread and, where :func:`_overlap_encode` says so, an encode
+producer), reporting pods/s and per-batch latency percentiles.
+:func:`measure_multicycle_latency` and :func:`multicycle_identity_check`
+measure and check the serving loop's K-wave window.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import queue as queue_mod
 import subprocess
+import threading
 import time
 from typing import Callable
 
@@ -57,6 +65,10 @@ from kubernetesnetawarescheduler_tpu_torch.core.replay import (
     fold_stream,
     pad_stream,
     replay_folded,
+    replay_stream,
+    replay_stream_pipelined,
+    replay_stream_pipelined_feed,
+    replay_stream_static,
     stream_from_numpy,
 )
 from kubernetesnetawarescheduler_tpu_torch.core.state import (
@@ -473,6 +485,9 @@ class DensityResult:
     bind_inflight_peak: int = 0
     encode_p50_ms: float = 0.0
     bind_p50_ms: float = 0.0
+    # Whether the pipeline drain encoded on a producer thread beside it
+    # (:func:`_overlap_encode`); False in the other modes.
+    encode_overlap: bool = False
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -648,22 +663,22 @@ def run_density(num_nodes: int = 100, num_pods: int = 300,
     ``mode="host"`` is the JAX package's host mode: one device step per
     batch when the queue is shallow, bursts of up to ``burst_batches``
     batches (default 8) under a deep backlog, the pipelined cycle with
-    ``pipelined=True`` and the K-wave window with ``multicycle=K``.  The
-    device and pipeline modes drive the chunked replay feeds, which are
-    not ported yet (ROADMAP Queue A item 5): they raise
-    :class:`NotImplementedError`.
+    ``pipelined=True`` and the K-wave window with ``multicycle=K``.
+    ``mode="device"`` and ``mode="pipeline"`` drain the whole backlog
+    through the device replay (:func:`_run_density_device`): one
+    whole-stream replay, or the chunked replay of ``chunk_batches``
+    batches per chunk.  A ``mesh`` raises :class:`NotImplementedError`
+    when the loop is built (ROADMAP Queue A item 15).
 
     ``churn_links`` > 0 injects seeded link-probe + metrics churn before
-    every serving cycle (and then turns ``enable_async_static`` on in
-    the default cfg).  ``sampler``, if given, is started after warm-up.
+    every serving cycle (host), chunk arrival (pipeline) or bind batch
+    (device), and then turns ``enable_async_static`` on in the default
+    cfg.  ``sampler``, if given, is started after warm-up.
     ``after_drain(loop)``, if given, is called with the measured loop
     after its drain (its binds flushed, its refresher stopped), before
     the result is built.  The loop builds on ``device``."""
-    if mode != "host":
-        raise NotImplementedError(
-            f"run_density mode={mode!r} drives the chunked replay feeds "
-            "(ROADMAP Queue A item 5), which are not ported yet; "
-            "mode='host' runs the serving loop")
+    if mode not in ("host", "device", "pipeline"):
+        raise ValueError(f"unknown mode {mode!r}")
     if cfg is None:
         cfg = SchedulerConfig(
             max_nodes=round_up(num_nodes, 128),
@@ -701,6 +716,15 @@ def run_density(num_nodes: int = 100, num_pods: int = 300,
                  drop_fraction=metric_drop_fraction)
     pods = generate_workload(WorkloadSpec(num_pods=num_pods, seed=seed),
                              scheduler_name=cfg.scheduler_name)
+
+    if mode in ("device", "pipeline"):
+        return _run_density_device(cluster, loop, pods, cfg, method,
+                                   num_nodes, seed, warmup, sampler,
+                                   chunk_batches=chunk_batches,
+                                   pipeline=(mode == "pipeline"),
+                                   churn_links=churn_links,
+                                   trace_out=trace_out, device=device,
+                                   after_drain=after_drain)
 
     if warmup:
         wloop = _throwaway_loop(num_nodes, seed, cfg, method,
@@ -778,3 +802,451 @@ def run_density(num_nodes: int = 100, num_pods: int = 300,
         **_flight_stats(loop, trace_out),
         **_multicycle_stats(loop, cfg),
     )
+
+
+# ---------------------------------------------------------------------------
+# The device replay under a density backlog (the JAX package's run_density,
+# mode="device" | "pipeline").
+# ---------------------------------------------------------------------------
+
+
+def _overlap_encode(dev: torch.device) -> bool:
+    """Whether the pipeline drain encodes on a producer thread beside the
+    replay (``BENCH_ENCODE_OVERLAP``: ``1`` on, ``0`` off, unset = auto).
+    Auto turns it on only for a CUDA device with at least 2 host cores
+    in this process's affinity set: on the CPU the "device" work shares
+    the host cores, and on one core the producer only contends with the
+    chunk worker and the binder."""
+    env = os.environ.get("BENCH_ENCODE_OVERLAP", "")
+    if env in ("0", "1"):
+        return env == "1"
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        cores = os.cpu_count() or 1
+    return dev.type == "cuda" and cores >= 2
+
+
+def _run_density_device(cluster, loop: SchedulerLoop, pods, cfg,
+                        method: str, num_nodes: int, seed: int,
+                        warmup: bool, sampler=None,
+                        chunk_batches: int = 2,
+                        pipeline: bool = False,
+                        churn_links: int = 0,
+                        trace_out: str | None = None,
+                        device="cuda",
+                        after_drain=None) -> DensityResult:
+    """Device-replay drain, two strategies sharing one harness.
+
+    ``pipeline=False``: the whole backlog as one :func:`replay_stream`,
+    one copy of the assignment to the host, then a bind pass per batch.
+
+    ``pipeline=True``: the chunked replay
+    (:func:`replay_stream_pipelined`, or the encode-fed
+    :func:`replay_stream_pipelined_feed` when :func:`_overlap_encode`),
+    whose chunk worker runs ahead of this thread while a binder thread
+    binds each arrived chunk — the async binding-cycle shape.
+
+    The timed window covers what a deployment does per pod: the host
+    encode of the stream, the replay and the bind pass.  The warm-up
+    (kernel builds, the allocator's first blocks; it replays the stream
+    once on the measured state) and the snapshot upload sit outside it.
+
+    Score latency: in pipeline mode one host-observed sample per chunk
+    arrival, normalized per batch (true percentiles); in device mode the
+    amortized mean (``score_samples == 1``).  ``bind_p99_ms`` is over
+    per-batch bind samples, ``bind_tail_ms`` the wall left after the
+    replay (the binds the pipeline did not hide)."""
+    cluster.add_pods(pods)
+    queued = loop.queue.pop_batch(len(pods), timeout=0.0)
+    num_batches = round_up(len(queued), cfg.max_pods) // cfg.max_pods
+    dev = loop.encoder.device
+
+    # The measured state is uploaded before the warm-up, which replays
+    # on it; a live deployment pays this upload once at startup.
+    state = loop.encoder.snapshot()
+    _sync(dev)
+
+    # Seeded churn (one tick per chunk arrival / bind batch) routes probe
+    # results through the serving loop's snapshot/_static_for path
+    # beside the drain.  Assignments are unaffected: the replay consumes
+    # the state snapshotted above.
+    churn_tick = None
+    if churn_links > 0:
+        churn_tick = _churn_fn(
+            loop.encoder, [n.name for n in cluster.list_nodes()],
+            np.random.default_rng(seed + 13), churn_links)
+
+    def _churn_refresh():
+        churn_tick()
+        st, ver = loop.encoder.snapshot_versioned()
+        loop._static_for(st, ver)
+
+    overlap = pipeline and _overlap_encode(dev)
+    if warmup:
+        # Warm the host encode path on a throwaway encoder and the
+        # measured encoder's constraint-shape cache (a long-running
+        # daemon serves with it warm), then replay once on the measured
+        # state through the path the measured run takes.
+        wloop = _throwaway_loop(num_nodes, seed, cfg, method, device=device)
+        try:
+            wstream = pad_stream(
+                wloop.encoder.encode_stream(queued, node_of=lambda name: ""),
+                cfg.max_pods)
+        finally:
+            wloop.stop_bind_worker()
+        loop.encoder.encode_stream(queued, node_of=lambda name: "")
+        if pipeline:
+            # Both feeds run one chunk body (the whole-stream feed is the
+            # encode-fed one over the stream's own chunks).
+            for _ in replay_stream_pipelined(state, wstream, cfg, method,
+                                             chunk_batches):
+                pass
+        else:
+            wassign, _, _ = replay_stream(state, wstream, cfg, method,
+                                          with_stats=True)
+            wassign.cpu()
+        if churn_tick is not None:
+            _warm_churn_path(loop, churn_tick)
+        _sync(dev)
+    if sampler is not None:
+        sampler.start()
+
+    work: queue_mod.Queue = queue_mod.Queue()
+    bound_total = [0]
+    binder_error: list[BaseException] = []
+    # Per-batch bind samples from the bind stage itself; the time each
+    # chunk waited in the queue for the binder; and the un-normalized
+    # wall of each _bind_all call (the client round trip).
+    bind_times: list[float] = []
+    queue_waits: list[float] = []
+    rtt_times: list[float] = []
+
+    def binder():
+        while True:
+            item = work.get()
+            if item is None:
+                return
+            t_enq, chunk_pods, assignment = item
+            queue_waits.append(time.perf_counter() - t_enq)
+            try:
+                tb = time.perf_counter()
+                bound_total[0] += loop._bind_all(chunk_pods, assignment)
+                rtt = time.perf_counter() - tb
+                rtt_times.append(rtt)
+                per_batch = max(1, -(-len(chunk_pods) // cfg.max_pods))
+                bind_times.append(rtt / per_batch)
+            except BaseException as exc:  # noqa: BLE001 — re-raised
+                # after join: a dead binder must fail the run, not
+                # understate pods_bound.
+                binder_error.append(exc)
+                return
+
+    bind_thread = None
+    if pipeline:
+        bind_thread = threading.Thread(target=binder, name="density-bind",
+                                       daemon=True)
+        bind_thread.start()
+
+    enc_thread = None
+    enc_secs = [0.0]
+    _sync(dev)
+    start = time.perf_counter()
+    if overlap:
+        # Encode on a producer thread, chunk by chunk, while the replay
+        # drains earlier chunks: one encoder pass (global peer index
+        # space, first-pod-escape continuity), its lock released between
+        # chunks so the binder's commits interleave.
+        chunk_pods_n = chunk_batches * cfg.max_pods
+        s_total = round_up(len(queued), cfg.max_pods)
+        enc_q: queue_mod.Queue = queue_mod.Queue(maxsize=4)
+        enc_err: list[BaseException] = []
+        enc_stop = threading.Event()
+
+        def producer():
+            try:
+                t_prev = time.perf_counter()
+                for ch in loop.encoder.encode_stream_chunks(
+                        queued, node_of=loop._peer_node,
+                        chunk_pods=chunk_pods_n):
+                    if enc_stop.is_set():
+                        return
+                    # Encode time only (not the wait in put()).
+                    enc_secs[0] += time.perf_counter() - t_prev
+                    enc_q.put(pad_stream(ch, cfg.max_pods))
+                    t_prev = time.perf_counter()
+            except BaseException as exc:  # noqa: BLE001 — re-raised
+                # by the consumer; a dead producer must fail the run,
+                # not hang the drain.
+                enc_err.append(exc)
+            finally:
+                enc_q.put(None)
+
+        def _q_chunks():
+            while True:
+                ch = enc_q.get()
+                if ch is None:
+                    if enc_err:
+                        raise enc_err[0]
+                    return
+                yield ch
+
+        enc_thread = threading.Thread(target=producer, name="density-encode",
+                                      daemon=True)
+        enc_thread.start()
+        encode_wall = 0.0  # overlapped: not a serial segment of the wall
+    else:
+        stream = pad_stream(
+            loop.encoder.encode_stream(queued, node_of=loop._peer_node),
+            cfg.max_pods)
+        encode_wall = time.perf_counter() - start
+        enc_secs[0] = encode_wall
+
+    chunk_times: list[float] = []
+    round_samples: list[int] = []
+    if pipeline:
+        # Setup (static prep, stream upload, the chunk worker's start)
+        # happens inside this call; per-chunk samples time chunk service
+        # only, and the setup still lands in the wall.
+        try:
+            if overlap:
+                chunks = replay_stream_pipelined_feed(
+                    state, _q_chunks(), s_total, cfg, method)
+            else:
+                chunks = replay_stream_pipelined(state, stream, cfg,
+                                                 method, chunk_batches)
+            chunk_iter = iter(chunks)
+            prev = time.perf_counter()
+            while True:
+                # One flight-recorder span per chunk arrival (path
+                # "bench_chunk"; device_wait is the wait these samples
+                # are built from).
+                sb = loop._span_begin("bench_chunk")
+                try:
+                    with sb.phase("device_wait"):
+                        pod_start, assignment, rounds = next(chunk_iter)
+                except StopIteration:
+                    break
+                round_samples.extend(int(r) for r in rounds)
+                now = time.perf_counter()
+                batches_in_chunk = max(1, len(assignment) // cfg.max_pods)
+                chunk_times.append((now - prev) / batches_in_chunk)
+                prev = now
+                end = min(pod_start + len(assignment), len(queued))
+                chunk_pods = queued[pod_start:end]
+                if pod_start < end:
+                    work.put((time.perf_counter(), chunk_pods,
+                              assignment[:end - pod_start]))
+                if churn_tick is not None:
+                    # Ingest + refresh handoff between arrivals: it lands
+                    # in the next chunk sample, where a serving cycle
+                    # pays it.
+                    with sb.phase("ingest"):
+                        _churn_refresh()
+                loop._span_commit(sb, chunk_pods)
+            device_span = time.perf_counter() - start - encode_wall
+        finally:
+            work.put(None)
+            bind_thread.join()
+            if enc_thread is not None:
+                # A failed drain leaves the producer blocked on a full
+                # queue: stop it and take what it still puts.
+                enc_stop.set()
+                while enc_thread.is_alive():
+                    try:
+                        enc_q.get(timeout=0.1)
+                    except queue_mod.Empty:
+                        pass
+                enc_thread.join()
+        if binder_error:
+            raise binder_error[0]
+        bound = bound_total[0]
+    else:
+        # The whole-stream replay is one serving "cycle" in the recorder:
+        # one device_wait phase (replay + copy) and one bind phase.
+        sb = loop._span_begin("bench_device")
+        t_dev = time.perf_counter()
+        assignment_dev, _final, rounds_dev = replay_stream(
+            state, stream, cfg, method, with_stats=True)
+        round_samples.extend(int(r) for r in rounds_dev)
+        assignment = assignment_dev.cpu().numpy()[:len(queued)]
+        sb.add_phase("device_wait", t_dev, time.perf_counter() - t_dev)
+        device_span = time.perf_counter() - start - encode_wall
+        bound = 0
+        t_bind = time.perf_counter()
+        for a in range(0, len(queued), cfg.max_pods):
+            tb = time.perf_counter()
+            bound += loop._bind_all(queued[a:a + cfg.max_pods],
+                                    assignment[a:a + cfg.max_pods])
+            rtt = time.perf_counter() - tb
+            bind_times.append(rtt)
+            rtt_times.append(rtt)
+            if churn_tick is not None:
+                _churn_refresh()
+        sb.add_phase("bind", t_bind, time.perf_counter() - t_bind)
+        loop._span_commit(sb, queued)
+    _sync(dev)
+    wall = time.perf_counter() - start
+    # Quiesce the background workers off the timed window so the
+    # counters below are final.
+    loop.stop_bind_worker()
+    if after_drain is not None:
+        after_drain(loop)
+
+    if chunk_times:
+        score_p50 = _percentile_ms(chunk_times, 50)
+        score_p99 = _percentile_ms(chunk_times, 99)
+        samples = len(chunk_times)
+    else:
+        score_p50 = score_p99 = device_span / max(num_batches, 1) * 1e3
+        samples = 1
+    encode_ms = enc_secs[0] / max(num_batches, 1) * 1e3
+    return DensityResult(
+        num_nodes=num_nodes,
+        pods_submitted=len(pods),
+        pods_bound=bound,
+        pods_unschedulable=loop.unschedulable,
+        wall_s=wall,
+        pods_per_sec=bound / wall if wall > 0 else 0.0,
+        score_p50_ms=score_p50,
+        score_p99_ms=score_p99,
+        # The encode is one pass, not per batch: its per-batch mean.
+        encode_p99_ms=encode_ms,
+        encode_p50_ms=encode_ms,
+        bind_p99_ms=_percentile_ms(bind_times, 99),
+        bind_p50_ms=_percentile_ms(bind_times, 50),
+        score_samples=samples,
+        rounds_p50=_percentile(round_samples, 50),
+        rounds_p99=_percentile(round_samples, 99),
+        rounds_max=max(round_samples, default=0),
+        bind_tail_ms=round(
+            max(0.0, wall - device_span - encode_wall) * 1e3, 3),
+        bind_queue_wait_p99_ms=round(_percentile_ms(queue_waits, 99), 3),
+        bind_rtt_p99_ms=round(_percentile_ms(rtt_times, 99), 3),
+        bind_retry_count=int(loop.bind_failures),
+        staleness_bound_s=float(cfg.static_max_staleness_s),
+        encode_overlap=overlap,
+        **_static_stats(loop),
+        **_flight_stats(loop, trace_out),
+        **_multicycle_stats(loop, cfg),
+    )
+
+
+def measure_multicycle_latency(num_nodes: int, batch_size: int,
+                               k: int = 8,
+                               score_backend: str = "pallas",
+                               reps: int = 30, seed: int = 7,
+                               warmup_reps: int = 3,
+                               device="cuda") -> dict:
+    """Per-cycle latency of the serving loop's K-wave window at the
+    device boundary: one :func:`replay_stream_static` over a K-batch
+    window already on the device (the loop's multicycle call), then ONE
+    copy of the assignments to the host; the wall divided by ``k`` is
+    one sample, percentiles over ``reps`` windows.  The JAX package runs
+    the window as one dispatch; here the replay's conflict loop syncs
+    with the host every round, so those syncs are in every sample.
+
+    The window is ``WorkloadSpec(num_pods=k * batch_size, seed=seed + 5,
+    services=8, peer_fraction=0.5, affinity_fraction=0.1,
+    anti_fraction=0.1)`` on a :func:`_throwaway_loop` cluster.  Returns
+    the JAX function's fields plus the device name and power limit."""
+    dev = resolve_device(device)
+    k = max(1, int(k))
+    cfg = SchedulerConfig(max_nodes=round_up(num_nodes, 128),
+                          max_pods=batch_size, max_peers=4,
+                          score_backend=score_backend, multicycle=k)
+    loop = _throwaway_loop(num_nodes, seed, cfg, "parallel", multicycle=k,
+                           device=dev)
+    try:
+        pods = generate_workload(
+            WorkloadSpec(num_pods=k * batch_size, seed=seed + 5,
+                         services=8, peer_fraction=0.5,
+                         affinity_fraction=0.1, anti_fraction=0.1),
+            scheduler_name=cfg.scheduler_name)
+        stream = loop.encoder.encode_stream(pods, node_of=lambda n: "",
+                                            lenient=True)
+        stream = pad_stream(stream, k * batch_size)
+        state = loop.encoder.snapshot()
+        static = loop._static_for(state, 0)
+    finally:
+        loop.stop_bind_worker()
+
+    def window() -> float:
+        _sync(dev)
+        t0 = time.perf_counter()
+        a, _final, _r = replay_stream_static(state, stream, static, cfg,
+                                             "parallel", with_stats=True)
+        a.cpu()  # the retire seam's copy to the host
+        return (time.perf_counter() - t0) / k
+
+    for _ in range(max(1, warmup_reps)):
+        window()
+    times = [window() for _ in range(reps)]
+    return {
+        "p50_ms": round(_percentile_ms(times, 50), 3),
+        "p99_ms": round(_percentile_ms(times, 99), 3),
+        "max_ms": round(max(times) * 1e3, 3),
+        "reps": len(times),
+        "multicycle_k": k,
+        "num_nodes": num_nodes,
+        "batch_size": batch_size,
+        "score_backend": score_backend,
+        "backend": dev.type,
+        # K logical cycles per replay call, ONE copy of the assignments
+        # to the host, wall / K per sample.
+        "p99_source": "device_boundary_multicycle",
+        **card(dev),
+    }
+
+
+def multicycle_identity_check(num_nodes: int = 128,
+                              batch_size: int = 16,
+                              k: int = 8,
+                              coalesce: int = 4,
+                              inflight: int = 2,
+                              num_pods: int = 192,
+                              seed: int = 11,
+                              device="cuda") -> dict:
+    """Placement identity A/B of the K-wave serving path: the same seeded
+    workload drained by (a) K=1 with coalescing off — the per-cycle
+    path — and (b) multicycle K with coalesced async binds.  Returns
+    whether every pod landed on the same node (``identical``), as the
+    JAX function does."""
+    def _drain(mc: int, co: int, infl: int) -> dict:
+        cfg = SchedulerConfig(
+            max_nodes=round_up(num_nodes, 128),
+            max_pods=batch_size, max_peers=4,
+            queue_capacity=max(300, num_pods + batch_size,
+                               mc * batch_size),
+            multicycle=mc,
+            bind_coalesce_window=co,
+            bind_max_inflight=infl)
+        cluster, lat, bw = build_fake_cluster(
+            ClusterSpec(num_nodes=num_nodes, seed=seed))
+        loop = SchedulerLoop(cluster, cfg, method="parallel",
+                             async_bind=(co > 1 or infl > 1),
+                             multicycle=mc, device=device)
+        try:
+            loop.encoder.set_network(lat, bw)
+            feed_metrics(cluster, loop.encoder,
+                         np.random.default_rng(seed + 1))
+            pods = generate_workload(
+                WorkloadSpec(num_pods=num_pods, seed=seed + 2),
+                scheduler_name=cfg.scheduler_name)
+            cluster.add_pods(pods)
+            loop.run_until_drained()
+            loop.flush_binds()
+        finally:
+            loop.stop_bind_worker()
+        return {b.pod_name: b.node_name for b in cluster.bindings}
+
+    base = _drain(1, 1, 1)
+    multi = _drain(max(2, k), max(1, coalesce), max(1, inflight))
+    return {
+        "identical": multi == base,
+        "k": int(max(2, k)),
+        "coalesce_window": int(max(1, coalesce)),
+        "max_inflight": int(max(1, inflight)),
+        "pods_compared": len(base),
+        "baseline": "k1_coalescing_off_r15_path",
+    }

@@ -13,9 +13,13 @@ reconcile paths.  What differs from the JAX loop:
 - The assignment reaches the host through ``.cpu()`` (:func:`_to_host`),
   which waits for the kernels that wrote it.
 - The optional layers the JAX package gates off by default — placement
-  quality, SLOs, the learned policy, the topology model, rebalancing,
-  the mesh and ``enable_explain`` — are not ported yet: switching one on raises
+  quality, SLOs, the learned policy, the topology model, rebalancing and
+  the mesh — are not ported yet: switching one on raises
   :class:`NotImplementedError` when the loop is built, never mid-cycle.
+- Explain capture (``enable_explain``) works under both score backends
+  (the JAX loop records nothing under ``score_backend="pallas"``), and
+  a capture dropped on a host-side error is counted in the flight
+  recorder's ``explains_failed`` instead of vanishing.
 - torch keeps no executable cache, so ``jit_cache_miss_total`` stays 0.
 
 Two threads besides the cycle thread touch tensors: the static
@@ -87,8 +91,6 @@ _UNPORTED_LAYERS = (
     ("enable_learned_score", "policy/ (ROADMAP Queue A item 12)"),
     ("enable_rebalance", "core/rebalance.py (ROADMAP Queue A item 11)"),
     ("enable_netmodel", "netmodel/ (ROADMAP Queue A item 12)"),
-    ("enable_explain",
-     "score.explain_scores (deferred under ROADMAP Queue A item 2)"),
 )
 
 
@@ -680,6 +682,141 @@ class SchedulerLoop:
         )
         self.flight.commit(span)
 
+    def _capture_explains(self, pods: Sequence[Pod], batch,
+                          assignment: np.ndarray, state, static,
+                          node_table, cycle_id: int, path: str,
+                          extra: dict | None = None) -> None:
+        """Retain a per-pod placement-explain record (top-k candidates
+        with the score decomposition and the gates that filtered the
+        rest), gated by ``cfg.enable_explain``.  Runs AFTER the cycle's
+        score/assign, at its retire/commit seam, so placements are the
+        same with explain on or off.  Serial and gang cycles pass the
+        exact cycle batch; burst, pipelined and multicycle pass
+        per-chunk re-encodes (:meth:`_capture_explains_burst`).
+
+        The decomposition (:func:`~.score.explain_scores`) is dense under
+        both backends and its errors propagate: a device fault is not an
+        observation failure.  An error in building the host-side records
+        drops this capture and counts it in the flight recorder's
+        ``explains_failed``."""
+        if (self.flight is None or not self.cfg.enable_explain
+                or not pods):
+            return
+        from kubernetesnetawarescheduler_tpu_torch.core.score import (
+            explain_scores,
+        )
+
+        comps = explain_scores(state, batch, self.cfg, static)
+        valid = state.node_valid.cpu().numpy().astype(bool)
+        # Node class for the learned policy's per-class adjustment: the
+        # encoder's interned zone index (-1 = no zone label).
+        zones = state.node_zone.cpu().numpy().astype(np.int64)
+        try:
+            records = self._explain_records(pods, comps, assignment, valid,
+                                            zones, node_table, cycle_id,
+                                            path, extra)
+        except Exception:  # noqa: BLE001 — observation never breaks serving
+            self.flight.note_explain_failed()
+            return
+        for record in records:
+            self.flight.put_explain(record)
+
+    def _explain_records(self, pods: Sequence[Pod], comps: dict,
+                         assignment: np.ndarray, valid: np.ndarray,
+                         zones: np.ndarray, node_table, cycle_id: int,
+                         path: str, extra: dict | None) -> list[dict]:
+        """The explain records of one captured batch, built on the host
+        from :func:`~.score.explain_scores`' arrays (the JAX loop's
+        record layout, key for key)."""
+        table_names, _gens = node_table
+        gate_keys = ("static_ok", "fits", "affinity", "anti",
+                     "sym_anti", "zone_ok", "spread_ok")
+        # The topology model is not ported (enable_netmodel is refused),
+        # so every network term comes from direct probes.
+        prov = {"network": "direct_probe"}
+        k = min(self.cfg.explain_top_k, len(table_names))
+        total = comps["total"]
+        now = time.time()
+        records = []
+        for i, pod in enumerate(pods):
+            row = total[i]
+            idx = int(assignment[i])
+            order = np.argsort(row, kind="stable")[::-1][:k]
+            candidates = []
+            for j in order:
+                j = int(j)
+                name = (table_names[j]
+                        if j < len(table_names) and table_names[j]
+                        else f"slot-{j}")
+                candidates.append({
+                    "node": name,
+                    "node_index": j,
+                    "zone": int(zones[j]) if j < len(zones) else -1,
+                    "total": float(row[j]),
+                    "feasible": bool(comps["ok"][i, j]),
+                    "components": {
+                        "base": float(comps["base"][i, j]),
+                        "net": float(comps["net"][i, j]),
+                        "soft": float(comps["soft"][i, j]),
+                        "balance": -float(comps["balance"][i, j]),
+                        "spread": -float(comps["spread"][i, j]),
+                    },
+                    "gates": {g: bool(comps[g][i, j]) for g in gate_keys},
+                })
+            record = {
+                "pod_uid": pod.uid,
+                "pod": f"{pod.namespace}/{pod.name}",
+                "cycle_id": cycle_id,
+                "path": path,
+                "t_wall": now,
+                "decision": "bound" if idx >= 0 else "unschedulable",
+                "node": (table_names[idx]
+                         if 0 <= idx < len(table_names) else None),
+                "node_index": idx,
+                "score": float(row[idx]) if idx >= 0 else None,
+                "candidates": candidates,
+                "feasible_nodes": int(np.sum(valid & comps["ok"][i])),
+                "gates_filtered": {
+                    g: int(np.sum(valid & ~comps[g][i]))
+                    for g in gate_keys},
+                "provenance": prov,
+            }
+            if extra:
+                record.update(extra)
+            records.append(record)
+        return records
+
+    def _capture_explains_burst(self, pods: Sequence[Pod],
+                                assignment: np.ndarray, state, static,
+                                node_table, cycle_id: int,
+                                path: str) -> None:
+        """Explain capture for the burst, pipelined and multicycle
+        paths, run at the retire/commit seam AFTER the assume/bind
+        published this burst's placements.  The replay never keeps
+        per-batch score planes, so each ``max_pods`` chunk is re-encoded
+        here — in-stream peers then resolve against the placements the
+        replay produced, and the totals are a post-hoc decomposition,
+        not the in-replay score — and decomposed through
+        :meth:`_capture_explains`.  An encode error drops the remaining
+        chunks, each counted in ``explains_failed``; never the cycle."""
+        if (self.flight is None or not self.cfg.enable_explain
+                or not pods):
+            return
+        cap = self.cfg.max_pods
+        for off in range(0, len(pods), cap):
+            chunk = list(pods[off:off + cap])
+            try:
+                batch = self.encoder.encode_pods(
+                    chunk, node_of=self._peer_node, lenient=True)
+            except Exception:  # noqa: BLE001 — observation never breaks serving
+                for _ in range(off, len(pods), cap):
+                    self.flight.note_explain_failed()
+                return
+            self._capture_explains(chunk, batch,
+                                   assignment[off:off + cap],
+                                   state, static, node_table,
+                                   cycle_id, path)
+
     # ------------------------------------------------------------------
 
     def run_once(self, timeout: float | None = 0.0) -> int:
@@ -864,6 +1001,8 @@ class SchedulerLoop:
         self.timer.record("burst_wall",
                           time.perf_counter() - cycle_t0)
         self.burst_cycles += 1
+        self._capture_explains_burst(pods, assignment, state, static,
+                                     node_table, sb.cycle_id, "burst")
         self._span_commit(sb, pods, static_version=version,
                           rounds=cycle_rounds)
         return bound
@@ -947,7 +1086,7 @@ class SchedulerLoop:
             return 0
         self._pipe_inflight = None
         (pods, out, with_stats, node_table, n_real, t_dispatch,
-         _state, _static) = inflight
+         state, static) = inflight
         sb, span_version = (self._pipe_span
                             if self._pipe_span is not None
                             else (NULL_SPAN, None))
@@ -981,6 +1120,9 @@ class SchedulerLoop:
                           count=n_real)
         self.timer.record("burst_wall",
                           time.perf_counter() - t_dispatch)
+        self._capture_explains_burst(pods, assignment, state, static,
+                                     node_table, sb.cycle_id,
+                                     "pipelined")
         self._span_commit(sb, pods, static_version=span_version,
                           rounds=cycle_rounds)
         return bound
@@ -1064,6 +1206,7 @@ class SchedulerLoop:
             sb.add_phase("dispatch", t0, dispatch_s / n_live)
         shared = {"out": out, "with_stats": with_stats,
                   "fetched": None, "rounds": None, "n_live": n_live,
+                  "state": state, "static": static,
                   "t_dispatch": time.perf_counter()}
         for j in range(n_live):
             a = j * cap
@@ -1144,6 +1287,10 @@ class SchedulerLoop:
             sb.add_phase("bind", t0, time.perf_counter() - t0)
             self.timer.record("bind", time.perf_counter() - t0)
             self._retire_lag.append(float(j))
+            self._capture_explains_burst(
+                wave_pods, assignment, shared["state"],
+                shared["static"], node_table, sb.cycle_id,
+                "multicycle")
             self._span_commit(sb, wave_pods, static_version=version,
                               rounds=rounds_j, scan_window_k=k_eff,
                               retire_lag_cycles=j)
@@ -1191,16 +1338,16 @@ class SchedulerLoop:
                        rounds: int, static_version: int, *,
                        donated: int = 0, donation_skipped: int = 1,
                        path: str = "serial") -> int:
-        """Bind half of a serial cycle: bind/assume, span commit.
-        ``batch``, ``state``, ``static`` and ``path`` are the JAX
-        loop's explain-capture inputs, kept in the signature; explain
-        capture is not ported (``enable_explain`` raises)."""
+        """Bind half of a serial cycle: bind/assume, explain capture,
+        span commit."""
         with sb.phase("bind"), self.timer.phase("bind"):
             if self.async_bind:
                 bound = self._assume_and_enqueue(pods, assignment,
                                                  node_table)
             else:
                 bound = self._bind_all(pods, assignment, node_table)
+        self._capture_explains(pods, batch, assignment, state, static,
+                               node_table, sb.cycle_id, path)
         self._span_commit(sb, pods, static_version=static_version,
                           rounds=rounds, donated=donated,
                           donation_skipped=donation_skipped)
@@ -1442,6 +1589,19 @@ class SchedulerLoop:
             self.client.create_events(comp_events)
             self.unschedulable += len(surplus)
             self._park_gang(surplus)
+        # Explain records note the joint C-matrix pass: the per-node
+        # decomposition is the INDEPENDENT score surface; the gang's
+        # co-placement bias may have moved the winner off the
+        # independent argmax, which is exactly what the marker flags.
+        self._capture_explains(
+            members, batch, assignment, state, static, node_table,
+            sb.cycle_id, "gang",
+            extra={"gang": {"key": key, "members": len(members),
+                            "joint_placement": True,
+                            "bound": bool(bound),
+                            **({"realization": chosen,
+                                "shape_info": shape_info}
+                               if shaped else {})}})
         self._span_commit(sb, members, static_version=static_version)
         return bound
 

@@ -6,12 +6,24 @@ after batch of score → assign → commit on the device; the JAX package's
 ``lax.scan`` becomes that loop.  Peers inside the stream (traffic to an
 earlier pod of the same service) are carried as stream indices and
 resolved on the device against the assignments made so far.
+
+The chunked feeds (:func:`replay_stream_pipelined`,
+:func:`replay_stream_pipelined_feed`) yield the replay chunk by chunk.
+The JAX package keeps a window of chunks in flight through asynchronous
+dispatch; here ``assign_parallel`` returns to the host every conflict
+round, so a chunk worker thread runs up to ``dispatch_window`` chunks
+ahead of the consumer instead (:func:`_windowed_drain`), and each
+chunk's assignment comes back through a pinned side-stream copy
+(:func:`_prefetch_to_host`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 
+import numpy as np
 import torch
 
 from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
@@ -77,6 +89,11 @@ class PodStream(_TensorTree):
 
     def slice(self, start: int, stop: int) -> "PodStream":
         return PodStream(**{f.name: getattr(self, f.name)[start:stop]
+                            for f in dataclasses.fields(self)})
+
+    def to(self, device: torch.device) -> "PodStream":
+        """The stream on ``device`` (itself when it is there already)."""
+        return PodStream(**{f.name: getattr(self, f.name).to(device)
                             for f in dataclasses.fields(self)})
 
 
@@ -170,6 +187,15 @@ def _make_step(state: ClusterState, cfg: SchedulerConfig, method: str,
     return step
 
 
+def _initial_carry(state: ClusterState, s_total: int):
+    """The replay's carry before its first batch: the placement-mutated
+    planes of ``state`` and an all-unassigned ``node_of_pod``."""
+    return (state.used, state.group_bits, state.resident_anti,
+            state.gz_counts, state.az_anti,
+            torch.full((s_total,), UNASSIGNED, dtype=torch.int32,
+                       device=state.device))
+
+
 def replay_folded(state: ClusterState, folded: list[PodStream],
                   cfg: SchedulerConfig, method: str = "parallel",
                   static=None, with_stats: bool = False,
@@ -184,10 +210,7 @@ def replay_folded(state: ClusterState, folded: list[PodStream],
     if static is None:
         static = compute_assign_static(state, cfg)
     step = _make_step(state, cfg, method, static)
-    carry = (state.used, state.group_bits, state.resident_anti,
-             state.gz_counts, state.az_anti,
-             torch.full((s_total,), UNASSIGNED, dtype=torch.int32,
-                        device=state.device))
+    carry = _initial_carry(state, s_total)
     assignments, rounds = [], []
     for i, sl in enumerate(folded):
         if batch_hook is not None:
@@ -228,3 +251,192 @@ def replay_stream_static(state: ClusterState, stream: PodStream, static,
     return replay_folded(state, fold_stream(stream, cfg), cfg, method,
                          static=static,
                          with_stats=with_stats)
+
+
+def _replay_chunk(step, carry, batches: list[PodStream], batch_start: int):
+    """One chunk of the chunked replays: its batches, the first being
+    global batch ``batch_start``, through ``step``.  Returns ``(carry,
+    assignment i32[len(batches) * batch], rounds list)``.  The JAX
+    package compiles a whole-stream and a feed variant of this body; here
+    both feeds pass their chunk's batches to this one loop."""
+    assignments, rounds = [], []
+    for off, sl in enumerate(batches):
+        carry, a, r = step(carry, batch_start + off, sl)
+        assignments.append(a)
+        rounds.append(int(r))
+    return carry, torch.cat(assignments), rounds
+
+
+def _prefetch_to_host(a: torch.Tensor):
+    """Start the copy of ``a`` to the host: ``(host tensor, event)``.
+
+    On the card the copy goes into a pinned buffer with
+    ``non_blocking=True`` on a side stream that first waits for the
+    compute stream, and ``event`` is recorded after it: the consumer
+    waits on the event, never on a synchronizing ``.cpu()``.  The
+    source is marked as used on the side stream, so the allocator does
+    not hand its memory out again before the copy reads it.  On a CPU
+    tensor it is a plain copy and ``event`` is None."""
+    if a.device.type != "cuda":
+        return a.clone(), None
+    compute = torch.cuda.current_stream(a.device)
+    side = torch.cuda.Stream(device=a.device)
+    host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+    side.wait_stream(compute)
+    with torch.cuda.stream(side):
+        host.copy_(a, non_blocking=True)
+        a.record_stream(side)
+        event = torch.cuda.Event()
+        event.record(side)
+    return host, event
+
+
+def _windowed_drain(run_next, dispatch_window: int):
+    """The chunk window of the chunked replays: a worker thread runs
+    chunks up to ``dispatch_window`` ahead of the consumer.
+
+    ``run_next()`` runs one chunk on the worker thread (which owns the
+    replay's carry) and returns ``(pod_start, assignment tensor,
+    rounds list)``, or False once the stream is exhausted.  The worker
+    starts HERE, at call time, and copies each chunk's assignment to the
+    host through :func:`_prefetch_to_host`; the returned generator
+    yields ``(pod_start, np.ndarray assignment, np.ndarray rounds)`` in
+    stream order and is the only place that waits for results.  An
+    exception on the worker (a chunk, or the feed's producer iterator,
+    which the worker consumes) is re-raised in the consumer after the
+    chunks before it; closing the generator early stops the worker
+    after its current chunk."""
+    slots = threading.Semaphore(max(1, int(dispatch_window)))
+    done: queue.Queue = queue.Queue()
+    stop = threading.Event()
+
+    def worker() -> None:
+        try:
+            while True:
+                slots.acquire()
+                if stop.is_set():
+                    return
+                item = run_next()
+                if item is False:
+                    done.put(("end", None))
+                    return
+                pod_start, assignment, rounds = item
+                done.put(("chunk", (pod_start,
+                                    _prefetch_to_host(assignment), rounds)))
+        except BaseException as exc:  # noqa: BLE001 — re-raised by the consumer
+            done.put(("error", exc))
+
+    thread = threading.Thread(target=worker, name="replay-chunks",
+                              daemon=True)
+    thread.start()
+
+    def drain():
+        try:
+            while True:
+                kind, val = done.get()
+                if kind == "end":
+                    return
+                if kind == "error":
+                    raise val
+                slots.release()
+                pod_start, (host, event), rounds = val
+                if event is not None:
+                    event.synchronize()
+                yield (pod_start, host.numpy(),
+                       np.asarray(rounds, dtype=np.int32))
+        finally:
+            stop.set()
+            slots.release()
+            thread.join()
+
+    return drain()
+
+
+def _stream_chunks(stream: PodStream, chunk_pods: int):
+    """``stream`` in chunks of ``chunk_pods`` pods (views; the last may
+    be shorter)."""
+    for a in range(0, stream.num_pods, chunk_pods):
+        yield stream.slice(a, a + chunk_pods)
+
+
+def replay_stream_pipelined(state: ClusterState, stream: PodStream,
+                            cfg: SchedulerConfig, method: str = "parallel",
+                            chunk_batches: int = 8,
+                            dispatch_window: int = 4):
+    """Chunked replay for the pipelined drain: yields ``(start_pod_index,
+    assignment np.ndarray, rounds np.ndarray)`` per chunk of
+    ``chunk_batches`` batches, in stream order (``rounds`` is the
+    per-batch conflict-round count of the chunk's batches; the final
+    chunk may be shorter).  A worker thread runs up to
+    ``dispatch_window`` chunks ahead of the consumer
+    (:func:`_windowed_drain`), so the card runs chunk ``i+1`` while the
+    caller binds chunk ``i``.  It is :func:`replay_stream_pipelined_feed`
+    fed with the stream's own chunks.
+
+    SETUP IS EAGER (at call time, before the generator is returned): the
+    length check, the stream's move to the state's device, the static
+    prep and the start of the worker.  A caller timing per-chunk service
+    latency takes its clock after this call returns."""
+    s_total = stream.num_pods
+    if s_total % cfg.max_pods != 0:
+        raise ValueError(f"stream length {s_total} not a multiple of "
+                         f"max_pods={cfg.max_pods}")
+    chunks = _stream_chunks(stream.to(state.device),
+                            chunk_batches * cfg.max_pods)
+    return replay_stream_pipelined_feed(state, chunks, s_total, cfg, method,
+                                        dispatch_window)
+
+
+def replay_stream_pipelined_feed(state: ClusterState, chunk_iter,
+                                 s_total: int, cfg: SchedulerConfig,
+                                 method: str = "parallel",
+                                 dispatch_window: int = 4):
+    """Chunked replay fed by an encode producer: consumes
+    :class:`PodStream` chunks from ``chunk_iter`` (each a positive
+    multiple of ``cfg.max_pods`` pods, concatenating to ``s_total``) and
+    yields ``(start_pod_index, assignment, rounds)`` per chunk, in
+    order — the contract of :func:`replay_stream_pipelined`.
+
+    The whole-stream variant needs the workload encoded and uploaded
+    before its first chunk; here the host encode (a producer thread
+    running ``Encoder.encode_stream_chunks``) overlaps the drain.
+    ``chunk_iter`` is consumed on the chunk worker, so a producer that
+    raises fails the drain in the consumer, as does a chunk of the
+    wrong length (``ValueError``).  The length check and the static
+    prep run at call time."""
+    if method not in ("parallel", "greedy"):
+        raise ValueError(f"unknown method {method!r}")
+    batch = cfg.max_pods
+    if s_total % batch != 0:
+        raise ValueError(
+            f"stream length {s_total} not a multiple of max_pods={batch}")
+    nb = s_total // batch
+    step = _make_step(state, cfg, method, compute_assign_static(state, cfg))
+    box = {"carry": _initial_carry(state, s_total), "start": 0}
+    it = iter(chunk_iter)
+
+    def run_next():
+        start = box["start"]
+        try:
+            ch = next(it)
+        except StopIteration:
+            if start != nb:
+                raise ValueError(
+                    f"chunk iterator ended at batch {start} of {nb}")
+            return False
+        cp = ch.num_pods
+        if cp % batch != 0 or cp == 0:
+            raise ValueError(
+                f"chunk of {cp} pods is not a positive multiple of "
+                f"max_pods={batch}")
+        cb = cp // batch
+        if start + cb > nb:
+            raise ValueError(
+                f"chunks overrun s_total={s_total} at batch {start}+{cb}")
+        box["carry"], assignment, rounds = _replay_chunk(
+            step, box["carry"], fold_stream(ch.to(state.device), cfg),
+            start)
+        box["start"] = start + cb
+        return start * batch, assignment, rounds
+
+    return _windowed_drain(run_next, dispatch_window)

@@ -550,3 +550,77 @@ def score_winner(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
                  static=None):
     """Score then winner: ``(best f32[P], node i32[P])``."""
     return winner_from_scores(score_pods(state, pods, cfg, static))
+
+
+_GATE_KEYS = ("ok", "static_ok", "fits", "affinity", "anti", "sym_anti",
+              "zone_ok", "spread_ok")
+
+
+def _dense_static(state: ClusterState, cfg: SchedulerConfig, static):
+    """``static`` when it is the dense ``(base, C.T)`` pair, else a fresh
+    :func:`static_node_scores` pair.  The kernel backend's static is a
+    :class:`~.kernels.StaticPack` that carries no ``C.T``; the
+    decomposition always runs dense, so it builds its own pair then."""
+    if isinstance(static, tuple) and len(static) == 2:
+        return static
+    return static_node_scores(state, cfg)
+
+
+def _explain_terms(state: ClusterState, pods: PodBatch,
+                   cfg: SchedulerConfig, static=None) -> dict:
+    """Every additive term of :func:`score_pods` and every individual
+    feasibility gate, as ``[P, N]`` (or broadcastable) tensors on the
+    state's device.  ``static`` may be the dense pair or the kernel
+    backend's pack (see :func:`_dense_static`)."""
+    base, ct = _dense_static(state, cfg, static)
+    net = network_scores(state, pods, cfg, ct=ct)
+    soft = soft_affinity_scores(state, pods, cfg)
+    bal = float(np.float32(cfg.weights.balance)) * balance_penalty(state,
+                                                                   pods)
+    sok = static_feasibility(state, pods)
+    spread_pen, spread_ok = spread_terms(state, pods, cfg, static_ok=sok)
+    free = state.cap - state.used
+    fits = (pods.req[:, None, :] <= free[None, :, :] + _EPS).all(dim=-1)
+    aff_req = pods.affinity_bits[:, None, :]
+    affinity = ((state.group_bits[None, :, :] & aff_req)
+                == aff_req).all(dim=-1)
+    anti = ((state.group_bits[None, :, :] & pods.anti_bits[:, None, :])
+            == 0).all(dim=-1)
+    sym = ((state.resident_anti[None, :, :] & pods.group_bit[:, None, :])
+           == 0).all(dim=-1)
+    zone = zone_affinity_ok(state, pods)
+    ok = sok & fits & affinity & anti & sym & zone & spread_ok
+    # score_pods' expression, term for term, so the winner's total is
+    # the score the serving path ranked.
+    raw = base[None, :] + net + soft - bal - spread_pen
+    total = torch.where(ok, raw, NEG_INF)
+    return {
+        "base": base[None, :], "net": net, "soft": soft,
+        "balance": bal, "spread": spread_pen, "total": total,
+        "ok": ok, "static_ok": sok, "fits": fits,
+        "affinity": affinity, "anti": anti, "sym_anti": sym,
+        "zone_ok": zone, "spread_ok": spread_ok,
+    }
+
+
+def explain_scores(state: ClusterState, pods: PodBatch,
+                   cfg: SchedulerConfig, static=None
+                   ) -> dict[str, np.ndarray]:
+    """Host-side score decomposition for placement explainability: the
+    additive terms (f32) and the feasibility gates (bool) of
+    :func:`score_pods` as host numpy arrays, each ``[P, N]``.
+
+    A separate observation, used only when ``cfg.enable_explain`` is on:
+    the serving score path never calls it, so placements are identical
+    with explain on or off.  ``total`` is computed with the expression
+    :func:`score_pods` uses, so ``base + net + soft - balance - spread ==
+    total`` where feasible.  The decomposition is dense under both
+    backends; with the kernel backend's pack as ``static`` it builds its
+    own dense pair."""
+    terms = _explain_terms(state, pods, cfg, static=static)
+    shape = tuple(terms["net"].shape)
+    out = {}
+    for key, val in terms.items():
+        dtype = torch.bool if key in _GATE_KEYS else torch.float32
+        out[key] = val.to(dtype).expand(shape).cpu().numpy().copy()
+    return out

@@ -1,8 +1,10 @@
 """Telemetry ingestion: node-exporter scraping, iperf3 parsing, probes.
 
 The PyTorch package's copy of the JAX package's ``ingest/``, writing
-into the port's :class:`~..core.encode.Encoder`; the per-node probe
-agent (``ingest/probe_agent.py``) is not ported yet.
+into the port's :class:`~..core.encode.Encoder`, with the per-node probe
+agent (``python -m
+kubernetesnetawarescheduler_tpu_torch.ingest.probe_agent``) that
+``AgentProber`` asks to probe from its node.
 
 The reference's ingestion is 5 synchronous HTTP scrapes *inside the
 scheduling cycle* (scheduler.go:275-279), fragile substring slicing of

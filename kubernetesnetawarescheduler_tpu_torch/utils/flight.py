@@ -263,6 +263,9 @@ class FlightRecorder:
         self._cycle_seq = 0
         self.dropped = 0
         self.explains_dropped = 0
+        # Explain captures dropped on a host-side error (the loop's
+        # encode or record build); the JAX recorder has no such count.
+        self.explains_failed = 0
         # Provenance over restarts: serve.py stamps the checkpoint
         # disposition here so a post-restore trace dump says "recorder
         # is empty because the process restarted (restored)", not
@@ -311,6 +314,10 @@ class FlightRecorder:
                 self._explains.popitem(last=False)
                 self.explains_dropped += 1
 
+    def note_explain_failed(self) -> None:
+        with self._lock:
+            self.explains_failed += 1
+
     def get_explain(self, pod_uid: str) -> dict[str, Any] | None:
         with self._lock:
             rec = self._explains.get(pod_uid)
@@ -347,7 +354,9 @@ class FlightRecorder:
                 "explains": len(self._explains),
                 "explain_retain": self.explain_retain,
                 "explains_dropped": self.explains_dropped,
+                "explains_failed": self.explains_failed,
             }
+            meta = dict(self.meta, explains_failed=self.explains_failed)
         events: list[dict[str, Any]] = [
             {"ph": "M", "pid": 1, "tid": 0, "ts": 0,
              "name": "process_name",
@@ -379,7 +388,7 @@ class FlightRecorder:
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
-            "metadata": dict(self.meta),
+            "metadata": meta,
             "recorder": recorder,
         }
 

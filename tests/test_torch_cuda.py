@@ -557,3 +557,55 @@ def test_masked_kernel_at_each_webhook_pod_pad(cuda, p):
     assert torch.equal(out > NEG_HALF, m)
     assert bool(m.any())
     assert torch.allclose(out[m], out_p[m], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_pipelined_feeds_equal_monolithic_replay_on_card(cuda, backend):
+    """The chunked replays on the card (a worker thread runs the chunks,
+    each assignment comes back through the pinned side-stream copy)
+    give the monolithic replay's assignments and rounds."""
+    from kubernetesnetawarescheduler_tpu_torch.core.replay import (
+        pad_stream,
+        replay_stream_pipelined,
+        replay_stream_pipelined_feed,
+    )
+
+    cfg = SchedulerConfig(max_nodes=512, max_pods=64, max_peers=4,
+                          score_backend=backend)
+    state, stream = synthetic_density(500, 64 * 13 - 5, cfg, seed=3,
+                                      device=cuda)
+    want, _final, want_r = replay_stream(state, stream, cfg,
+                                         with_stats=True)
+    want = want.cpu().numpy()
+    chunks = [pad_stream(stream.slice(a, a + 3 * 64), 64)
+              for a in range(0, stream.num_pods, 3 * 64)]
+    for gen in (replay_stream_pipelined(state, stream, cfg,
+                                        chunk_batches=3, dispatch_window=2),
+                replay_stream_pipelined_feed(state, iter(chunks),
+                                             stream.num_pods, cfg)):
+        got = np.full(stream.num_pods, -9, np.int32)
+        rounds = []
+        for s0, a, r in gen:
+            got[s0:s0 + len(a)] = a
+            rounds.extend(int(x) for x in r)
+        np.testing.assert_array_equal(got, want)
+        assert rounds == list(want_r)
+
+
+def test_prefetch_copy_is_exact(cuda):
+    from kubernetesnetawarescheduler_tpu_torch.core.replay import (
+        _prefetch_to_host,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for n in (1, 127, 4096, 1 << 20):
+        src = torch.randint(-1, 5120, (n,), device=cuda, dtype=torch.int32,
+                            generator=gen)
+        # Work queued on the compute stream after the source is written:
+        # the copy must wait for the write, not race it.
+        torch.cuda._sleep(100_000)
+        src.add_(1)
+        host, event = _prefetch_to_host(src)
+        assert host.is_pinned() and host.device.type == "cpu"
+        event.synchronize()
+        np.testing.assert_array_equal(host.numpy(), src.cpu().numpy())

@@ -108,7 +108,7 @@ def test_kube_apiserver_drive_binds_the_pending_pod(tmp_path):
     (["--coordinator", "h:1"], 15), (["--num-processes", "2"], 15),
     (["--process-id", "0"], 15),
     ({"enable_netmodel": True}, 12), ({"enable_quality_obs": True}, 12),
-    ({"audit_interval_s": 3.0}, 11), ({"enable_explain": True}, 2),
+    ({"audit_interval_s": 3.0}, 11),
 ])
 def test_unported_layer_is_refused_before_anything_starts(tmp_path, capsys,
                                                           extra, item):
