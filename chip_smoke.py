@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's density replay, serving seam, scheduling
-loop, Score/Filter webhook and device-replay feeds on one NVIDIA GPU and
-check them.
+loop, Score/Filter webhook, device-replay feeds and robustness layers on
+one NVIDIA GPU and check them.
 
 Run from the repository root:
 
@@ -116,6 +116,31 @@ csrc`` and prints one JSON object per phase:
                 for every bound pod naming its node, winners whose
                 components sum to their score, ``explains_failed`` 0, and
                 the host ms per captured batch.
+9. ``robust``   the robustness layers at 5,120 nodes: a 2,048-pod drain,
+                its checkpoint, 20 clean audits (p50/p99 ms) and
+                ``run_state_fault_matrix`` under an ``IntegrityAuditor``
+                (every runtime fault detected and repaired bit for bit),
+                staging NaN healed at the ``checkpoint_restore`` rung,
+                each rung timed alone, and each ``checkpoint_corrupt``
+                mode refused on a copy; the ``loop`` phase's backlog on a
+                pipelined loop with and without an audit at every
+                ``maintain()`` (identical bindings, ``used`` and counters,
+                every audit clean, the static kernel once per real batch,
+                one launch held against its plain version);
+                ``run_chaos_soak(seed=7, num_nodes=5120, num_pods=2048,
+                state_faults=True)`` on the dense ``"xla"`` path
+                (recovered, invariants 0, every state fault detected and
+                none unrepaired); ``run_density``'s 8,192-pod drain with
+                ``enable_rebalance``, two nodes cordoned and one tick past
+                the age bar (the scan on the card equal to the same scan
+                on the CPU, at most ``rebalance_max_moves_per_cycle``
+                moves, each with a positive gain, all completed, the
+                invariants 0 but for the migrated pods' second bindings);
+                an 8-member shaped gang reshaped after a node loss; and
+                the daemon at ``fake:5120`` with ``--audit-interval 1
+                --state-chaos 0.5 --rebalance`` for 10 s (its families on
+                ``/metrics`` once each, no unrepaired drift,
+                ``/debug/rebalance`` enabled, a clean shutdown).
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -1880,6 +1905,625 @@ def phase_feed():
     return info
 
 
+ROBUST_CHUNK = 256     # pods per arrival wave of the clean-run drives
+CLEAN_AUDITS = 20
+# The audited drive's static launch held vs plain: the first, a real
+# batch (a burst pads its tail with empty batches).
+ROBUST_CAPTURE_AT = 1
+RESHAPE_MEMBERS, RESHAPE_SHAPES = 8, "8,4:0.5"
+DAEMON_S = 10.0
+
+
+def phase_robust():
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from kubernetesnetawarescheduler_tpu_torch import serve
+    from kubernetesnetawarescheduler_tpu_torch.api.server import call_uds
+    from kubernetesnetawarescheduler_tpu_torch.bench.density import (
+        run_density,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        WorkloadSpec,
+        build_fake_cluster,
+        feed_metrics,
+        generate_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import rebalance
+    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+    from kubernetesnetawarescheduler_tpu_torch.core.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.gang import (
+        parse_gang_shapes,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
+        REPAIR_RUNGS,
+        IntegrityAuditor,
+        device_row_digests_host,
+        host_row_digests,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.core.score import _EPS
+    from kubernetesnetawarescheduler_tpu_torch.core.state_chaos import (
+        StateChaosInjector,
+        run_state_fault_matrix,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.k8s.chaos import (
+        FAULT_CLASSES,
+        check_invariants,
+        run_chaos_soak,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.k8s.types import Pod
+
+    t_phase = time.perf_counter()
+    errors: list[str] = []
+    card = nvidia_smi()
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    def counts() -> dict:
+        return {n: fn.launches for n, fn in K.KERNELS.items()}
+
+    def over_capacity(s) -> int:
+        return int(((s.used > s.cap + _EPS).any(dim=1) & s.node_valid)
+                   .sum())
+
+    def fresh_loop(cfg, **loop_kw):
+        cluster, lat, bw = build_fake_cluster(ClusterSpec(num_nodes=NODES,
+                                                          seed=SEED))
+        loop = SchedulerLoop(cluster, cfg, method="parallel",
+                             device="cuda", **loop_kw)
+        loop.encoder.set_network(lat, bw)
+        feed_metrics(cluster, loop.encoder, np.random.default_rng(SEED + 3))
+        return cluster, loop
+
+    def backlog(cfg):
+        return generate_workload(
+            WorkloadSpec(num_pods=LOOP_PODS, seed=SEED + 5, services=8,
+                         peer_fraction=0.5, affinity_fraction=0.1,
+                         anti_fraction=0.1),
+            scheduler_name=cfg.scheduler_name)
+
+    def pct(xs) -> dict:
+        return {"p50": float(np.percentile(xs, 50)),
+                "p99": float(np.percentile(xs, 99))}
+
+    def check_static(launches: dict, batches: int, label: str) -> None:
+        n_static = launches["static_scores_kernel"]
+        check(n_static >= batches, f"{label}: static kernel launched "
+              f"{n_static} times for {batches} batches")
+        check(launches["peer_columns"] == n_static,
+              f"{label}: peer columns compacted {launches['peer_columns']} "
+              f"times for {n_static} static launches")
+
+    cfg = SchedulerConfig(max_nodes=NODES, max_pods=BATCH, max_peers=PEERS,
+                          score_backend="pallas",
+                          queue_capacity=LOOP_PODS + BATCH)
+    real_batches = -(-LOOP_PODS // BATCH)
+    launches = {n: 0 for n in K.KERNELS}
+    build_dir = (Path(__file__).resolve().parent
+                 / "kubernetesnetawarescheduler_tpu_torch" / "_build")
+    build_dir.mkdir(parents=True, exist_ok=True)
+
+    # 1. The fault matrix on a committed 2,048-pod drain, its checkpoint
+    # kept for the restore rung and for the checkpoint_corrupt modes.
+    cluster, loop = fresh_loop(cfg, burst_batches=8)
+    cluster.add_pods(backlog(cfg))
+    loop.run_until_drained()
+    loop.flush_binds()
+    loop.stop_bind_worker()
+    enc = loop.encoder
+    check(loop.scheduled > 0, "matrix drain bound nothing")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        save_checkpoint(ck, enc)
+        save_s = time.perf_counter() - t0
+        auditor = IntegrityAuditor(enc, loop, checkpoint_dir=ck)
+        clean_ms = []
+        for _ in range(CLEAN_AUDITS):
+            out = auditor.audit_once()
+            clean_ms.append(auditor.last_audit_ms)
+            check(out["clean"], f"clean audit found drift: "
+                  f"{sorted(out['drift'])} {sorted(out['staging'])}")
+        # Where a clean audit's time goes: the device digests (and their
+        # few KB to the host), the staging copy, the host digests.
+        split = {"device_digests": [], "staging_copy": [],
+                 "host_digests": []}
+        for _ in range(5):
+            with enc._lock:
+                state, _ = enc.snapshot_versioned()
+                t0 = time.perf_counter()
+                expected = enc.expected_device_arrays()
+                t1 = time.perf_counter()
+            device_row_digests_host(state)
+            t2 = time.perf_counter()
+            host_row_digests(expected)
+            t3 = time.perf_counter()
+            split["staging_copy"].append((t1 - t0) * 1e3)
+            split["device_digests"].append((t2 - t1) * 1e3)
+            split["host_digests"].append((t3 - t2) * 1e3)
+        del expected
+        matrix = run_state_fault_matrix(enc, auditor, seed=SEED + 11)
+        matrix_ms = list(auditor.audit_ms)[-len(matrix):]
+        for (kind, res), ms in zip(matrix.items(), matrix_ms):
+            res["audit_ms"] = ms
+            check(res["detected"] == 1 and res["repaired"] == 1,
+                  f"matrix {kind}: {res}")
+        # Staging poison: invisible to the device compare, healed only
+        # by the checkpoint rung.
+        row = int(np.flatnonzero(enc._node_valid)[0])
+        with enc._lock:
+            enc._metrics[row, 0] = np.nan
+            enc._mark_rows("metrics", row)
+        out = auditor.audit_once()
+        poison = {"rung": out["rung"], "repaired": out["repaired"],
+                  "audit_ms": auditor.last_audit_ms}
+        check(out["rung"] == "checkpoint_restore" and out["repaired"],
+              f"staging poison: {poison}")
+        check(bool(np.isfinite(enc._metrics).all()),
+              "staging poison survived the repair")
+        check(auditor.audit_once()["clean"], "audit after restore not clean")
+        # Each rung alone (its host side, then the flush), timed.
+        rung_ms = {}
+        for rung in REPAIR_RUNGS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            auditor._apply_rung(rung, {"metrics": [row]})
+            auditor._flush()
+            torch.cuda.synchronize()
+            rung_ms[rung] = (time.perf_counter() - t0) * 1e3
+        check(auditor.audit_once()["clean"], "audit after the rungs not clean")
+        check(auditor.unrepaired_total == 0,
+              f"unrepaired {auditor.unrepaired_total}")
+        # checkpoint_corrupt, each mode into a copy: refused, or restored
+        # from a verified set.
+        corrupt = {}
+        for seed in range(64):
+            mode = ("truncate", "flip", "delete_meta")[int(
+                np.random.default_rng(seed).integers(0, 3))]
+            if mode in corrupt:
+                continue
+            copy = os.path.join(tmp, f"c{seed}")
+            shutil.copytree(ck, copy)
+            desc = StateChaosInjector(enc, seed=seed,
+                                      checkpoint_dir=copy).inject(
+                "checkpoint_corrupt")
+            try:
+                load_checkpoint(copy, device="cuda")
+                corrupt[mode] = "loaded"
+            except ValueError as exc:
+                corrupt[mode] = f"refused: {str(exc)[:120]}"
+            shutil.rmtree(copy)
+            check(desc["mode"] == mode, f"corrupt seed {seed}: {desc}")
+            check(corrupt[mode] != "loaded",
+                  f"checkpoint_corrupt {mode}: a corrupt set loaded")
+            if len(corrupt) == 3:
+                break
+        check(len(corrupt) == 3, f"corrupt modes covered: {sorted(corrupt)}")
+    fault = {"pods": LOOP_PODS, "checkpoint_save_s": save_s,
+             "clean_audit_ms": pct(clean_ms),
+             "clean_audit_split_ms": {k: float(np.median(v))
+                                      for k, v in split.items()},
+             "matrix": {k: {x: v[x] for x in ("detected", "repaired", "rung",
+                                              "audit_ms")}
+                        | {"descriptor": v["descriptor"]}
+                        for k, v in matrix.items()},
+             "staging_poison": poison, "rung_ms": rung_ms,
+             "checkpoint_corrupt": corrupt,
+             "repairs": dict(auditor.repairs)}
+
+    # 2. Clean-run identity: a pipelined drain without audits and with an
+    # audit at every maintain(); one static launch of the audited drive
+    # is held against the plain version.
+    armed: dict = {"on": False, "calls": 0}
+    real_static = tiled_score.static_tile_scores
+
+    def capturing(pack, groups, pods, use_bfloat16, transposed=False,
+                  peers=None):
+        if armed["on"]:
+            armed["calls"] += 1
+            if armed["calls"] == ROBUST_CAPTURE_AT:
+                armed["args"] = (pack, groups.clone(), pods, use_bfloat16)
+        return real_static(pack, groups, pods, use_bfloat16,
+                           transposed=transposed, peers=peers)
+
+    ident = {}
+    tiled_score.static_tile_scores = capturing
+    try:
+        for audited in (False, True):
+            cluster, loop = fresh_loop(cfg, burst_batches=8, pipelined=True)
+            auditor = IntegrityAuditor(loop.encoder, loop) if audited else None
+            pods = backlog(cfg)
+            outs = []
+            armed["on"] = audited
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                for start in range(0, len(pods), ROBUST_CHUNK):
+                    cluster.add_pods(pods[start:start + ROBUST_CHUNK])
+                    loop.run_once()
+                    loop.maintain()
+                    if auditor is not None:
+                        outs.append(auditor.audit_once()["clean"])
+                loop.run_until_drained()
+                loop.flush_binds()
+                loop.maintain()
+                if auditor is not None:
+                    outs.append(auditor.audit_once()["clean"])
+                torch.cuda.synchronize()
+            finally:
+                loop.stop_bind_worker()
+            armed["on"] = False
+            run_launches = counts()
+            for n, v in run_launches.items():
+                launches[n] += v
+            snap = loop.encoder.snapshot()
+            ident[audited] = {
+                "bindings": {b.pod_name: b.node_name
+                             for b in cluster.bindings},
+                "used": snap.used.cpu(), "over": over_capacity(snap),
+                "counters": (loop.scheduled, loop.unschedulable,
+                             loop.burst_cycles, loop.bind_failures),
+                "audits": outs, "launches": run_launches,
+                "audit_ms": (pct(list(auditor.audit_ms))
+                             if auditor is not None else None),
+                "wall_s": time.perf_counter() - t0}
+            check_static(run_launches, real_batches,
+                         f"identity audited={audited}")
+            check(ident[audited]["over"] == 0,
+                  f"identity audited={audited}: nodes over capacity")
+    finally:
+        tiled_score.static_tile_scores = real_static
+    a, b = ident[False], ident[True]
+    check(a["bindings"] == b["bindings"], "identity: bindings differ with "
+          "the auditor on")
+    check(torch.equal(a["used"], b["used"]), "identity: used differs with "
+          "the auditor on")
+    check(a["counters"] == b["counters"], f"identity: counters "
+          f"{a['counters']} vs {b['counters']}")
+    check(bool(b["audits"]) and all(b["audits"]),
+          f"identity: {b['audits'].count(False)} audits not clean")
+    check(a["counters"][0] > 0, "identity: nothing bound")
+    kernel_check = {}
+    if "args" not in armed:
+        check(False, "identity: no static-kernel call was captured")
+    else:
+        pack, groups, kpods, bf16 = armed["args"]
+        with uncounted():
+            raw_t, ok_t = K.static_tile_scores(pack, groups, kpods, bf16,
+                                               transposed=True)
+            raw, ok = K.static_tile_scores_plain(pack, groups, kpods, bf16)
+        torch.cuda.synchronize()
+        raw_t, ok_t = raw_t.T, ok_t.T
+        err = (float((raw_t[ok] - raw[ok]).abs().max())
+               if bool(ok.any()) else 0.0)
+        kernel_check = {"launch": ROBUST_CAPTURE_AT,
+                        "shape": list(raw_t.shape),
+                        "feasible": int(ok.sum()), "max_abs_err": err}
+        check(bool(ok.any()), "identity: the captured batch has no "
+              "feasible entry")
+        check(torch.equal(ok_t, ok) and torch.allclose(
+            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
+              f"identity: static kernel differs from plain by {err}, mask "
+              f"on {int((ok_t != ok).sum())}")
+    identity = {"pods": LOOP_PODS, "chunk": ROBUST_CHUNK,
+                "audits": len(b["audits"]), "audit_ms": b["audit_ms"],
+                "wall_s": {"plain": a["wall_s"], "audited": b["wall_s"]},
+                "launches": {"plain": a["launches"],
+                             "audited": b["launches"]},
+                "kernel_vs_plain": kernel_check}
+
+    # 3. The chaos soak at width, with state faults: the soak's config is
+    # the JAX default, score_backend="xla", the dense torch path.
+    t0 = time.perf_counter()
+    doc = run_chaos_soak(seed=7, num_nodes=NODES, num_pods=LOOP_PODS,
+                         classes=FAULT_CLASSES, state_faults=True,
+                         device="cuda")
+    soak_wall = time.perf_counter() - t0
+    integ = doc["detail"]["integrity"]
+    injected = sum(integ["state_faults_injected"].values())
+    check(doc["recovered"], "soak: not recovered")
+    check(doc["invariants"] == {k: 0 for k in doc["invariants"]},
+          f"soak invariants: {doc['invariants']}")
+    check(integ["unrepaired"] == 0, f"soak unrepaired {integ['unrepaired']}")
+    check(integ["drift_detected"] == injected > 0,
+          f"soak: detected {integ['drift_detected']} of {injected}")
+    soak = {"backend": "xla (the dense torch path; no kernel)",
+            "nodes": NODES, "pods": LOOP_PODS, "wall_s": soak_wall,
+            "recovered": doc["recovered"],
+            "time_to_recover_s": doc["time_to_recover_s"],
+            "invariants": doc["invariants"],
+            "healthy_assumed_per_cycle":
+                doc["detail"]["healthy"]["assumed_per_cycle"],
+            "brownout_assumed_per_cycle":
+                doc["detail"]["brownout"]["assumed_per_cycle"],
+            "cycles": doc["detail"]["cycles"],
+            "bound": doc["detail"]["bound"],
+            "injected": doc["detail"]["injected"], "integrity": integ}
+
+    # 4. Rebalance: run_density's 8,192-pod drain with the rebalancer on,
+    # two nodes cordoned (the drain trigger), one tick past the age bar;
+    # the scan's inputs are kept to run it again on the CPU.
+    rcfg = SchedulerConfig(max_nodes=NODES, max_pods=BATCH, max_peers=PEERS,
+                           score_backend="pallas",
+                           queue_capacity=DENSITY_PODS + BATCH,
+                           enable_rebalance=True)
+    scans: list = []
+    real_scan = rebalance._scan
+
+    def keep_scan(*args):
+        scans.append(args)
+        return real_scan(*args)
+
+    reb: dict = {}
+
+    def rebalance_tick(loop) -> None:
+        reb["launches"] = counts()
+        reb["drained"] = loop.scheduled
+        rb = loop.rebalance
+        c = loop.client
+        placed = {}
+        for b_ in c.bindings:
+            placed[b_.pod_name] = b_.node_name
+        peered = sorted({placed[p.name] for p in c.list_all_pods()
+                         if p.peers and p.name in placed})
+        nodes = {n.name: n for n in c.list_nodes()}
+        for name in peered[:2]:
+            c.add_node(dataclasses.replace(nodes[name], unschedulable=True))
+        reb["cordoned"] = peered[:2]
+        now = time.monotonic() + rcfg.rebalance_min_age_s + 1.0
+        rb._last_tick = 0.0
+        rebalance._scan = keep_scan
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moved = rb.tick(loop, now=now)
+            reb["tick_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            rebalance._scan = real_scan
+        reb["moved"] = moved
+        reb["gains"] = [mv.gain for mv in rb._inflight.values()]
+        moved_members = [m for mv in rb._inflight.values()
+                         for m in mv.members]
+        reb["scan_ms"] = dict(rb.last_scan_ms)
+        reb["pods_scanned"] = rb.last_scan_pods
+        loop.run_until_drained()
+        loop.flush_binds()
+        rb._settle(now)
+        reb["summary"] = rb.summary()
+        reb["invariants"] = check_invariants(loop, c)
+        names = [b_.pod_name for b_ in c.bindings]
+        reb["rebound"] = sorted({n for n in names if names.count(n) > 1})
+        reb["rebound_max"] = max((names.count(n) for n in reb["rebound"]),
+                                 default=0)
+        reb["evicted"] = sorted(m[2] for m in moved_members)
+        reb["over"] = over_capacity(loop.encoder.snapshot())
+
+    res = run_density(NODES, DENSITY_PODS, batch_size=BATCH, cfg=rcfg,
+                      warmup=False, sampler=_ZeroLaunches(),
+                      after_drain=rebalance_tick, device="cuda")
+    for n, v in reb["launches"].items():
+        launches[n] += v
+    check_static(reb["launches"], -(-DENSITY_PODS // BATCH), "rebalance drain")
+    s = reb["summary"]
+    check(len(scans) == 1, f"rebalance: {len(scans)} scans")
+    scan_check = {}
+    if scans:
+        args = scans[0]
+        dev_out = real_scan(*args)
+        cpu_out = real_scan(*(a.cpu() if torch.is_tensor(a) else a
+                              for a in args))
+        torch.cuda.synchronize()
+        scan_check = {
+            "pods": int(args[4].shape[0]),
+            "target_differs": int((dev_out[2].cpu() != cpu_out[2]).sum()),
+            "max_abs_err": max(float((dev_out[i].cpu() - cpu_out[i])
+                                     .abs().max()) for i in (0, 1))}
+        check(torch.equal(dev_out[2].cpu(), cpu_out[2]),
+              f"rebalance scan: {scan_check['target_differs']} targets "
+              "differ between the card and the CPU")
+        check(all(torch.allclose(dev_out[i].cpu(), cpu_out[i], rtol=TOL,
+                                 atol=TOL) for i in (0, 1)),
+              f"rebalance scan: mine/best differ by "
+              f"{scan_check['max_abs_err']}")
+    check(0 < reb["moved"] <= rcfg.rebalance_max_moves_per_cycle,
+          f"rebalance: {reb['moved']} moves (cap "
+          f"{rcfg.rebalance_max_moves_per_cycle})")
+    check(all(g > 0.0 for g in reb["gains"]), f"rebalance gains {reb['gains']}")
+    check(s["triggers_drain"] >= 1, f"rebalance: no drain trigger ({s})")
+    check(s["moves_completed"] == s["moves_total"],
+          f"rebalance: {s['moves_completed']} of {s['moves_total']} moves "
+          "completed")
+    check(s["half_moved_gangs"] == 0, "rebalance: half-moved gangs")
+    # check_invariants counts a pod name in more than one binding as
+    # double-bound; the fake API server's bindings are a history, so a
+    # migrated pod (bound, evicted, re-added, bound again) appears twice.
+    # The invariant the move must keep: the only names bound twice are
+    # the evicted members, each exactly twice; the rest are 0.
+    inv = dict(reb["invariants"])
+    check(reb["rebound"] == reb["evicted"] and reb["rebound_max"] <= 2
+          and inv.pop("pods_double_bound") == len(reb["evicted"]),
+          f"rebalance: rebound {reb['rebound']} vs evicted "
+          f"{reb['evicted']} ({reb['invariants']})")
+    check(inv == {k: 0 for k in inv}, f"rebalance invariants: {inv}")
+    check(reb["over"] == 0, "rebalance: nodes over capacity")
+
+    # The gang reshape after a node loss.
+    gcfg = dataclasses.replace(cfg, enable_gang_reshaping=True,
+                               queue_capacity=4096)
+    cluster, loop = fresh_loop(gcfg)
+    fam = parse_gang_shapes(RESHAPE_SHAPES)
+    gpods = [Pod(name=f"slice-r-w{i}", requests={"cpu": 0.25, "mem": 0.25},
+                 pod_group="slice-r", gang_min_member=RESHAPE_MEMBERS,
+                 gang_shapes=fam, group="slice-r",
+                 anti_groups=frozenset({"slice-r"}))
+             for i in range(RESHAPE_MEMBERS)]
+    K.reset_launch_counts()
+    cluster.add_pods(gpods)
+    bound0 = loop.run_until_drained()
+    rb = rebalance.Rebalancer(dataclasses.replace(
+        gcfg, enable_rebalance=True, rebalance_interval_s=1e-4,
+        rebalance_max_moves_per_cycle=0,
+        rebalance_evictions_per_hour=1000.0,
+        rebalance_move_timeout_s=60.0), loop.encoder, loop.client)
+    loop.rebalance = rb
+    dead = cluster.node_of(gpods[0].name)
+    node = next(n for n in cluster.list_nodes() if n.name == dead)
+    cluster.add_node(dataclasses.replace(node, unschedulable=True))
+    units = rb._gang_units(loop)
+    plan = (rb.evaluate_reshape(loop, "default/slice-r",
+                                units["default/slice-r"], time.monotonic())
+            if "default/slice-r" in units else None)
+    check(bound0 == RESHAPE_MEMBERS, f"reshape: {bound0} members bound")
+    check(plan is not None and plan["new_key"] > plan["cur_key"],
+          f"reshape: plan {plan}")
+    for _ in range(4):
+        rb._last_tick = 0.0
+        rb.tick(loop)
+        loop.run_until_drained()
+        loop.flush_binds()
+        if rb.reshapes_completed and not rb._inflight_reshapes:
+            break
+    loop.stop_bind_worker()
+    gang_launches = counts()
+    for n, v in gang_launches.items():
+        launches[n] += v
+    placed = {p.name: cluster.node_of(p.name) for p in gpods
+              if cluster.node_of(p.name)}
+    real = loop.encoder.gang_realizations().get("default/slice-r")
+    resh = rb.summary()["reshape"]
+    check(resh["reshapes_completed"] >= 1 and resh["half_shaped_gangs"] == 0,
+          f"reshape: {resh}")
+    check(dead not in placed.values(), "reshape: a member on the lost node")
+    check(real is not None and real[0] == len(placed)
+          and len(placed) in {c for c, _p in fam},
+          f"reshape: {len(placed)} bound, realization {real}")
+    check(gang_launches["static_scores_kernel"] >= 2,
+          f"reshape: static kernel launched "
+          f"{gang_launches['static_scores_kernel']} times")
+    rebal = {"pods": DENSITY_PODS, "drained": reb["drained"],
+             "drain_pods_per_s": res.pods_per_sec,
+             "cordoned": reb["cordoned"], "moved": reb["moved"],
+             "pods_scanned": reb["pods_scanned"],
+             "scan_ms": reb["scan_ms"], "tick_ms": reb["tick_ms"],
+             "scan_vs_cpu": scan_check, "summary": s,
+             "invariants": reb["invariants"],
+             "rebound_pods": len(reb["rebound"]),
+             "reshape": {"plan": {k: plan[k] for k in (
+                 "new_count", "old_count", "kind", "gain", "cur_key",
+                 "new_key")} if plan else None,
+                 "placed": len(placed), "summary": resh,
+                 "launches": gang_launches}}
+
+    # 5. The daemon with every robustness flag for DAEMON_S seconds.
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        dsock = os.path.join(tmp, "robust.sock")
+        cfgp = os.path.join(tmp, "config.json")
+        with open(cfgp, "w") as fh:
+            json.dump({"max_nodes": NODES, "max_pods": BATCH,
+                       "max_peers": PEERS, "score_backend": "pallas"}, fh)
+        stop = threading.Event()
+        outcome: dict = {}
+
+        def run_daemon():
+            try:
+                outcome["rc"] = serve.main(
+                    ["--cluster", f"fake:{NODES}", "--uds", dsock,
+                     "--config", cfgp, "--device", "cuda",
+                     "--probe-period-s", "0",
+                     "--audit-interval", "1", "--state-chaos", "0.5",
+                     "--rebalance"], stop)
+            except BaseException as exc:  # noqa: BLE001 - checked below
+                outcome["error"] = repr(exc)
+
+        before = {t.name for t in threading.enumerate()}
+        th = threading.Thread(target=run_daemon, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        daemon: dict = {}
+        try:
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline and th.is_alive():
+                if os.path.exists(dsock):
+                    break
+                time.sleep(0.1)
+            daemon["start_s"] = time.perf_counter() - t0
+            if not os.path.exists(dsock):
+                fail("robust", f"the daemon did not start: {outcome}")
+            time.sleep(DAEMON_S)
+            metrics = call_uds(dsock, "/metrics", b"").decode()
+            rbdoc = json.loads(call_uds(dsock, "/debug/rebalance", b""))
+        finally:
+            stop.set()
+            th.join(timeout=120)
+        # Threads the daemon started end within a few seconds of its
+        # return (the batcher's finisher drains its sentinel).
+        for _ in range(50):
+            alive = [t.name for t in threading.enumerate()
+                     if t.name not in before and t.is_alive()]
+            if not alive:
+                break
+            time.sleep(0.1)
+        types_ = [ln.split()[2] for ln in metrics.splitlines()
+                  if ln.startswith("# TYPE ")]
+
+        def value(name: str) -> float:
+            return sum(float(ln.rsplit(" ", 1)[1])
+                       for ln in metrics.splitlines()
+                       if ln.startswith(name)
+                       and ln[len(name):len(name) + 1] in " {")
+
+        for fam_ in ("netaware_integrity_audits_total",
+                     "netaware_integrity_repairs_total",
+                     "netaware_state_faults_injected_total",
+                     "netaware_rebalance_scans_total",
+                     "netaware_rebalance_triggers_total"):
+            check(types_.count(fam_) == 1,
+                  f"daemon /metrics: {fam_} TYPE x{types_.count(fam_)}")
+        check(len(types_) == len(set(types_)),
+              "daemon /metrics repeats a # TYPE family")
+        check(value("netaware_integrity_audits_total") >= 1,
+              "daemon: no audit ran")
+        check(value("netaware_integrity_unrepaired_total") == 0,
+              "daemon: unrepaired drift")
+        check(rbdoc.get("enabled") is True, f"/debug/rebalance: {rbdoc}")
+        check(not th.is_alive(), "the daemon did not stop")
+        check(outcome.get("rc") == 0 and "error" not in outcome,
+              f"daemon shutdown: {outcome}")
+        check(not alive, f"threads left running: {alive}")
+        daemon.update({
+            "seconds": DAEMON_S,
+            "audits": value("netaware_integrity_audits_total"),
+            "drift": value("netaware_integrity_drift_total"),
+            "repairs": value("netaware_integrity_repairs_total"),
+            "faults_injected": value("netaware_state_faults_injected_total"),
+            "last_audit_ms": value("netaware_integrity_last_audit_ms"),
+            "rebalance_scans": value("netaware_rebalance_scans_total"),
+            "metric_families": len(types_)})
+
+    info = {"phase": "robust", "nodes": NODES, "batch": BATCH, "card": card,
+            "fault_matrix": fault, "identity": identity, "soak": soak,
+            "rebalance": rebal, "daemon": daemon, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("robust", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1916,6 +2560,7 @@ def main() -> int:
     loop_res = run_phase("loop", phase_loop)
     webhook_res = run_phase("webhook", phase_webhook)
     feed_res = run_phase("feed", phase_feed)
+    robust_res = run_phase("robust", phase_robust)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -1930,7 +2575,8 @@ def main() -> int:
     # the static kernel and the compaction, the serving seam for the
     # winner, the webhook's Score/Filter drive for the masked kernel.  The
     # scheduling loop (its four identity drives) runs the static kernel
-    # and its compaction, and so does the feed phase's headline drain.
+    # and its compaction, and so do the feed phase's headline drain and
+    # the robust phase's loop drives (identity, rebalance, reshape).
     path_of = {"static_scores_kernel": "main",
                "masked_scores_kernel": "webhook",
                "winner_scores_kernel": "serve",
@@ -1938,7 +2584,8 @@ def main() -> int:
     by_path = {"main": main_res["launches"], "serve": serve_res["launches"],
                "loop": loop_res["launches"],
                "webhook": webhook_res["launches"],
-               "feed": feed_res["launches"]}
+               "feed": feed_res["launches"],
+               "robust": robust_res["launches"]}
     rows = []
     for kname in K.KERNELS:
         r = kres[prec][kname]

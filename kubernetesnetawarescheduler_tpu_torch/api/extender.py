@@ -426,8 +426,9 @@ def _round_pow2(n: int) -> int:
     return size
 
 
-# /debug pages of layers the port does not have: the JAX package's
-# answers with those layers off.
+# /debug pages of layers the port does not have, and /debug/rebalance
+# of a loop without a rebalancer: the JAX package's answers with those
+# layers off.
 _LAYER_OFF = {
     "/debug/slo": {"slo": {"enabled": False},
                    "quality": {"enabled": False}},
@@ -509,6 +510,14 @@ class ExtenderHandlers:
                                  if flight is not None else 0),
                 })
             return self._json(rec)
+        if path == "/debug/rebalance":
+            # The descheduler's full state: scan/candidate/move
+            # counters, the skip breakdown (which hysteresis gate or
+            # budget held each candidate back), trigger attribution and
+            # the live in-flight ledger depth.
+            rb = getattr(self._loop, "rebalance", None)
+            if rb is not None:
+                return self._json(rb.summary())
         if path in _LAYER_OFF:
             return self._json(_LAYER_OFF[path])
         raise ValueError(f"unknown op {path!r}")

@@ -12,16 +12,17 @@ and pods in both packages):
 - workloads of services whose pods exchange traffic (peers), with
   optional affinity/anti-affinity groups;
 - gang workloads of TPU-slice-shaped pod groups
-  (:func:`generate_gang_workload`).
-
-The fault-injecting exporter fleet and the ``chaos`` wrapper of
-:func:`build_fake_cluster` follow with the ingest and chaos modules they
-serve.
+  (:func:`generate_gang_workload`);
+- fault injection: a node_exporter fleet that drops, times out,
+  corrupts or NaN-poisons scrapes (:class:`FaultyExporterFleet`), and
+  the ``chaos`` wrapper of :func:`build_fake_cluster`, which puts the
+  cluster behind a fault-injecting apiserver proxy (k8s/chaos.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -158,8 +159,12 @@ def build_fake_cluster(spec: ClusterSpec, client_cls=FakeCluster,
     fault-injecting subclass or an emulated API RTT
     (``bind_latency_s``).
 
-    ``chaos`` (a fault-injecting proxy in the JAX package) raises
-    :class:`NotImplementedError` until the chaos module is ported."""
+    ``chaos`` wraps the populated cluster in a fault-injecting
+    :class:`~kubernetesnetawarescheduler_tpu_torch.k8s.chaos.ChaosKubeProxy`:
+    pass a :class:`~kubernetesnetawarescheduler_tpu_torch.k8s.chaos.ChaosSchedule`
+    for full control, or an int seed to generate the default schedule.
+    The returned client is then the proxy (its ``.inner`` is the bare
+    cluster)."""
     rng = np.random.default_rng(spec.seed)
     cluster = client_cls(**client_kw)
     n = spec.num_nodes
@@ -216,9 +221,13 @@ def build_fake_cluster(spec: ClusterSpec, client_cls=FakeCluster,
     np.fill_diagonal(lat, 0.0)
     np.fill_diagonal(bw, bw.max())
     if chaos is not None:
-        raise NotImplementedError(
-            "build_fake_cluster(chaos=...) needs k8s/chaos.py, which this "
-            "package does not have yet")
+        from kubernetesnetawarescheduler_tpu_torch.k8s.chaos import (
+            ChaosKubeProxy,
+            ChaosSchedule,
+        )
+        schedule = (chaos if isinstance(chaos, ChaosSchedule)
+                    else ChaosSchedule.generate(int(chaos)))
+        cluster = ChaosKubeProxy(cluster, schedule)
     return cluster, lat, bw
 
 
@@ -248,6 +257,95 @@ def feed_metrics(cluster: FakeCluster, encoder, rng: np.random.Generator,
         if drop_fraction and rng.random() < drop_fraction:
             continue
         encoder.update_metrics(node.name, sample_metrics(rng), age_s=0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSpec:
+    """Fault-injection policy for the synthetic node_exporter fleet.
+
+    Fractions are per-scrape probabilities, independent per node.  The
+    reference crashed on any of these: a failed ``http.Get`` left a nil
+    body that was read anyway (scheduler.go:397-405); a corrupt body
+    broke the fixed-offset substring slicing (scheduler.go:409-442)."""
+
+    drop_fraction: float = 0.0      # connection refused (raises)
+    timeout_fraction: float = 0.0   # request timeout (raises)
+    corrupt_fraction: float = 0.0   # body is binary garbage
+    nan_fraction: float = 0.0       # body parses but values are NaN/Inf
+    dead_nodes: frozenset[str] = frozenset()  # never answer at all
+    seed: int = 0
+
+
+def synth_exporter_body(values: dict[str, float], num_cpus: int = 4,
+                        nan: bool = False) -> str:
+    """A node_exporter-format scrape body realizing the given metric
+    channels (the inverse of
+    :class:`~..ingest.prometheus.NodeExporterExtractor`)."""
+    bad = "NaN"
+    cpu = bad if nan else f"{values['cpu_freq']:.1f}"
+    total = 16e9
+    avail = bad if nan else f"{(100.0 - values['mem_pct']) / 100.0 * total:.0f}"
+    tx = bad if nan else f"{values['net_tx']:.0f}"
+    rx = bad if nan else f"{values['net_rx']:.0f}"
+    disk = bad if nan else f"{values['disk_io']:.0f}"
+    lines = ["# HELP node_cpu_scaling_frequency_hertz freq",
+             "# TYPE node_cpu_scaling_frequency_hertz gauge"]
+    for c in range(num_cpus):
+        lines.append(
+            f'node_cpu_scaling_frequency_hertz{{cpu="{c}"}} {cpu}')
+    lines += [
+        f"node_memory_MemTotal_bytes {total:.0f}",
+        f"node_memory_MemAvailable_bytes {avail}",
+        f'node_network_transmit_packets_total{{device="eth0"}} {tx}',
+        f'node_network_receive_packets_total{{device="eth0"}} {rx}',
+        f'node_network_transmit_packets_total{{device="flannel.1"}} 12345',
+        f'node_disk_io_now{{device="sda"}} {disk}',
+    ]
+    return "\n".join(lines) + "\n"
+
+
+class FaultyExporterFleet:
+    """A ``fetch`` callable for :class:`~..ingest.scraper.ScrapePool`
+    backed by synthetic per-node exporters with injected faults.
+
+    Targets map node names to ``fake://<node-name>`` URLs."""
+
+    def __init__(self, node_names: Sequence[str],
+                 spec: FaultSpec = FaultSpec()) -> None:
+        self.spec = spec
+        self._rng = np.random.default_rng(spec.seed)
+        # ScrapePool fetches from a thread pool; numpy Generators are
+        # not thread-safe, so draws are serialized.
+        self._lock = threading.Lock()
+        self._names = list(node_names)
+        self.calls = 0
+
+    def targets(self) -> dict[str, str]:
+        return {name: f"fake://{name}" for name in self._names}
+
+    def fetch(self, url: str) -> str:
+        if not url.startswith("fake://"):
+            raise ValueError(f"not a fake exporter url: {url!r}")
+        name = url[len("fake://"):]
+        with self._lock:
+            return self._fetch_locked(name)
+
+    def _fetch_locked(self, name: str) -> str:
+        self.calls += 1
+        spec, rng = self.spec, self._rng
+        if name in spec.dead_nodes:
+            raise ConnectionRefusedError(name)
+        roll = rng.random()
+        if roll < spec.drop_fraction:
+            raise ConnectionRefusedError(name)
+        if roll < spec.drop_fraction + spec.timeout_fraction:
+            raise TimeoutError(name)
+        if roll < (spec.drop_fraction + spec.timeout_fraction
+                   + spec.corrupt_fraction):
+            return "\x00\xff garbage {{{ not prometheus\n== 4 5 6"
+        nan = roll < (spec.drop_fraction + spec.timeout_fraction
+                      + spec.corrupt_fraction + spec.nan_fraction)
+        return synth_exporter_body(sample_metrics(rng), nan=nan)
 
 
 def generate_gang_workload(num_gangs: int = 12,

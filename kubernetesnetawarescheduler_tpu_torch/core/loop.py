@@ -13,9 +13,11 @@ reconcile paths.  What differs from the JAX loop:
 - The assignment reaches the host through ``.cpu()`` (:func:`_to_host`),
   which waits for the kernels that wrote it.
 - The optional layers the JAX package gates off by default — placement
-  quality, SLOs, the learned policy, the topology model, rebalancing and
-  the mesh — are not ported yet: switching one on raises
+  quality, SLOs, the learned policy, the topology model and the mesh —
+  are not ported yet: switching one on raises
   :class:`NotImplementedError` when the loop is built, never mid-cycle.
+  Rebalancing is ported; a device fault inside its maintain-time tick
+  propagates instead of being swallowed with the host-side errors.
 - Explain capture (``enable_explain``) works under both score backends
   (the JAX loop records nothing under ``score_backend="pallas"``), and
   a capture dropped on a host-side error is counted in the flight
@@ -64,6 +66,7 @@ from kubernetesnetawarescheduler_tpu_torch.core.gang import (
     place_gang,
     place_gang_shaped,
 )
+from kubernetesnetawarescheduler_tpu_torch.core.state import is_device_error
 from kubernetesnetawarescheduler_tpu_torch.k8s.client import ClusterClient
 from kubernetesnetawarescheduler_tpu_torch.k8s.informer import Informer, PodQueue
 from kubernetesnetawarescheduler_tpu_torch.k8s.types import (
@@ -89,7 +92,6 @@ _UNPORTED_LAYERS = (
     ("enable_quality_obs", "obs/quality.py (ROADMAP Queue A item 12)"),
     ("enable_slo", "obs/slo.py (ROADMAP Queue A item 12)"),
     ("enable_learned_score", "policy/ (ROADMAP Queue A item 12)"),
-    ("enable_rebalance", "core/rebalance.py (ROADMAP Queue A item 11)"),
     ("enable_netmodel", "netmodel/ (ROADMAP Queue A item 12)"),
 )
 
@@ -225,6 +227,20 @@ class SchedulerLoop:
         # the chaos soak read the counters through these handles.
         self.integrity = None
         self.state_chaos = None
+        # Continuous rebalancing (core/rebalance.py): the budgeted
+        # descheduler acts on the degradation signals the ingest only
+        # measures.  Off by default; with budget 0 or the flag off,
+        # placements are identical to no rebalancer at all.
+        if cfg.enable_rebalance:
+            from kubernetesnetawarescheduler_tpu_torch.core.rebalance import (
+                Rebalancer,
+            )
+
+            self.rebalance: "Rebalancer | None" = Rebalancer(
+                cfg, self.encoder, self.client)
+        else:
+            self.rebalance = None
+        self._rebalance_last = (0, 0)
         # One-shot span tag set by StateChaosInjector._record: the
         # next committed cycle span carries the injected fault class,
         # so a trace reader sees WHICH cycle first ran on corrupted
@@ -430,8 +446,10 @@ class SchedulerLoop:
         self.gangs_rolled_back = 0
         # Elastic reshaping: gangs committed at a DEGRADED declared
         # realization (fewer members than arrived) by the shape-aware
-        # placement path.
+        # placement path, plus the per-span delta baseline for the
+        # rebalancer's reshape counters.
         self.gangs_shaped_degraded = 0
+        self._reshape_last = (0, 0)
 
         # Conflict-round window as a LogHistogram (rounds are small
         # ints; doubling buckets from 1 keep them exact): drop-in for
@@ -615,8 +633,8 @@ class SchedulerLoop:
         RETIRE for the pipelined and multicycle paths — so a crash
         never leaves a span claiming a cycle whose placements were
         lost.  The fields of the unported layers (SLO, quality,
-        rebalance, policy) carry their off-path values, so spans
-        serialize as the JAX loop's do with those layers off."""
+        policy) carry their off-path values, so spans serialize as the
+        JAX loop's do with those layers off."""
         if self.flight is None or sb is NULL_SPAN:
             return
         enc = self.encoder
@@ -646,6 +664,28 @@ class SchedulerLoop:
         fault = (f"state_{state_fault}" if state_fault
                  else "apiserver_brownout" if degraded
                  else "watch_gap" if self._relist_needed else None)
+        # Rebalance accounting: cumulative counters turned into
+        # per-span deltas (the descheduler runs on the maintain path,
+        # so a span carries whatever moved since the previous span).
+        rb_moves = rb_reverts = 0
+        gang_reshapes = reshape_reverts = None
+        if self.rebalance is not None:
+            mt = int(self.rebalance.moves_total)
+            rt = int(self.rebalance.moves_reverted)
+            last_mt, last_rt = self._rebalance_last
+            self._rebalance_last = (mt, rt)
+            rb_moves = max(mt - last_mt, 0)
+            rb_reverts = max(rt - last_rt, 0)
+            # Reshape accounting is carried only when the feature is
+            # live (None off-path, so spans serialize as before).
+            if (self.cfg.enable_gang_reshaping
+                    or self.rebalance.cfg.enable_gang_reshaping):
+                rs = int(self.rebalance.reshapes_total)
+                rr = int(self.rebalance.reshapes_reverted)
+                last_rs, last_rr = self._reshape_last
+                self._reshape_last = (rs, rr)
+                gang_reshapes = max(rs - last_rs, 0)
+                reshape_reverts = max(rr - last_rr, 0)
         # Cap the per-span uid list: a whole-workload bench drain can
         # retire tens of thousands of pods in one span, and the ring
         # holds `capacity` spans — n_pods still carries the true count.
@@ -668,10 +708,10 @@ class SchedulerLoop:
             donation_skipped=int(donation_skipped),
             slo_burning=None,
             outcome_ring_depth=0,
-            rebalance_moves=0,
-            rebalance_reverts=0,
-            gang_reshapes=None,
-            reshape_reverts=None,
+            rebalance_moves=rb_moves,
+            rebalance_reverts=rb_reverts,
+            gang_reshapes=gang_reshapes,
+            reshape_reverts=reshape_reverts,
             scenario_phase=self.scenario_phase,
             trace_offset=int(self.trace_offset),
             policy_shadow_disagreements=0,
@@ -2598,6 +2638,18 @@ class SchedulerLoop:
         self._flush_preemption_waits()
         self._flush_gang_timeouts()
         self.encoder.expire_nominations(self.cfg.preemption_wait_s)
+        # Continuous rebalancing: settle in-flight moves, then scan for
+        # improvement candidates and execute within budget.  The
+        # rebalancer owns its interval gate.  A host-side failure (an
+        # API error mid-tick) is retried next tick — moves are
+        # crash-safe by the migration ledger — but a fault of the
+        # device scan propagates.
+        if self.rebalance is not None:
+            try:
+                self.rebalance.tick(self)
+            except Exception as exc:  # noqa: BLE001 — retried next tick
+                if is_device_error(exc):
+                    raise
 
     def _flush_preemption_waits(self) -> None:
         """Requeue preemptors whose confirmation deadline passed (a

@@ -54,6 +54,21 @@ def host_flag(x: torch.Tensor) -> bool:
 host_flag.syncs = 0
 
 
+def is_device_error(exc: BaseException) -> bool:
+    """Whether ``exc`` is a fault of the device or its kernels (a failed
+    launch or copy, an illegal address, memory exhausted, a kernel that
+    does not build) rather than of host logic.  Handlers that keep a
+    maintenance step or a background thread alive across host errors
+    re-raise these: they are never observation failures."""
+    for name in ("OutOfMemoryError", "AcceleratorError"):
+        kind = getattr(torch, name, None)
+        if kind is not None and isinstance(exc, kind):
+            return True
+    msg = str(exc)
+    return isinstance(exc, RuntimeError) and ("CUDA" in msg
+                                              or "nvcc" in msg)
+
+
 class _TensorTree:
     """``replace`` and host copies for the tensor dataclasses below."""
 

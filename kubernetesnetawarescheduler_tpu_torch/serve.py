@@ -9,7 +9,10 @@ the process the deploy manifests run.  It wires:
 - the scrape pool (node_exporter ingestion) and probe orchestrator
   (pairwise lat/bw) on background threads,
 - checkpoint restore on start / save on SIGTERM,
-- a decision log for deterministic replay.
+- a decision log for deterministic replay,
+- optionally the anti-entropy integrity auditor (``--audit-interval``),
+  the state-fault injector (``--state-chaos``, test and soak only) and
+  the continuous rebalancer (``--rebalance``).
 
 ``--cluster fake:N`` serves against a generated N-node fake cluster;
 ``kube:<url>`` / ``incluster`` watch a real API server.
@@ -26,10 +29,12 @@ What differs from the JAX daemon:
   over) wraps the run in ``torch.profiler`` and writes a Chrome trace
   there; every device step carries the flight recorder's cycle id.
 - Flags and config fields of layers not ported yet (placement quality,
-  SLOs, the learned policy, the topology model, rebalancing, the
-  integrity auditor, state chaos, the mesh and multi-host serving) make
-  the daemon exit with code 2 and one line naming the layer's ROADMAP
-  item, before anything starts.
+  SLOs, the learned policy, the topology model, the mesh and multi-host
+  serving) make the daemon exit with code 2 and one line naming the
+  layer's ROADMAP item, before anything starts.
+- The audit thread and the state-chaos thread end on a fault of the
+  device instead of retrying it; shutdown raises that fault after every
+  thread is stopped and the daemon's state is saved.
 """
 
 from __future__ import annotations
@@ -56,10 +61,6 @@ _UNPORTED_FLAGS = (
     ("slo", "--slo", "obs/slo.py", 12),
     ("learned_score", "--learned-score", "policy/", 12),
     ("policy_eval_trace", "--policy-eval-trace", "policy/", 12),
-    ("rebalance", "--rebalance", "core/rebalance.py", 11),
-    ("audit_interval", "--audit-interval", "core/integrity.py's auditor",
-     11),
-    ("state_chaos", "--state-chaos", "core/state_chaos.py", 11),
     ("mesh", "--mesh", "parallel/sharding.py", 15),
     ("multihost", "--multihost", "parallel/multihost.py", 15),
     ("coordinator", "--coordinator", "parallel/multihost.py", 15),
@@ -71,22 +72,15 @@ _UNPORTED_FLAGS = (
 def _unported(ap: argparse.ArgumentParser, args,
               cfg: SchedulerConfig) -> str | None:
     """The refusal line for the first unported layer switched on by a
-    flag (any value but its default; ``--audit-interval`` and
-    ``--state-chaos`` above 0) or a config field, or None."""
+    flag (any value but its default) or a config field, or None."""
     from kubernetesnetawarescheduler_tpu_torch.core.loop import (
         _refuse_unported,
     )
 
     for attr, flag, needs, item in _UNPORTED_FLAGS:
-        val = getattr(args, attr)
-        if (val > 0 if attr in ("audit_interval", "state_chaos")
-                else val != ap.get_default(attr)):
+        if getattr(args, attr) != ap.get_default(attr):
             return (f"{flag} needs {needs} (ROADMAP Queue A item {item}), "
                     "which is not ported yet")
-    if cfg.audit_interval_s > 0:
-        return ("cfg.audit_interval_s > 0 needs core/integrity.py's "
-                "auditor (ROADMAP Queue A item 11), which is not ported "
-                "yet")
     try:
         _refuse_unported(cfg, None)
     except NotImplementedError as exc:
@@ -191,6 +185,31 @@ def _parser() -> argparse.ArgumentParser:
                          "written on SIGTERM/fault; defaults to "
                          "<checkpoint-dir>/flight_dump.json when "
                          "--checkpoint-dir is set, else disabled")
+    ap.add_argument("--audit-interval", type=float, default=None,
+                    help="anti-entropy audit period in seconds "
+                         "(core/integrity.py): a background thread "
+                         "digests the device planes against a shadow "
+                         "re-encode of the staging truth and walks "
+                         "the repair ladder on drift; overrides "
+                         "cfg.audit_interval_s; 0 disables")
+    ap.add_argument("--state-chaos", type=float, default=0.0,
+                    help="state-fault injection period in seconds "
+                         "(core/state_chaos.py): every period one "
+                         "seeded fault (dropped/duplicated/reordered "
+                         "delta, NaN poison, bit flip) is injected "
+                         "into the state layer — pair with "
+                         "--audit-interval to exercise the repair "
+                         "ladder; 0 disables (NEVER enable in "
+                         "production)")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="continuous rebalancing (core/rebalance.py): "
+                         "a budgeted descheduler revisits bound pods "
+                         "at maintain cadence, live-migrating the "
+                         "worst placements through the crash-safe "
+                         "migration ledger under the eviction budget "
+                         "and PDB-style disruption limits; "
+                         "equivalent to enable_rebalance=true in "
+                         "--config")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--once", action="store_true",
                     help="serve one readiness cycle then exit "
@@ -225,18 +244,14 @@ def _parser() -> argparse.ArgumentParser:
                          "in --config")
     # Layers not ported yet: accepted so deploy command lines parse, and
     # refused with their ROADMAP item (see _UNPORTED_FLAGS).
-    for flag in ("--quality-obs", "--slo", "--rebalance",
-                 "--learned-score", "--mesh", "--multihost"):
+    for flag in ("--quality-obs", "--slo", "--learned-score", "--mesh",
+                 "--multihost"):
         ap.add_argument(flag, action="store_true",
                         help="not ported yet; refused")
     ap.add_argument("--policy-eval-trace", default="",
                     help="not ported yet; refused")
     ap.add_argument("--coordinator", default="",
                     help="not ported yet; refused")
-    ap.add_argument("--audit-interval", type=float, default=0.0,
-                    help="not ported yet; refused when > 0")
-    ap.add_argument("--state-chaos", type=float, default=0.0,
-                    help="not ported yet; refused when > 0")
     ap.add_argument("--num-processes", type=int, default=None,
                     help="not ported yet; refused")
     ap.add_argument("--process-id", type=int, default=None,
@@ -259,6 +274,8 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
     ) if v is not None}
     if args.async_static:
         over["enable_async_static"] = True
+    if args.rebalance:
+        over["enable_rebalance"] = True
     if over:
         cfg = dataclasses.replace(cfg, **over)
     refusal = _unported(ap, args, cfg)
@@ -277,6 +294,12 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
               f"device queue depth {cfg.multicycle_queue_depth}, "
               f"bind coalesce window {cfg.bind_coalesce_window}, "
               f"bind max inflight {cfg.bind_max_inflight}",
+              file=sys.stderr)
+    if cfg.enable_rebalance:
+        print(f"rebalancer enabled: min gain "
+              f"{cfg.rebalance_min_gain}, budget "
+              f"{cfg.rebalance_evictions_per_hour} evictions/h, "
+              f"{cfg.rebalance_max_moves_per_cycle} moves/cycle",
               file=sys.stderr)
     if args.compilation_cache_dir:
         # Must precede the first launch, which builds the library.
@@ -347,6 +370,9 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
             loop.checkpoint_state = "ignored"
         elif restored._node_names == loop.encoder._node_names:
             loop.encoder = restored
+            if loop.rebalance is not None:
+                # Built with the loop on the encoder just replaced.
+                loop.rebalance.encoder = restored
             loop.checkpoint_state = "restored"
             print(f"restored checkpoint from {args.checkpoint_dir}",
                   file=sys.stderr)
@@ -457,6 +483,9 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
                 orch.run_cycle(budget=64)
                 for ev in orch.drain_quarantine_events():
                     a, b = ev["link"]
+                    if loop.rebalance is not None:
+                        loop.rebalance.note_link_event(
+                            a, b, "quarantine", int(ev["streak"]))
                     try:
                         loop.client.create_event(link_event(
                             src=a, dst=b, reason="LinkQuarantined",
@@ -476,6 +505,64 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
         threads.append(threading.Thread(target=probe_forever, daemon=True,
                                         name="probe-orchestrator"))
 
+    # State integrity & self-healing: the anti-entropy auditor re-derives
+    # truth from the staging arrays on its own thread and walks the
+    # repair ladder on digest drift; the chaos injector (opt-in, test and
+    # soak only) feeds it faults.
+    audit_interval = (args.audit_interval
+                      if args.audit_interval is not None
+                      else cfg.audit_interval_s)
+    auditor = None
+    if audit_interval > 0:
+        from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
+            IntegrityAuditor,
+        )
+
+        auditor = IntegrityAuditor(
+            loop.encoder, loop,
+            interval_s=audit_interval,
+            checkpoint_dir=args.checkpoint_dir or None,
+            watchdog_failures=cfg.audit_watchdog_failures,
+            crash_dump_path=(
+                os.path.join(args.checkpoint_dir,
+                             "integrity_dump.json")
+                if args.checkpoint_dir else "integrity_dump.json"))
+        loop.integrity = auditor
+        print(f"integrity auditor enabled: period {audit_interval}s",
+              file=sys.stderr)
+    # A fault of the device ends a background thread; shutdown raises it.
+    thread_errors: list[BaseException] = []
+    if args.state_chaos > 0:
+        from kubernetesnetawarescheduler_tpu_torch.core.state import (
+            is_device_error,
+        )
+        from kubernetesnetawarescheduler_tpu_torch.core.state_chaos import (
+            StateChaosInjector,
+        )
+
+        injector = StateChaosInjector(
+            loop.encoder, seed=args.seed, loop=loop,
+            checkpoint_dir=args.checkpoint_dir or None)
+        loop.state_chaos = injector
+
+        def chaos_forever() -> None:
+            while not stop.wait(args.state_chaos):
+                try:
+                    injector.inject_random()
+                except Exception as exc:  # noqa: BLE001
+                    if is_device_error(exc):
+                        thread_errors.append(exc)
+                        return
+                    print(f"WARNING: state-chaos injection failed: "
+                          f"{exc}", file=sys.stderr)
+
+        threads.append(threading.Thread(target=chaos_forever,
+                                        daemon=True,
+                                        name="state-chaos"))
+        print(f"STATE CHAOS enabled: one fault per "
+              f"{args.state_chaos}s (seed {args.seed})",
+              file=sys.stderr)
+
     def shutdown(signum, frame):
         stop.set()
 
@@ -489,6 +576,8 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
 
     for t in threads:
         t.start()
+    if auditor is not None:
+        auditor.start()
 
     # Main serving loop: drain any informer-fed queue work; extender-
     # path requests are served by the UDS/gRPC threads directly.  Every
@@ -527,6 +616,14 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
         raise
     finally:
         stop.set()
+        if auditor is not None:
+            # Before the checkpoint save below: a mid-audit repair
+            # mutating staging while save_checkpoint copies it would
+            # persist a half-repaired mirror.
+            try:
+                auditor.stop()
+            except Exception as exc:  # noqa: BLE001 — raised below
+                thread_errors.append(exc)
         for t in threads:
             t.join(timeout=5.0)
         if profiler is not None:
@@ -579,11 +676,14 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
         uds.stop()
         if grpc_server is not None:
             grpc_server.stop(grace=1.0)
+        handlers.close()
         close = getattr(loop.client, "close", None)
         if callable(close):
             close()
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
+    if thread_errors:
+        raise thread_errors[0]
     return 0
 
 

@@ -1,10 +1,11 @@
 """Self-metrics: Prometheus text exposition of the scheduler itself.
 
 The PyTorch package's copy of the JAX package's ``utils/selfmetrics.py``.
+The integrity auditor, state chaos and rebalancer families render when
+those layers are attached, with the JAX names, labels, HELP and TYPE.
 The families of layers the port does not have yet (placement quality,
-SLOs, the learned policy, rebalancing, the integrity auditor, state
-chaos, the topology model, the fleet) are absent, exactly as the JAX
-package renders them with those layers off.
+SLOs, the learned policy, the topology model, the fleet) are absent,
+exactly as the JAX package renders them with those layers off.
 
 The reference *consumes* Prometheus (node_exporter scrapes,
 scheduler.go:275-279) but exposes nothing about itself — its only
@@ -245,6 +246,51 @@ def render_metrics(loop) -> str:
               "Placement explain records currently retained "
               "(enable_explain)")
 
+    # State integrity & self-healing (core/integrity.py): audit cadence
+    # and the repair ladder's per-rung spend.  unrepaired_total > 0 is
+    # a page — the ladder exhausted itself and placements may be
+    # computed from corrupt state.
+    auditor = getattr(loop, "integrity", None)
+    if auditor is not None:
+        counter("netaware_integrity_audits_total",
+                float(auditor.audits_total),
+                "Anti-entropy audit passes (digest compare of device "
+                "planes vs shadow re-encode)")
+        counter("netaware_integrity_drift_total",
+                float(auditor.drift_detected_total),
+                "Audits that detected device/staging digest drift")
+        counter("netaware_integrity_drift_rows_total",
+                float(auditor.drift_rows_total),
+                "Total drifted rows localized across all audits")
+        counter("netaware_integrity_unrepaired_total",
+                float(auditor.unrepaired_total),
+                "Audits whose drift survived the FULL repair ladder")
+        counter("netaware_integrity_watchdog_dumps_total",
+                float(auditor.watchdog_dumps),
+                "Flight-recorder crash dumps fired by the stuck-audit "
+                "watchdog")
+        gauge("netaware_integrity_last_audit_ms",
+              float(auditor.last_audit_ms),
+              "Wall time of the most recent audit pass")
+        _register("netaware_integrity_repairs_total")
+        lines.append("# HELP netaware_integrity_repairs_total Repairs "
+                     "applied, by escalation-ladder rung")
+        lines.append("# TYPE netaware_integrity_repairs_total counter")
+        for rung, n in sorted(auditor.repairs.items()):
+            lines.append("netaware_integrity_repairs_total"
+                         f'{{rung="{rung}"}} {_fmt(float(n))}')
+    chaos = getattr(loop, "state_chaos", None)
+    if chaos is not None:
+        _register("netaware_state_faults_injected_total")
+        lines.append("# HELP netaware_state_faults_injected_total "
+                     "State-layer faults injected by the chaos "
+                     "injector, by class")
+        lines.append("# TYPE netaware_state_faults_injected_total "
+                     "counter")
+        for kind, n in sorted(chaos.injected.items()):
+            lines.append("netaware_state_faults_injected_total"
+                         f'{{fault="{kind}"}} {_fmt(float(n))}')
+
     # Extender webhook micro-batcher (api/extender._ScoreBatcher):
     # dispatch count exposes the coalescing rate (requests served /
     # dispatches = mean batch).
@@ -452,6 +498,95 @@ def render_metrics(loop) -> str:
                 lines.append(
                     f'netaware_pipeline_stage_ms{{stage="{stage}",'
                     f'stat="{stat[:-3]}"}} {_fmt(b[stat])}')
+
+    # Continuous rebalancing (core/rebalance.py): how often the
+    # descheduler acted, what held it back (the skip breakdown is the
+    # rebalance-storm runbook's first read), and the crash-safety
+    # canary — half_moved_gangs must stay 0 forever.
+    rb = getattr(loop, "rebalance", None)
+    if rb is not None:
+        rs = rb.summary()
+        counter("netaware_rebalance_scans_total",
+                float(rs["scans_total"]),
+                "Descheduler improvement scans over the bound-pod "
+                "ledger")
+        counter("netaware_rebalance_moves_total",
+                float(rs["moves_total"]),
+                "Live migrations staged in the migration ledger")
+        counter("netaware_rebalance_moves_completed_total",
+                float(rs["moves_completed"]),
+                "Migrations whose every member re-bound (ledger "
+                "entry cleared)")
+        counter("netaware_rebalance_moves_reverted_total",
+                float(rs["moves_reverted"]),
+                "Migrations reverted at their deadline (unbound "
+                "members rolled back)")
+        counter("netaware_rebalance_evictions_total",
+                float(rs["pods_evicted_total"]),
+                "Pods evicted by the rebalancer (the disruption the "
+                "eviction budget bounds)")
+        counter("netaware_rebalance_half_moved_gangs_total",
+                float(rs["half_moved_gangs"]),
+                "Gangs observed part-bound at a revert deadline — "
+                "MUST stay 0 (the migration ledger's atomicity "
+                "canary)")
+        counter("netaware_rebalance_pins_skipped_total",
+                float(rs["pins_skipped"]),
+                "Single-pod moves whose target pin could not land "
+                "(uid still committed when the pin was attempted) — "
+                "the move degrades to a bare eviction")
+        for key, help_txt in (
+                ("skipped_gain", "below the relative-gain bar"),
+                ("skipped_age", "younger than the placement-age "
+                                "floor"),
+                ("skipped_cooldown", "inside the per-pod move "
+                                     "cooldown"),
+                ("skipped_budget", "over the eviction budget"),
+                ("skipped_disruption", "blocked by a PDB-style "
+                                       "group floor")):
+            counter(f"netaware_rebalance_{key}_total",
+                    float(rs[key]),
+                    f"Rebalance candidates skipped: {help_txt}")
+        _register("netaware_rebalance_triggers_total")
+        lines.append("# HELP netaware_rebalance_triggers_total "
+                     "Executed moves by trigger source")
+        lines.append("# TYPE netaware_rebalance_triggers_total "
+                     "counter")
+        for trig in ("link", "regret", "drain"):
+            lines.append(
+                f'netaware_rebalance_triggers_total{{trigger='
+                f'"{trig}"}} {_fmt(float(rs["triggers_" + trig]))}')
+        gauge("netaware_rebalance_moves_inflight",
+              float(rs["moves_inflight"]),
+              "Migrations currently staged in the ledger (crash-safe "
+              "window)")
+        gauge("netaware_rebalance_last_scan_candidates",
+              float(rs["last_scan_candidates"]),
+              "Improvement candidates surviving hysteresis at the "
+              "last scan")
+        # Elastic gang reshaping: one labeled counter family by
+        # outcome, emitted only when the rebalancer's reshape block is
+        # enabled.
+        resh = rs.get("reshape")
+        if isinstance(resh, dict) and resh.get("enabled"):
+            _register("netaware_gang_reshape_total")
+            lines.append("# HELP netaware_gang_reshape_total "
+                         "Elastic gang reshapes by outcome "
+                         "(committed = new realization bound; "
+                         "reverted = settled back / degraded; "
+                         "half_shaped MUST stay 0)")
+            lines.append("# TYPE netaware_gang_reshape_total counter")
+            for outcome, val in (
+                    ("committed", resh["reshapes_completed"]),
+                    ("reverted", resh["reshapes_reverted"]),
+                    ("half_shaped", resh["half_shaped_gangs"])):
+                lines.append(
+                    f'netaware_gang_reshape_total{{outcome='
+                    f'"{outcome}"}} {_fmt(float(val))}')
+            gauge("netaware_gang_reshapes_inflight",
+                  float(resh["reshapes_inflight"]),
+                  "Reshapes currently staged in the reshape ledger "
+                  "(crash-safe window)")
 
     return "\n".join(lines) + "\n"
 

@@ -609,3 +609,77 @@ def test_prefetch_copy_is_exact(cuda):
         assert host.is_pinned() and host.device.type == "cpu"
         event.synchronize()
         np.testing.assert_array_equal(host.numpy(), src.cpu().numpy())
+
+
+def _robust_encoder(dev, n=40):
+    from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
+    from kubernetesnetawarescheduler_tpu_torch.k8s.types import Node
+
+    enc = Encoder(SchedulerConfig(max_nodes=48, max_pods=8, max_peers=2),
+                  device=dev)
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        enc.upsert_node(Node(name=f"n{i}",
+                             capacity={"cpu": 8.0, "memory": 32.0},
+                             labels={"zone": f"z{i % 3}"}))
+        enc.update_metrics(f"n{i}", {"cpu_util": float(rng.uniform(0, 1))})
+    lat = rng.uniform(0.1, 5.0, (n, n))
+    enc.set_network((lat + lat.T) / 2, rng.uniform(1e9, 1e10, (n, n)))
+    return enc
+
+
+@pytest.mark.parametrize("kind", ["delta_dup", "delta_reorder",
+                                  "nan_poison", "bit_flip"])
+def test_state_chaos_writes_out_of_place_on_card(cuda, kind):
+    """The injector's device write lands in a NEW tensor on the card: a
+    snapshot taken before it keeps its bits, and the auditor repairs the
+    fault at its cheapest rung."""
+    from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
+        PLANE_NAMES,
+        IntegrityAuditor,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.state_chaos import (
+        StateChaosInjector,
+    )
+
+    for seed in (11, 63, 105, 151):
+        enc = _robust_encoder(cuda)
+        before = enc.snapshot()
+        held = {n: getattr(before, n).clone() for n in PLANE_NAMES}
+        desc = StateChaosInjector(enc, seed=seed).inject(kind)
+        plane = desc["plane"]
+        assert enc._cache[plane].device.type == "cuda"
+        for n in PLANE_NAMES:
+            assert torch.equal(getattr(before, n).cpu().view(torch.uint8)
+                               if held[n].dtype != torch.bool
+                               else getattr(before, n).cpu(),
+                               held[n].cpu().view(torch.uint8)
+                               if held[n].dtype != torch.bool
+                               else held[n].cpu()), n
+        out = IntegrityAuditor(enc).audit_once()
+        assert not out["clean"] and out["repaired"]
+        assert out["rung"] == "repatch_rows"
+
+
+def test_rebalance_scan_on_card_equals_cpu(cuda):
+    from kubernetesnetawarescheduler_tpu_torch.core.rebalance import _scan
+
+    rng = np.random.default_rng(3)
+    n, b, k, r = 5120, 512, 4, 3
+    lat = rng.uniform(0.1, 5.0, (n, n)).astype(np.float32)
+    bw = rng.uniform(1e9, 1e10, (n, n)).astype(np.float32)
+    valid = rng.random(n) < 0.95
+    free = rng.uniform(0, 4, (n, r)).astype(np.float32)
+    chosen = rng.integers(0, n, b).astype(np.int32)
+    peers = rng.integers(-1, n, (b, k)).astype(np.int32)
+    traffic = rng.uniform(0.5, 9.0, (b, k)).astype(np.float32)
+    req = rng.uniform(0, 3, (b, r)).astype(np.float32)
+    args = (lat, bw, valid, free, chosen, peers, traffic, req)
+    w = SchedulerConfig().weights
+    cpu = _scan(*(torch.from_numpy(a) for a in args), w.peer_bw, w.peer_lat)
+    dev = _scan(*(torch.from_numpy(a).to(cuda) for a in args), w.peer_bw,
+                w.peer_lat)
+    torch.cuda.synchronize()
+    assert torch.equal(dev[2].cpu(), cpu[2])
+    assert torch.allclose(dev[0].cpu(), cpu[0], rtol=1e-4, atol=1e-4)
+    assert torch.allclose(dev[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)

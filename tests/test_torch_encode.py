@@ -230,5 +230,3 @@ def test_netmodel_blend_raises():
                           device="cpu")
     with pytest.raises(NotImplementedError, match="netmodel"):
         enc.attach_netmodel(object())
-    with pytest.raises(NotImplementedError, match="chaos"):
-        tfc.build_fake_cluster(tfc.ClusterSpec(num_nodes=4), chaos=1)

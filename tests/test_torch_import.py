@@ -61,6 +61,8 @@ _MODULES = {
     "bench.fakeapi", "ingest", "ingest.prometheus", "ingest.iperf",
     "ingest.native", "ingest.scraper", "ingest.probe", "k8s.kubeclient",
     "k8s.conformance", "serve", "__main__",
+    # Robustness: the auditor, the injectors and the rebalancer.
+    "core.rebalance", "core.state_chaos", "k8s.chaos",
 }
 
 

@@ -10,9 +10,9 @@ product in the port, a scatter in JAX).  The shapes are the JAX tests':
 ``tests/test_burst.py`` (48 nodes, ``max_nodes=64``, ``max_pods=16``, 96
 pods, seeds 51-53), ``tests/test_pipeline.py`` and
 ``tests/test_multicycle.py`` (K=2).  Also: the loop refuses unported
-layers at construction, ``run_density(mode="host")`` places what the JAX
-run places, and the queue, histogram and flight recorder units behave
-alike.
+layers at construction and builds the rebalancer when asked,
+``run_density(mode="host")`` places what the JAX run places, and the
+queue, histogram and flight recorder units behave alike.
 """
 
 from __future__ import annotations
@@ -175,8 +175,8 @@ def test_pallas_backend_serial_drive_matches_jax():
 
 
 @pytest.mark.parametrize("flag", ["enable_quality_obs", "enable_slo",
-                                  "enable_learned_score", "enable_rebalance",
-                                  "enable_netmodel", "mesh"])
+                                  "enable_learned_score", "enable_netmodel",
+                                  "mesh"])
 def test_unported_layer_refused_at_construction(flag):
     cfg_kw = dict(max_nodes=8, max_pods=4, max_peers=2)
     loop_kw = {}
@@ -189,6 +189,33 @@ def test_unported_layer_refused_at_construction(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.SchedulerLoop(cluster, TCfg(**cfg_kw), device="cpu",
                             **loop_kw)
+
+
+def test_rebalance_layer_built_at_construction():
+    """``enable_rebalance`` builds the port's rebalancer on the loop's
+    encoder and client, as the JAX loop does; off, there is none."""
+    from kubernetesnetawarescheduler_tpu_torch.core.rebalance import (
+        Rebalancer,
+    )
+
+    cluster = tfc.build_fake_cluster(tfc.ClusterSpec(num_nodes=4,
+                                                     seed=1))[0]
+    on = tloop.SchedulerLoop(cluster, TCfg(max_nodes=8, max_pods=4,
+                                           max_peers=2,
+                                           enable_rebalance=True),
+                             device="cpu")
+    off = tloop.SchedulerLoop(cluster, TCfg(max_nodes=8, max_pods=4,
+                                            max_peers=2), device="cpu")
+    try:
+        assert isinstance(on.rebalance, Rebalancer)
+        assert on.rebalance.encoder is on.encoder
+        assert on.rebalance.client is cluster
+        assert off.rebalance is None
+        on.maintain()
+        assert on.rebalance.scans_total == 1
+    finally:
+        on.stop_bind_worker()
+        off.stop_bind_worker()
 
 
 def test_loop_builds_on_cuda_by_default():

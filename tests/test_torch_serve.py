@@ -3,7 +3,10 @@
 checkpoint of another cluster ignored, the UDS server answering while the
 daemon runs, a ``kube:<url>`` drive against the port's fake API server,
 each flag or config field of an unported layer refused with its ROADMAP
-item, and ``--device`` defaulting to the card."""
+item, the robustness flags starting the auditor, the state-fault injector
+and the rebalancer, their ``/metrics`` families equal to the JAX
+package's (names, labels, HELP and TYPE), and ``--device`` defaulting to
+the card."""
 
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import os
 import subprocess
 import sys
 import threading
+import types
 from pathlib import Path
 
 import pytest
@@ -44,6 +48,31 @@ def test_once_saves_checkpoint_and_restart_restores(tmp_path, capsys):
     assert serve.main(_argv(tmp_path, "--checkpoint-dir", ckpt,
                             "--once")) == 0
     assert "restored checkpoint" in capsys.readouterr().err
+
+
+def test_restored_checkpoint_reaches_the_rebalancer(tmp_path, monkeypatch,
+                                                   capsys):
+    """A restart with ``--rebalance`` restores the checkpoint into the
+    loop AND its rebalancer, which was built on the replaced encoder."""
+    from kubernetesnetawarescheduler_tpu_torch.core import loop as tloop
+
+    loops = []
+    real_init = tloop.SchedulerLoop.__init__
+
+    def keep(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        loops.append(self)
+
+    monkeypatch.setattr(tloop.SchedulerLoop, "__init__", keep)
+    ckpt = str(tmp_path / "ckpt")
+    assert serve.main(_argv(tmp_path, "--checkpoint-dir", ckpt,
+                            "--once")) == 0
+    assert serve.main(_argv(tmp_path, "--checkpoint-dir", ckpt, "--once",
+                            "--rebalance")) == 0
+    assert "restored checkpoint" in capsys.readouterr().err
+    loop = loops[-1]
+    assert loop.checkpoint_state == "restored"
+    assert loop.rebalance.encoder is loop.encoder
 
 
 def test_checkpoint_of_another_cluster_is_ignored(tmp_path, capsys):
@@ -102,13 +131,10 @@ def test_kube_apiserver_drive_binds_the_pending_pod(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--quality-obs"], 12), (["--slo"], 12), (["--learned-score"], 12),
-    (["--policy-eval-trace", "t.jsonl"], 12), (["--rebalance"], 11),
-    (["--audit-interval", "5"], 11), (["--state-chaos", "1"], 11),
-    (["--mesh"], 15), (["--multihost"], 15),
+    (["--policy-eval-trace", "t.jsonl"], 12), (["--mesh"], 15), (["--multihost"], 15),
     (["--coordinator", "h:1"], 15), (["--num-processes", "2"], 15),
     (["--process-id", "0"], 15),
     ({"enable_netmodel": True}, 12), ({"enable_quality_obs": True}, 12),
-    ({"audit_interval_s": 3.0}, 11),
 ])
 def test_unported_layer_is_refused_before_anything_starts(tmp_path, capsys,
                                                           extra, item):
@@ -121,6 +147,120 @@ def test_unported_layer_is_refused_before_anything_starts(tmp_path, capsys,
     assert len(err) == 1
     assert f"ROADMAP Queue A item {item}" in err[0]
     assert not os.path.exists(tmp_path / "scorer.sock")
+
+
+def _metric(body: str, name: str, label: str = "") -> float:
+    """Sum of a family's samples (those carrying ``label`` if given)."""
+    total = 0.0
+    for ln in body.splitlines():
+        if ln.startswith(name) and ln[len(name):len(name) + 1] in " {":
+            if label in ln:
+                total += float(ln.rsplit(" ", 1)[1])
+    return total
+
+
+@pytest.mark.parametrize("extra,family", [
+    (["--rebalance"], "netaware_rebalance_scans_total"),
+    (["--audit-interval", "0.05"], "netaware_integrity_audits_total"),
+    (["--state-chaos", "0.05"], "netaware_state_faults_injected_total"),
+    ({"audit_interval_s": 0.05}, "netaware_integrity_audits_total"),
+])
+def test_robustness_flags_start_their_layers(tmp_path, extra, family):
+    """Each flag (or config field) starts its layer: the family shows on
+    ``/metrics`` with a count above 0 while the daemon runs, and the
+    daemon stops cleanly."""
+    if isinstance(extra, dict):
+        cfgp = tmp_path / "cfg.json"
+        cfgp.write_text(json.dumps(extra))
+        extra = ["--config", str(cfgp)]
+    uds = str(tmp_path / "scorer.sock")
+    stop = threading.Event()
+    result = {}
+    th = threading.Thread(
+        target=lambda: result.setdefault("rc", serve.main(
+            _argv(tmp_path, *extra), stop)), daemon=True)
+    th.start()
+    try:
+        body = ""
+        for _ in range(400):
+            if os.path.exists(uds):
+                body = call_uds(uds, "/metrics", b"").decode()
+                if _metric(body, family) > 0:
+                    break
+            stop.wait(0.05)
+        assert _metric(body, family) > 0, family
+        rb = json.loads(call_uds(uds, "/debug/rebalance", b""))
+        assert rb["enabled"] is (extra == ["--rebalance"])
+        if family == "netaware_integrity_audits_total":
+            assert _metric(body, "netaware_integrity_unrepaired_total") == 0
+    finally:
+        stop.set()
+        th.join(60.0)
+    assert not th.is_alive()
+    assert result.get("rc") == 0
+
+
+def _robust_metric_headers(pkg) -> list[str]:
+    """The ``# HELP``/``# TYPE`` lines and sample label sets of the
+    robustness families, after one audit, injections and a rebalancer
+    tick in either package."""
+    cluster, lat, bw = pkg.fc.build_fake_cluster(
+        pkg.fc.ClusterSpec(num_nodes=12, seed=3))
+    cfg = pkg.cfg(max_nodes=16, max_pods=8, max_peers=2,
+                  enable_rebalance=True, enable_gang_reshaping=True)
+    loop = pkg.loop(cluster, cfg, **pkg.kw)
+    try:
+        loop.encoder.set_network(lat, bw)
+        loop.integrity = pkg.integrity.IntegrityAuditor(loop.encoder, loop)
+        loop.state_chaos = pkg.chaos.StateChaosInjector(loop.encoder,
+                                                        seed=2, loop=loop)
+        loop.state_chaos.inject("delta_drop")
+        loop.integrity.audit_once()
+        loop.maintain()
+        body = pkg.metrics.render_metrics(loop)
+    finally:
+        loop.stop_bind_worker()
+    prefixes = ("netaware_integrity_", "netaware_state_faults_",
+                "netaware_rebalance_", "netaware_gang_reshape")
+    out = []
+    for ln in body.splitlines():
+        name = ln.split()[2] if ln.startswith("#") else ln.split("{")[0]
+        if not name.split()[0].startswith(prefixes):
+            continue
+        out.append(ln if ln.startswith("#") else ln.rsplit(" ", 1)[0])
+    return out
+
+
+def test_robustness_metric_families_match_jax():
+    from kubernetesnetawarescheduler_tpu.bench import fakecluster as jfc
+    from kubernetesnetawarescheduler_tpu.config import SchedulerConfig
+    from kubernetesnetawarescheduler_tpu.core import integrity as jint
+    from kubernetesnetawarescheduler_tpu.core import loop as jloop
+    from kubernetesnetawarescheduler_tpu.core import state_chaos as jsc
+    from kubernetesnetawarescheduler_tpu.utils import selfmetrics as jsm
+    from kubernetesnetawarescheduler_tpu_torch.bench import (
+        fakecluster as tfc,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.config import (
+        SchedulerConfig as TCfg,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import integrity as tint
+    from kubernetesnetawarescheduler_tpu_torch.core import loop as tloop
+    from kubernetesnetawarescheduler_tpu_torch.core import state_chaos as tsc
+    from kubernetesnetawarescheduler_tpu_torch.utils import (
+        selfmetrics as tsm,
+    )
+
+    want = _robust_metric_headers(types.SimpleNamespace(
+        fc=jfc, cfg=SchedulerConfig, loop=jloop.SchedulerLoop, kw={},
+        integrity=jint, chaos=jsc, metrics=jsm))
+    got = _robust_metric_headers(types.SimpleNamespace(
+        fc=tfc, cfg=TCfg, loop=tloop.SchedulerLoop, kw={"device": "cpu"},
+        integrity=tint, chaos=tsc, metrics=tsm))
+    assert got == want
+    types_ = [ln.split()[2] for ln in got if ln.startswith("# TYPE ")]
+    assert len(types_) == len(set(types_)) >= 20
+    assert "# TYPE netaware_gang_reshape_total counter" in got
 
 
 def test_device_defaults_to_the_card(tmp_path):
