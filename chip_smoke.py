@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's density replay, serving seam, scheduling
-loop, Score/Filter webhook, device-replay feeds and robustness layers on
-one NVIDIA GPU and check them.
+loop, Score/Filter webhook, device-replay feeds, robustness layers and
+learning layers on one NVIDIA GPU and check them.
 
 Run from the repository root:
 
@@ -141,6 +141,26 @@ csrc`` and prints one JSON object per phase:
                 --state-chaos 0.5 --rebalance`` for 10 s (its families on
                 ``/metrics`` once each, no unrepaired drift,
                 ``/debug/rebalance`` enabled, a clean shutdown).
+10. ``learn``   the learning layers at 5,120 nodes: the topology model
+                fit over ``LEARN_CYCLES`` probe cycles of 64 picked by the
+                EIG planner (the JAX suite's topology leg: ``BW_LAT``
+                weights, 36 Adam steps per refit), with the card's
+                ``_predict_dense`` equal to the CPU's (rtol 1e-5), the
+                blended snapshot equal to ``expected_device_arrays()``,
+                the static kernel on the blended planes equal to its
+                plain version, and 16 gangs of 8 judged on the sparse,
+                blended and oracle planes (reported); the ``loop`` phase's
+                backlog, burst and pipelined, with quality, SLO and policy
+                off and on (identical bindings), then pipelined with the
+                model attached (a clean audit, ``netmodel_blend`` explain
+                records, an outcome for every bound pod with a resolvable
+                peer, the harvest on the card equal to the CPU's, policy
+                steps and shadow ranks, every gate decision
+                ``no_replay_trace``, SLO evaluations); and the daemon with
+                ``--quality-obs --slo --learned-score`` and
+                ``enable_netmodel`` for 10 s (the families once each,
+                ``/debug/slo`` and ``/debug/policy``, a clean shutdown;
+                ``--policy-eval-trace`` refused, naming ROADMAP item 14).
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -2524,6 +2544,556 @@ def phase_robust():
     return info
 
 
+
+# The learning layers: the topology leg (1,024 nodes in the JAX suite,
+# here the serving width), its probe horizon, the Adam steps per refit,
+# and the gang workload judged on the sparse, blended and oracle planes.
+# The leg's horizon is 280 cycles; at 5,120 nodes a cycle costs 0.4-1 s
+# of host (the planner's selection over 13.1 M pairs, then the refit),
+# so the depth is cut to 96 to keep the phase under ≈150 s.
+LEARN_CYCLES, LEARN_BUDGET, LEARN_STEPS = 96, 64, 36
+LEARN_GANGS, LEARN_MEMBERS = 16, 8
+# The topology leg's score weights (the JAX suite's BW_LAT).
+BW_LAT = dict(cpu=0.5, mem=0.5, net_tx=0.0, net_rx=0.0, bandwidth=1.0,
+              disk=0.0, peer_bw=3.0, peer_lat=2.0, balance=0.5)
+
+
+def phase_learn():
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import threading
+
+    from kubernetesnetawarescheduler_tpu_torch import serve
+    from kubernetesnetawarescheduler_tpu_torch.api.server import call_uds
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        WorkloadSpec,
+        build_fake_cluster,
+        feed_metrics,
+        generate_gang_workload,
+        generate_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.config import (
+        SchedulerConfig,
+        ScoreWeights,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+    from kubernetesnetawarescheduler_tpu_torch.core.assign import (
+        assign_parallel,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
+    from kubernetesnetawarescheduler_tpu_torch.core.gang import (
+        gang_key_of,
+        mean_intra_gang_bw,
+        place_gang,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
+        IntegrityAuditor,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.core.state import (
+        commit_assignments,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.ingest.probe import (
+        FakeProber,
+        ProbeOrchestrator,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.netmodel import (
+        EIGProbePlanner,
+        TopologyModel,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.netmodel.model import (
+        TopoParams,
+        _predict_dense,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.obs import quality as qmod
+
+    t_phase = time.perf_counter()
+    errors: list[str] = []
+    card = nvidia_smi()
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    def counts() -> dict:
+        return {n: fn.launches for n, fn in K.KERNELS.items()}
+
+    def pct(xs) -> dict:
+        return ({"p50": float(np.percentile(xs, 50)),
+                 "p99": float(np.percentile(xs, 99))} if len(xs) else {})
+
+    def timed(obj, name: str, into: list) -> None:
+        """Wrap ``obj.name`` so each call's wall time lands in ``into``
+        (ms); the wrapped calls end with a host copy, so their device
+        work is inside."""
+        real = getattr(obj, name)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(obj, name, wrapper)
+
+    launches = {n: 0 for n in K.KERNELS}
+
+    # 1. The topology leg at the serving width.
+    tcfg = SchedulerConfig(max_nodes=NODES, max_pods=max(16, LEARN_MEMBERS),
+                           max_peers=PEERS, weights=ScoreWeights(**BW_LAT),
+                           enable_netmodel=True, netmodel_steps=LEARN_STEPS,
+                           score_backend="pallas")
+    cluster, lat, bw = build_fake_cluster(ClusterSpec(num_nodes=NODES,
+                                                      seed=SEED))
+    nodes = cluster.list_nodes()
+    names = [n.name for n in nodes]
+    enc = Encoder(tcfg, device="cuda")
+    dev = enc.device
+    for node in nodes:
+        enc.upsert_node(node)
+    feed_metrics(cluster, enc, np.random.default_rng(SEED + 1))
+    model = TopologyModel(tcfg, seed=SEED, device="cuda")
+    enc.attach_netmodel(model)
+    planner = EIGProbePlanner(model,
+                              explore_frac=tcfg.netmodel_explore_frac,
+                              seed=SEED)
+    orch = ProbeOrchestrator(enc, FakeProber(names, lat, bw, noise=0.02,
+                                             seed=SEED), names,
+                             planner=planner, model=model)
+    fit_ms: list = []
+    select_ms: list = []
+    timed(model, "fit", fit_ms)
+    timed(planner, "select_pairs", select_ms)
+    t0 = time.perf_counter()
+    for _ in range(LEARN_CYCLES):
+        orch.run_cycle(budget=LEARN_BUDGET)
+        orch.advance_clock(60.0)
+    probe_s = time.perf_counter() - t0
+    stale = orch.staleness()
+    steps = model.steps_total
+    check(steps == LEARN_CYCLES * LEARN_STEPS,
+          f"topology: {steps} Adam steps for {LEARN_CYCLES} cycles")
+    # predict: the card's dense planes, then their copy to the host; the
+    # plain CPU function at the same parameters.
+    with model._lock:
+        params = model._eval_params_locked()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_lat, d_bw = _predict_dense(params)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    h_lat, h_bw = d_lat.cpu(), d_bw.cpu()
+    t2 = time.perf_counter()
+    pred_dev_ms, pred_d2h_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    c_lat, c_bw = _predict_dense(TopoParams(*(p.cpu() for p in params)))
+    pred_err = max(float(((h_lat - c_lat).abs() / c_lat.abs()).max()),
+                   float(((h_bw - c_bw).abs() / c_bw.abs()).max()))
+    check(torch.allclose(h_lat, c_lat, rtol=1e-5, atol=0.0)
+          and torch.allclose(h_bw, c_bw, rtol=1e-5, atol=0.0),
+          f"topology: _predict_dense on the card differs from the CPU by "
+          f"{pred_err} (relative)")
+    del d_lat, d_bw, h_lat, h_bw, c_lat, c_bw
+    model._dense_version = -1
+    t0 = time.perf_counter()
+    model.predict()
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    lat_b, bw_b = model.blend(enc._lat, enc._bw)
+    blend_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    up = (torch.from_numpy(lat_b).to(dev), torch.from_numpy(bw_b).to(dev))
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    del up, lat_b, bw_b
+    enc.touch_net()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blended = enc.snapshot()
+    torch.cuda.synchronize()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    expected = enc.expected_device_arrays()
+    check(np.array_equal(blended.lat.cpu().numpy(), expected["lat"])
+          and np.array_equal(blended.bw.cpu().numpy(), expected["bw"]),
+          "topology: the blended snapshot's lat/bw differ from "
+          "expected_device_arrays()")
+    del expected
+    model.enabled = False
+    enc.touch_net()
+    sparse = enc.snapshot()
+    model.enabled = True
+    lat_pad = np.zeros((NODES, NODES), np.float32)
+    bw_pad = np.zeros((NODES, NODES), np.float32)
+    lat_pad[:len(names), :len(names)] = lat
+    bw_pad[:len(names), :len(names)] = bw
+    oracle = sparse.replace(lat=torch.from_numpy(lat_pad).to(dev),
+                            bw=torch.from_numpy(bw_pad).to(dev))
+    gpods = generate_gang_workload(num_gangs=LEARN_GANGS,
+                                   member_counts=(LEARN_MEMBERS,),
+                                   filler_pods=0, seed=SEED)
+    by_gang: dict = {}
+    for p in gpods:
+        by_gang.setdefault(gang_key_of(p), []).append(p)
+    armed: dict = {"on": False}
+    real_static = tiled_score.static_tile_scores
+
+    def capturing(pack, groups, pods, use_bfloat16, transposed=False,
+                  peers=None):
+        if armed["on"] and "args" not in armed:
+            armed["args"] = (pack, groups.clone(), pods, use_bfloat16)
+        return real_static(pack, groups, pods, use_bfloat16,
+                           transposed=transposed, peers=peers)
+
+    def judge(state) -> float:
+        static = tiled_score.compute_assign_static(state, tcfg)
+        st, vals = state, []
+        for key in sorted(by_gang):
+            members = by_gang[key]
+            batch = enc.encode_pods(members, lambda n: "")
+            a = place_gang(st, batch, tcfg, static, assign_parallel,
+                           len(members))
+            st = commit_assignments(st, batch,
+                                    torch.from_numpy(a).to(dev))
+            vals.append(mean_intra_gang_bw(bw, a[:len(members)]))
+        return float(np.mean(vals))
+
+    gang_bw = {}
+    tiled_score.static_tile_scores = capturing
+    try:
+        for label, state in (("sparse", sparse), ("blended", blended),
+                             ("oracle", oracle)):
+            armed["on"] = label == "blended"
+            K.reset_launch_counts()
+            gang_bw[label] = judge(state)
+            torch.cuda.synchronize()
+            c = counts()
+            for n, v in c.items():
+                launches[n] += v
+            check(c["static_scores_kernel"] >= LEARN_GANGS,
+                  f"topology {label}: {c['static_scores_kernel']} static "
+                  f"launches for {LEARN_GANGS} gangs")
+    finally:
+        tiled_score.static_tile_scores = real_static
+        armed["on"] = False
+    denom = gang_bw["oracle"] - gang_bw["sparse"]
+    gain = ((gang_bw["blended"] - gang_bw["sparse"]) / denom
+            if denom > 0 else 1.0)
+    kernel_check = {}
+    if "args" not in armed:
+        check(False, "topology: no static launch on the blended state")
+    else:
+        pack, groups, kpods, bf16 = armed["args"]
+        with uncounted():
+            raw_t, ok_t = K.static_tile_scores(pack, groups, kpods, bf16,
+                                               transposed=True)
+            raw, ok = K.static_tile_scores_plain(pack, groups, kpods, bf16)
+        torch.cuda.synchronize()
+        raw_t, ok_t = raw_t.T, ok_t.T
+        err = (float((raw_t[ok] - raw[ok]).abs().max())
+               if bool(ok.any()) else 0.0)
+        kernel_check = {"shape": list(raw_t.shape),
+                        "feasible": int(ok.sum()), "max_abs_err": err}
+        check(bool(ok.any()) and torch.equal(ok_t, ok) and torch.allclose(
+            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
+              f"topology: static kernel on the blended state differs from "
+              f"plain by {err}, mask on {int((ok_t != ok).sum())}")
+    p50, p99 = model.residual_quantiles()
+    topology = {
+        "nodes": NODES, "cycles": LEARN_CYCLES, "budget": LEARN_BUDGET,
+        "adam_steps": steps, "probe_wall_s": probe_s,
+        "fit_ms_per_step": float(np.sum(fit_ms)) / max(steps, 1),
+        "fit_ms": pct(fit_ms), "planner_select_ms": pct(select_ms),
+        "predict_device_ms": pred_dev_ms, "predict_d2h_ms": pred_d2h_ms,
+        "coverage": stale["coverage_fraction"],
+        "pairs_observed": model.pairs_observed,
+        "residual_p50": p50, "residual_p99": p99,
+        "predict_vs_cpu_max_rel_err": pred_err,
+        "predict_ms": predict_ms, "blend_host_ms": blend_ms,
+        "net_upload_ms": upload_ms, "blended_snapshot_ms": snapshot_ms,
+        "gang_bw": gang_bw, "gain_ratio": gain,
+        "static_kernel_vs_plain": kernel_check}
+    del sparse, oracle, blended
+
+    # 2. The loop with the layers on: the loop phase's backlog in arrival
+    # waves, a maintain() after each (every interval ~0, so each one
+    # harvests, evaluates the SLOs, trains and shadow-ranks).
+    lcfg = SchedulerConfig(max_nodes=NODES, max_pods=BATCH, max_peers=PEERS,
+                           score_backend="pallas",
+                           queue_capacity=LOOP_PODS + BATCH,
+                           enable_explain=True)
+    on = dataclasses.replace(
+        lcfg, enable_quality_obs=True, enable_slo=True,
+        enable_learned_score=True, quality_harvest_interval_s=1e-6,
+        slo_eval_interval_s=1e-6, policy_train_interval_s=1e-6,
+        policy_eval_interval_s=1e-6)
+    real_batches = -(-LOOP_PODS // BATCH)
+    captured: dict = {}
+    real_eval = qmod._evaluate
+
+    def keep_eval(*args):
+        captured.setdefault("args", args)
+        return real_eval(*args)
+
+    def drive(cfg, loop_kw, attach=None):
+        cluster, lat_, bw_ = build_fake_cluster(ClusterSpec(num_nodes=NODES,
+                                                            seed=SEED))
+        loop = SchedulerLoop(cluster, cfg, method="parallel", device="cuda",
+                             **loop_kw)
+        loop.encoder.set_network(lat_, bw_)
+        feed_metrics(cluster, loop.encoder, np.random.default_rng(SEED + 3))
+        if attach is not None:
+            loop.encoder.attach_netmodel(attach)
+        harvest_ms: list = []
+        train_ms: list = []
+        if loop.quality is not None:
+            timed(loop.quality, "harvest", harvest_ms)
+        if loop.policy is not None:
+            timed(loop, "_policy_train_tick", train_ms)
+        pods = generate_workload(
+            WorkloadSpec(num_pods=LOOP_PODS, seed=SEED + 5, services=8,
+                         peer_fraction=0.5, affinity_fraction=0.1,
+                         anti_fraction=0.1),
+            scheduler_name=cfg.scheduler_name)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for start in range(0, len(pods), ROBUST_CHUNK):
+                cluster.add_pods(pods[start:start + ROBUST_CHUNK])
+                loop.run_once()
+                loop.maintain()
+            loop.run_until_drained()
+            loop.flush_binds()
+            loop.maintain()
+            torch.cuda.synchronize()
+        finally:
+            loop.stop_bind_worker()
+        wall = time.perf_counter() - t0
+        c = counts()
+        for n, v in c.items():
+            launches[n] += v
+        check(c["static_scores_kernel"] >= real_batches,
+              f"loop drive: {c['static_scores_kernel']} static launches "
+              f"for {real_batches} batches")
+        spans = [sp.dur_s * 1e3 for sp in loop.flight.spans()]
+        return cluster, loop, pods, {
+            "bindings": {b.pod_name: b.node_name for b in cluster.bindings},
+            "scheduled": loop.scheduled, "wall_s": wall,
+            "cycle_ms": pct(spans), "launches": c,
+            "harvest_ms": pct(harvest_ms), "train_tick_ms": pct(train_ms)}
+
+    identity = {}
+    for path, kw in (("burst", dict(burst_batches=8)),
+                     ("pipelined", dict(burst_batches=8, pipelined=True))):
+        _, _, _, off_run = drive(lcfg, kw)
+        _, lp, _, on_run = drive(on, kw)
+        check(off_run["bindings"] == on_run["bindings"],
+              f"{path}: bindings differ with quality, SLO and policy on "
+              f"({sum(off_run['bindings'].get(k) != v for k, v in on_run['bindings'].items())} pods)")
+        check(on_run["scheduled"] > 0, f"{path}: nothing bound")
+        check(lp.quality.harvested_total > 0 and lp.policy.steps_total > 0
+              and lp.slo.evaluations_total > 0,
+              f"{path}: a layer did not run ({lp.quality.summary()}, "
+              f"{lp.policy.steps_total} policy steps)")
+        identity[path] = {
+            "scheduled": on_run["scheduled"],
+            "cycle_ms": {"off": off_run["cycle_ms"],
+                         "on": on_run["cycle_ms"]},
+            "wall_s": {"off": off_run["wall_s"], "on": on_run["wall_s"]},
+            "harvest_ms": on_run["harvest_ms"],
+            "train_tick_ms": on_run["train_tick_ms"]}
+
+    # The same backlog, pipelined, with the topology model of (1) blending
+    # the loop's net planes.
+    qmod._evaluate = keep_eval
+    try:
+        cluster, loop, pods, run = drive(
+            on, dict(burst_batches=8, pipelined=True), attach=model)
+    finally:
+        qmod._evaluate = real_eval
+    auditor = IntegrityAuditor(loop.encoder, loop)
+    audit = auditor.audit_once()
+    check(audit["clean"], f"blended loop: the audit found drift "
+          f"{sorted(audit['drift'])} {sorted(audit['staging'])}")
+    recs = loop.flight.explains()
+    prov = sorted({r["provenance"]["network"] for r in recs})
+    check(prov == ["netmodel_blend"], f"blended loop: explain provenance "
+          f"{prov}")
+    # An outcome for every bound pod with a resolvable peer (the
+    # pipelined path notes some pods twice, in both packages, so the
+    # counters are not compared with the pod count).
+    q = loop.quality.summary()
+    bound = {b.pod_name for b in cluster.bindings}
+
+    def resolvable(pod) -> bool:
+        for peer in pod.peers:
+            node = loop._peer_node(peer)
+            if node and loop.encoder.node_slot(node) is not None:
+                return True
+        return False
+
+    want = {p.uid for p in pods if p.name in bound and resolvable(p)}
+    got = {o["pod_uid"] for o in loop.quality.outcomes()}
+    check(q["pending"] == 0 and want == got and got,
+          f"blended loop: {len(got)} outcomes for {len(want)} bound pods "
+          f"with a resolvable peer ({q})")
+    pol = loop.policy
+    check(pol.steps_total > 0, "blended loop: no policy step")
+    check(pol.shadow_agree_total + pol.shadow_disagreement_total > 0,
+          "blended loop: nothing shadow-ranked")
+    check(pol.evals_total > 0 and pol.rejections_total == pol.evals_total
+          and pol.promotions_total == 0,
+          f"blended loop: {pol.evals_total} evals, {pol.rejections_total} "
+          f"rejections, {pol.promotions_total} promotions")
+    check(loop.slo.evaluations_total > 0, "blended loop: no SLO evaluation")
+    harvest_check = {}
+    if "args" not in captured:
+        check(False, "blended loop: no harvest was captured")
+    else:
+        args = captured["args"]
+        dev_out = real_eval(*args)
+        cpu_out = real_eval(*(a.cpu() if torch.is_tensor(a) else a
+                              for a in args))
+        torch.cuda.synchronize()
+        harvest_check = {
+            "pods": int(args[3].shape[0]),
+            "max_rel_err": max(float(((dev_out[i].cpu() - cpu_out[i]).abs()
+                                      / cpu_out[i].abs().clamp_min(1e-30))
+                                     .max()) for i in range(7))}
+        check(all(torch.allclose(dev_out[i].cpu(), cpu_out[i], rtol=1e-5,
+                                 atol=1e-6) for i in range(7))
+              and torch.equal(dev_out[7].cpu(), cpu_out[7]),
+              f"blended loop: harvest on the card differs from the CPU by "
+              f"{harvest_check['max_rel_err']}")
+    blended_loop = {
+        "scheduled": run["scheduled"], "wall_s": run["wall_s"],
+        "cycle_ms": run["cycle_ms"], "launches": run["launches"],
+        "harvest_ms": run["harvest_ms"],
+        "train_tick_ms": run["train_tick_ms"],
+        "audit_ms": auditor.last_audit_ms,
+        "explain_records": len(recs), "quality": q,
+        "policy": {k: pol.summary()[k] for k in (
+            "steps_total", "examples_total", "version", "evals_total",
+            "rejections_total", "promotions_total", "shadow_agree_total",
+            "shadow_disagreement_total")},
+        "slo_evaluations": loop.slo.evaluations_total,
+        "harvest_vs_cpu": harvest_check}
+    del cluster, loop
+
+    # 3. The daemon with every learning layer for DAEMON_S seconds.
+    build_dir = (Path(__file__).resolve().parent
+                 / "kubernetesnetawarescheduler_tpu_torch" / "_build")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        dsock = os.path.join(tmp, "learn.sock")
+        cfgp = os.path.join(tmp, "config.json")
+        with open(cfgp, "w") as fh:
+            json.dump({"max_nodes": NODES, "max_pods": BATCH,
+                       "max_peers": PEERS, "score_backend": "pallas",
+                       "enable_explain": True, "enable_netmodel": True}, fh)
+        base_argv = ["--cluster", f"fake:{NODES}", "--uds", dsock,
+                     "--config", cfgp, "--device", "cuda", "--quality-obs",
+                     "--slo", "--learned-score"]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            refused = serve.main(base_argv + ["--policy-eval-trace", "x",
+                                              "--once"])
+        check(refused == 2 and "ROADMAP Queue A item 14" in err.getvalue(),
+              f"--policy-eval-trace: rc {refused}, {err.getvalue()[-300:]}")
+        stop = threading.Event()
+        outcome: dict = {}
+
+        def run_daemon():
+            try:
+                outcome["rc"] = serve.main(
+                    base_argv + ["--probe-period-s", "1"], stop)
+            except BaseException as exc:  # noqa: BLE001 - checked below
+                outcome["error"] = repr(exc)
+
+        before = {t.name for t in threading.enumerate()}
+        th = threading.Thread(target=run_daemon, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        daemon: dict = {}
+        try:
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline and th.is_alive():
+                if os.path.exists(dsock):
+                    break
+                time.sleep(0.1)
+            daemon["start_s"] = time.perf_counter() - t0
+            if not os.path.exists(dsock):
+                fail("learn", f"the daemon did not start: {outcome}")
+            time.sleep(DAEMON_S)
+            metrics = call_uds(dsock, "/metrics", b"").decode()
+            slo_doc = json.loads(call_uds(dsock, "/debug/slo", b""))
+            pol_doc = json.loads(call_uds(dsock, "/debug/policy", b""))
+        finally:
+            stop.set()
+            th.join(timeout=120)
+        for _ in range(50):
+            alive = [t.name for t in threading.enumerate()
+                     if t.name not in before and t.is_alive()]
+            if not alive:
+                break
+            time.sleep(0.1)
+        types_ = [ln.split()[2] for ln in metrics.splitlines()
+                  if ln.startswith("# TYPE ")]
+
+        def value(name: str) -> float:
+            return sum(float(ln.rsplit(" ", 1)[1])
+                       for ln in metrics.splitlines()
+                       if ln.startswith(name)
+                       and ln[len(name):len(name) + 1] in " {")
+
+        for fam in ("netaware_netmodel_sgd_steps_total",
+                    "netaware_netmodel_pair_coverage_fraction",
+                    "netaware_netmodel_probe_selection_entropy_bits",
+                    "netaware_quality_outcomes_total",
+                    "netaware_quality_regret",
+                    "netaware_slo_evaluations_total",
+                    "netaware_slo_burn_rate",
+                    "netaware_policy_train_steps_total",
+                    "netaware_policy_version"):
+            check(types_.count(fam) == 1,
+                  f"daemon /metrics: {fam} TYPE x{types_.count(fam)}")
+        check(len(types_) == len(set(types_)),
+              "daemon /metrics repeats a # TYPE family")
+        check(slo_doc.get("slo", {}).get("evaluations_total", 0) >= 0
+              and "objectives" in slo_doc.get("slo", {})
+              and "harvested_total" in slo_doc.get("quality", {}),
+              f"/debug/slo: {str(slo_doc)[:300]}")
+        check(pol_doc.get("enabled") is True and "dataset" in pol_doc,
+              f"/debug/policy: {str(pol_doc)[:300]}")
+        check(not th.is_alive(), "the daemon did not stop")
+        check(outcome.get("rc") == 0 and "error" not in outcome,
+              f"daemon shutdown: {outcome}")
+        check(not alive, f"threads left running: {alive}")
+        daemon.update({
+            "seconds": DAEMON_S,
+            "netmodel_steps": value("netaware_netmodel_sgd_steps_total"),
+            "netmodel_coverage":
+                value("netaware_netmodel_pair_coverage_fraction"),
+            "slo_evaluations": value("netaware_slo_evaluations_total"),
+            "policy_steps": value("netaware_policy_train_steps_total"),
+            "metric_families": len(types_)})
+
+    info = {"phase": "learn", "nodes": NODES, "batch": BATCH, "card": card,
+            "topology": topology, "identity": identity,
+            "blended_loop": blended_loop, "daemon": daemon,
+            "launches": launches, "seconds": time.perf_counter() - t_phase}
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("learn", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2561,6 +3131,7 @@ def main() -> int:
     webhook_res = run_phase("webhook", phase_webhook)
     feed_res = run_phase("feed", phase_feed)
     robust_res = run_phase("robust", phase_robust)
+    learn_res = run_phase("learn", phase_learn)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -2576,7 +3147,8 @@ def main() -> int:
     # winner, the webhook's Score/Filter drive for the masked kernel.  The
     # scheduling loop (its four identity drives) runs the static kernel
     # and its compaction, and so do the feed phase's headline drain and
-    # the robust phase's loop drives (identity, rebalance, reshape).
+    # the robust phase's loop drives (identity, rebalance, reshape), and
+    # the learn phase's gang placements and loop drives.
     path_of = {"static_scores_kernel": "main",
                "masked_scores_kernel": "webhook",
                "winner_scores_kernel": "serve",
@@ -2585,7 +3157,8 @@ def main() -> int:
                "loop": loop_res["launches"],
                "webhook": webhook_res["launches"],
                "feed": feed_res["launches"],
-               "robust": robust_res["launches"]}
+               "robust": robust_res["launches"],
+               "learn": learn_res["launches"]}
     rows = []
     for kname in K.KERNELS:
         r = kres[prec][kname]

@@ -426,12 +426,10 @@ def _round_pow2(n: int) -> int:
     return size
 
 
-# /debug pages of layers the port does not have, and /debug/rebalance
-# of a loop without a rebalancer: the JAX package's answers with those
-# layers off.
+# /debug pages of layers the port does not have (the fleet, ROADMAP
+# Queue A item 13), and /debug/rebalance and /debug/policy of a loop
+# without those layers: the JAX package's answers with them off.
 _LAYER_OFF = {
-    "/debug/slo": {"slo": {"enabled": False},
-                   "quality": {"enabled": False}},
     "/debug/policy": {"enabled": False},
     "/debug/fleet": {"enabled": False},
     "/debug/rebalance": {"enabled": False},
@@ -518,6 +516,31 @@ class ExtenderHandlers:
             rb = getattr(self._loop, "rebalance", None)
             if rb is not None:
                 return self._json(rb.summary())
+        if path == "/debug/slo":
+            # The SLO engine's full burn-rate state plus the quality
+            # observer's outcome stats.
+            slo = getattr(self._loop, "slo", None)
+            quality = getattr(self._loop, "quality", None)
+            return self._json({
+                "slo": (slo.snapshot() if slo is not None
+                        else {"enabled": False}),
+                "quality": (quality.summary() if quality is not None
+                            else {"enabled": False}),
+            })
+        if path == "/debug/policy":
+            # The learned scoring policy's full state: term multipliers
+            # (EMA read), ring/training counters, shadow disagreement,
+            # the last promotion's gate decision, and the dataset join
+            # counters (an empty ring is attributable).
+            policy = getattr(self._loop, "policy", None)
+            if policy is not None:
+                out = policy.summary()
+                ds = getattr(self._loop, "policy_dataset", None)
+                out["dataset"] = (ds.summary() if ds is not None
+                                  else None)
+                out["eval_trace"] = getattr(self._loop,
+                                            "policy_eval_trace", None)
+                return self._json(out)
         if path in _LAYER_OFF:
             return self._json(_LAYER_OFF[path])
         raise ValueError(f"unknown op {path!r}")
@@ -526,16 +549,24 @@ class ExtenderHandlers:
         """Readiness with degraded-mode visibility: the breaker state
         (open = degraded: scoring/encode continue, binds parked), the
         checkpoint-restore decision ("fresh" | "restored" | "ignored"),
-        and the recovery counters.  ``ready`` stays true while degraded;
-        the SLO engine is not ported, so ``slo_burning`` is empty."""
+        and the recovery counters.  ``ready`` stays true while degraded.
+        A burning SLO degrades readiness the same way an open breaker
+        does, and the burning objectives are named."""
         loop = self._loop
         breaker = loop.breaker
         state = breaker.state if breaker is not None else "closed"
+        slo = getattr(loop, "slo", None)
+        burning: tuple = ()
+        if slo is not None:
+            try:
+                burning = slo.burning()
+            except Exception:  # noqa: BLE001 — readiness never 500s
+                burning = ()
         return {
             "ready": True,
-            "degraded": state == "open",
+            "degraded": state == "open" or bool(burning),
             "breaker": state,
-            "slo_burning": [],
+            "slo_burning": list(burning),
             "checkpoint": loop.checkpoint_state,
             "parked_binds": len(loop._parked_binds),
             "watch_gaps": int(loop.watch_gaps),

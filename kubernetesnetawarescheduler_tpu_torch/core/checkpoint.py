@@ -6,8 +6,8 @@ staging and ledger, which the port keeps as they are, so the files are
 byte-compatible: a checkpoint saved by either package loads in the
 other.  The learned layers that ride beside the encoder state (the
 topology model's ``netmodel.npz`` and the scoring policy's
-``policy.npz``) need ``netmodel/`` and ``policy/`` (ROADMAP Queue A item
-12); their paths raise :class:`NotImplementedError` until then.
+``policy.npz``) keep the JAX files' keys, dtypes and shapes, so they
+load across packages too.
 
 The reference has NO persistence: its only state is the in-memory pod
 channel plus the last scraped values, so a scheduler restart loses every
@@ -263,10 +263,12 @@ def save_checkpoint(path: str, encoder: Encoder,
     """Write the encoder's full staging state (the host mirror of the
     HBM matrices) + naming/interning tables under ``path``.
 
-    ``policy`` is the learned scoring policy, which this package does
-    not have yet (ROADMAP Queue A item 12): anything but None raises
-    :class:`NotImplementedError`, as does an encoder with a topology
-    model attached.
+    ``policy``, when given, is the loop's learned
+    :class:`~kubernetesnetawarescheduler_tpu_torch.policy.ScoringPolicy`:
+    its parameters/optimizer/example ring land in ``policy.npz``
+    beside the encoder state, and the promotion provenance rides the
+    manifest-verified meta.  An attached topology model lands in
+    ``netmodel.npz``.
 
     ``extra_meta`` (r15): caller-owned top-level meta entries — the
     fleet server stamps ``{"fleet": {"cluster_id": ...}}`` so a
@@ -283,11 +285,6 @@ def save_checkpoint(path: str, encoder: Encoder,
     ``last_retired_cycle`` by construction, and the unretired waves'
     pods re-arrive Pending through the informer resync.  Optional
     key, read via .get: no format bump."""
-    if policy is not None or encoder.netmodel is not None:
-        raise NotImplementedError(
-            "checkpointing a learned policy or topology model needs "
-            "policy/ and netmodel/ (ROADMAP Queue A item 12), which are "
-            "not ported yet")
     os.makedirs(path, exist_ok=True)
     with encoder._lock:
         # Deep copies under the lock: serialization happens after the
@@ -374,6 +371,12 @@ def save_checkpoint(path: str, encoder: Encoder,
                 for key, (ml, exprs)
                 in encoder._selector_defs.items()},
         }
+    if policy is not None:
+        meta["policy"] = {
+            "version": int(policy.version),
+            "promoted_version": int(policy.promoted_version),
+            "last_promotion": policy.last_promotion,
+        }
     if extra_meta:
         clash = set(extra_meta) & set(meta)
         if clash:
@@ -396,6 +399,17 @@ def save_checkpoint(path: str, encoder: Encoder,
               encoding="utf-8") as fh:
         json.dump(meta, fh, indent=2)
     payload = ["state.npz", "meta.json"]
+    # Learned topology model: beside the encoder state, so restarts
+    # resume learning.  Written only when attached; a stale file from a
+    # since-detached model is dropped from the manifest and removed
+    # post-commit so restore cannot resurrect it.
+    if encoder.netmodel is not None:
+        encoder.netmodel.save(os.path.join(staging, "netmodel.npz"))
+        payload.append("netmodel.npz")
+    # Learned scoring policy: same attach-only discipline.
+    if policy is not None:
+        policy.save(os.path.join(staging, "policy.npz"))
+        payload.append("policy.npz")
     manifest = {
         "format_version": FORMAT_VERSION,
         "files": {name: _sha256_file(os.path.join(staging, name))
@@ -428,10 +442,12 @@ def save_checkpoint(path: str, encoder: Encoder,
                    os.path.join(path, name))
     os.replace(os.path.join(staging, MANIFEST),
                os.path.join(path, MANIFEST))
-    # A learned layer's file from an earlier save (by the JAX package)
-    # is off the new manifest; remove it so restore cannot resurrect it.
+    # A learned layer's file from an earlier save is off the new
+    # manifest when its layer is gone; remove it so restore cannot
+    # resurrect it.
     for stale in ("netmodel.npz", "policy.npz"):
-        if os.path.exists(os.path.join(path, stale)):
+        if stale not in payload and os.path.exists(
+                os.path.join(path, stale)):
             os.remove(os.path.join(path, stale))
     shutil.rmtree(staging, ignore_errors=True)
 
@@ -454,7 +470,8 @@ def load_checkpoint(path: str,
     (:class:`ValueError`) rather than deserialize garbage into hard
     allocation constraints.  Legacy checkpoints (no manifest) load
     exactly as before.  A config that wants the learned topology model
-    (``enable_netmodel``) raises :class:`NotImplementedError`."""
+    (``enable_netmodel``) gets it from ``netmodel.npz`` when the set
+    carries one, on the encoder's device."""
     path = resolve_checkpoint_dir(path)
     with open(os.path.join(path, "meta.json"), encoding="utf-8") as fh:
         meta = json.load(fh)
@@ -475,10 +492,6 @@ def load_checkpoint(path: str,
             "config shapes do not match checkpoint: "
             f"{(cfg.max_nodes, cfg.num_metrics, cfg.num_resources, cfg.mask_words)} vs "
             f"{(stored_cfg.max_nodes, stored_cfg.num_metrics, stored_cfg.num_resources, stored_cfg.mask_words)}")
-    if cfg.enable_netmodel:
-        raise NotImplementedError(
-            "restoring the learned topology model needs netmodel/ "
-            "(ROADMAP Queue A item 12), which is not ported yet")
     enc = Encoder(cfg, device=device)
     with np.load(os.path.join(path, "state.npz")) as data:
         for name in _STATE_ARRAYS:
@@ -640,22 +653,55 @@ def load_checkpoint(path: str,
               f"unretired): restoring to last retired cycle "
               f"{mc.get('last_retired_cycle')}; unretired waves' pods "
               "re-arrive Pending via resync", file=sys.stderr)
+    # Learned topology model: restore beside the encoder when the
+    # config wants one and the checkpoint carries it.  A shape mismatch
+    # (dims/rank/max_nodes changed) starts the model fresh rather than
+    # failing the whole restore — the encoder state is still good.
+    npz = os.path.join(path, "netmodel.npz")
+    if cfg.enable_netmodel and os.path.exists(npz):
+        from kubernetesnetawarescheduler_tpu_torch.netmodel import (
+            TopologyModel,
+        )
+
+        try:
+            enc.attach_netmodel(TopologyModel.load(npz, cfg,
+                                                   device=enc.device))
+        except ValueError as exc:
+            import sys
+
+            print(f"WARNING: netmodel checkpoint not restored: {exc}; "
+                  "starting with a fresh model", file=sys.stderr)
+            enc.attach_netmodel(TopologyModel(cfg, device=enc.device))
     # Everything is freshly loaded: first snapshot() must upload all.
     for key in enc._dirty:
         enc._dirty[key] = True
     return enc
 
 
-def load_policy(path: str, cfg: SchedulerConfig, seed: int = 0):
+def load_policy(path: str, cfg: SchedulerConfig, seed: int = 0,
+                device="cuda"):
     """Restore the learned scoring policy saved beside the encoder
-    state: None when the config does not want one; otherwise it needs
-    ``policy/`` (ROADMAP Queue A item 12) and raises
-    :class:`NotImplementedError`."""
+    state, on ``device``.  Returns None when the config does not want
+    one or the checkpoint carries none; a shape mismatch (explain_top_k
+    / max_zones / policy_ring changed) starts the policy fresh rather
+    than failing — same degradation contract as the netmodel
+    restore."""
     if not cfg.enable_learned_score:
         return None
-    raise NotImplementedError(
-        "restoring the learned scoring policy needs policy/ (ROADMAP "
-        "Queue A item 12), which is not ported yet")
+    path = resolve_checkpoint_dir(path)
+    npz = os.path.join(path, "policy.npz")
+    if not os.path.exists(npz):
+        return None
+    from kubernetesnetawarescheduler_tpu_torch.policy import ScoringPolicy
+
+    try:
+        return ScoringPolicy.load(npz, cfg, seed=seed, device=device)
+    except ValueError as exc:
+        import sys
+
+        print(f"WARNING: policy checkpoint not restored: {exc}; "
+              "starting with a fresh policy", file=sys.stderr)
+        return ScoringPolicy(cfg, seed=seed, device=device)
 
 
 def replay_decisions(encoder: Encoder, pods: Sequence,

@@ -19,9 +19,11 @@ source, and ``.to("cpu")`` returns the same tensor, so a snapshot would
 otherwise alias staging); delta patches are out-of-place ``index_put``
 calls, so snapshots already handed out stay readable; u32 mask words
 travel as int32 with the same bits.  The constructor takes the device
-(default ``"cuda"``, raising without a card).  The learned topology
-model's blend (``attach_netmodel``) needs ``netmodel/``, which this
-package does not have yet, and raises.
+(default ``"cuda"``, raising without a card).  With a learned topology
+model attached (``attach_netmodel``) the net group's snapshot is the
+model's host blend of the staging planes, uploaded whole, and
+``expected_device_arrays()`` routes the staging planes through the same
+blend.
 """
 
 from __future__ import annotations
@@ -1073,13 +1075,11 @@ class Encoder:
             self._mark_full("net")
 
     def attach_netmodel(self, model) -> None:
-        """Attach a learned topology model, whose predictions the net
-        snapshot would blend.  Needs ``netmodel/`` (ROADMAP Queue A,
-        item 12), which this package does not have yet: raises rather
-        than silently skipping the blend."""
-        raise NotImplementedError(
-            "attach_netmodel needs netmodel/ (ROADMAP Queue A item 12), "
-            "which is not ported yet")
+        """Attach a :class:`~..netmodel.TopologyModel`; the next net
+        snapshot flush blends its predictions (if enabled)."""
+        with self._lock:
+            self.netmodel = model
+            self._mark_full("net")
 
     def touch_net(self) -> None:
         """Mark the net group dirty without a probe write — used after
@@ -1601,9 +1601,12 @@ class Encoder:
                     self._rows_up("metrics_age", idx, self._metrics_age)
             if self._dirty["net"]:
                 if net_blend:
-                    raise NotImplementedError(
-                        "the netmodel blend needs netmodel/ (ROADMAP "
-                        "Queue A item 12), which is not ported yet")
+                    # The blend mixes every element: the whole group
+                    # goes up, through the same function as
+                    # expected_device_arrays().
+                    lat_host, bw_host = model.blend(self._lat, self._bw)
+                    self._full_up("lat", lat_host)
+                    self._full_up("bw", bw_host)
                 else:
                     pairs = self._dirty_pairs
                     # Empty pair set with the net flag up: boolean-only
@@ -1679,10 +1682,11 @@ class Encoder:
         with self._lock:
             model = self.netmodel
             if model is not None and model.enabled:
-                raise NotImplementedError(
-                    "the netmodel blend needs netmodel/ (ROADMAP Queue A "
-                    "item 12), which is not ported yet")
-            lat, bw = self._lat.copy(), self._bw.copy()
+                lat, bw = model.blend(self._lat, self._bw)
+                lat = np.asarray(lat, np.float32)
+                bw = np.asarray(bw, np.float32)
+            else:
+                lat, bw = self._lat.copy(), self._bw.copy()
             used = (self._used + self._reserved if self._nominations
                     else self._used.copy())
             return {

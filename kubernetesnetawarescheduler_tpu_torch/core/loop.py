@@ -12,12 +12,13 @@ reconcile paths.  What differs from the JAX loop:
   is the encode-ahead of the next burst against the retire of the last.
 - The assignment reaches the host through ``.cpu()`` (:func:`_to_host`),
   which waits for the kernels that wrote it.
-- The optional layers the JAX package gates off by default — placement
-  quality, SLOs, the learned policy, the topology model and the mesh —
-  are not ported yet: switching one on raises
-  :class:`NotImplementedError` when the loop is built, never mid-cycle.
-  Rebalancing is ported; a device fault inside its maintain-time tick
-  propagates instead of being swallowed with the host-side errors.
+- The mesh is not ported yet: asking for one raises
+  :class:`NotImplementedError` when the loop is built, never mid-cycle,
+  and so does a policy replay trace (``policy_eval_trace``, whose gate
+  replays a scenario) when it is set.  Placement quality, SLOs, the
+  learned policy and rebalancing are ported; a device fault inside a
+  maintain-time tick or at the commit seam propagates instead of being
+  swallowed with the host-side errors the JAX loop swallows.
 - Explain capture (``enable_explain``) works under both score backends
   (the JAX loop records nothing under ``score_backend="pallas"``), and
   a capture dropped on a host-side error is counted in the flight
@@ -86,28 +87,22 @@ from kubernetesnetawarescheduler_tpu_torch.utils.timeseries import (
 )
 
 
-# Optional layers of the JAX loop that this package does not have yet,
-# each with what it needs.  Off by default there as here.
-_UNPORTED_LAYERS = (
-    ("enable_quality_obs", "obs/quality.py (ROADMAP Queue A item 12)"),
-    ("enable_slo", "obs/slo.py (ROADMAP Queue A item 12)"),
-    ("enable_learned_score", "policy/ (ROADMAP Queue A item 12)"),
-    ("enable_netmodel", "netmodel/ (ROADMAP Queue A item 12)"),
-)
-
-
-def _refuse_unported(cfg: SchedulerConfig, mesh) -> None:
-    """Raise :class:`NotImplementedError` for a layer that is switched
-    on but not ported — at construction, so a loop never fails
-    mid-cycle for it."""
+def _refuse_unported(mesh) -> None:
+    """Raise :class:`NotImplementedError` for a layer that is asked for
+    but not ported — at construction, so a loop never fails mid-cycle
+    for it."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded serving needs parallel/sharding.py (ROADMAP "
             "Queue A item 15), which is not ported yet")
-    for flag, needs in _UNPORTED_LAYERS:
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"cfg.{flag} needs {needs}, which is not ported yet")
+
+
+def _observation_guard(exc: BaseException) -> None:
+    """The JAX loop swallows every error of a maintain-time layer or of
+    the commit seam's observers; the port swallows host errors only and
+    re-raises a fault of the device."""
+    if is_device_error(exc):
+        raise exc
 
 
 class SchedulerLoop:
@@ -121,7 +116,7 @@ class SchedulerLoop:
                  pipelined: bool = False,
                  multicycle: int | None = None,
                  device="cuda") -> None:
-        _refuse_unported(cfg, mesh)
+        _refuse_unported(mesh)
         self.cfg = cfg
         self.client = client
         self.method = method
@@ -227,6 +222,60 @@ class SchedulerLoop:
         # the chaos soak read the counters through these handles.
         self.integrity = None
         self.state_chaos = None
+        # Outcome observability (obs/): the placement-quality observer
+        # joins score-time predictions against later probe truth at the
+        # commit seam; the SLO engine evaluates the declarative
+        # objectives over multi-window burn rates.  Both are
+        # observation-only (placements identical on or off) and
+        # cfg-gated off by default.
+        if cfg.enable_quality_obs:
+            from kubernetesnetawarescheduler_tpu_torch.obs.quality import (
+                QualityObserver,
+            )
+
+            self.quality: "QualityObserver | None" = QualityObserver(cfg)
+        else:
+            self.quality = None
+        if cfg.enable_slo:
+            from kubernetesnetawarescheduler_tpu_torch.obs.slo import (
+                SLOEngine,
+            )
+
+            self.slo: "SLOEngine | None" = SLOEngine(cfg)
+        else:
+            self.slo = None
+        self._slo_last_eval = 0.0
+        self._quality_last_harvest = 0.0
+        # Learned scoring policy (policy/): trains term multipliers off
+        # the explain/outcome join on the encoder's device and
+        # shadow-scores recorded decisions; candidate weights reach the
+        # live scorer ONLY through the counterfactual promotion gate.
+        # Disabled (default) nothing is constructed and scoring uses
+        # cfg.weights.
+        if cfg.enable_learned_score:
+            from kubernetesnetawarescheduler_tpu_torch.policy import (
+                PolicyDataset,
+                ScoringPolicy,
+            )
+
+            self.policy: "ScoringPolicy | None" = ScoringPolicy(
+                cfg, device=self.encoder.device)
+            self.policy_dataset: "PolicyDataset | None" = (
+                PolicyDataset(cfg, self.policy.k_pad))
+        else:
+            self.policy = None
+            self.policy_dataset = None
+        # Replay trace the eval tick's promotion gate would replay
+        # (refused when set: see the property below); no trace -> the
+        # gate refuses every promotion (shadow-only fail-safe).
+        self._policy_eval_trace: str | None = None
+        self._policy_last_train = 0.0
+        self._policy_last_eval = 0.0
+        # Last-seen cumulative shadow-disagreement count, for the
+        # per-span delta, and the newest explain t_wall already
+        # shadow-ranked (the eval tick must not re-count records).
+        self._policy_shadow_last = 0
+        self._policy_shadow_twall = 0.0
         # Continuous rebalancing (core/rebalance.py): the budgeted
         # descheduler acts on the degradation signals the ingest only
         # measures.  Off by default; with budget 0 or the flag off,
@@ -621,6 +670,22 @@ class SchedulerLoop:
         its dispatches never donate — count the skip."""
         self.donation_skipped_total += 1
 
+    @property
+    def policy_eval_trace(self) -> str | None:
+        """The scenario trace the promotion gate replays (None: the gate
+        refuses every promotion)."""
+        return self._policy_eval_trace
+
+    @policy_eval_trace.setter
+    def policy_eval_trace(self, path: str | None) -> None:
+        # The replay leg needs scenario/: refuse the trace when it is
+        # set, never mid-tick.
+        if path:
+            raise NotImplementedError(
+                "a policy replay trace needs scenario/ (ROADMAP Queue A "
+                "item 14), which is not ported yet")
+        self._policy_eval_trace = None
+
     def _span_commit(self, sb, pods: Sequence[Pod],
                      static_version: int | None = None,
                      rounds: int = 0,
@@ -632,9 +697,32 @@ class SchedulerLoop:
         effects commit: end of the serial/burst/gang cycle, or at
         RETIRE for the pipelined and multicycle paths — so a crash
         never leaves a span claiming a cycle whose placements were
-        lost.  The fields of the unported layers (SLO, quality,
-        policy) carry their off-path values, so spans serialize as the
-        JAX loop's do with those layers off."""
+        lost.
+
+        Also THE outcome-observability seam: quality capture and the
+        time-gated SLO evaluation ride here — before the recorder
+        guard, so they run on all four paths even with the flight
+        recorder off.  A host-side error of either is swallowed
+        (observation never breaks serving); a device fault is not."""
+        if self.quality is not None:
+            try:
+                self.quality.note_commit(self, pods,
+                                         cycle_id=sb.cycle_id)
+            except Exception as exc:  # noqa: BLE001 — observation only
+                _observation_guard(exc)
+        slo_burning = None
+        if self.slo is not None:
+            try:
+                now = time.monotonic()
+                if (now - self._slo_last_eval
+                        >= self.cfg.slo_eval_interval_s):
+                    self._slo_last_eval = now
+                    self.slo.evaluate(self)
+                b = self.slo.burning()
+                slo_burning = b[0] if b else None
+            except Exception as exc:  # noqa: BLE001 — observation only
+                _observation_guard(exc)
+                slo_burning = None
         if self.flight is None or sb is NULL_SPAN:
             return
         enc = self.encoder
@@ -686,6 +774,14 @@ class SchedulerLoop:
                 self._reshape_last = (rs, rr)
                 gang_reshapes = max(rs - last_rs, 0)
                 reshape_reverts = max(rr - last_rr, 0)
+        # Policy accounting: the same cumulative -> per-span-delta shape
+        # (shadow ranking runs on the maintain path).
+        pol_disagree = pol_version = 0
+        if self.policy is not None:
+            sd = int(self.policy.shadow_disagreement_total)
+            pol_disagree = max(sd - self._policy_shadow_last, 0)
+            self._policy_shadow_last = sd
+            pol_version = int(self.policy.version)
         # Cap the per-span uid list: a whole-workload bench drain can
         # retire tens of thousands of pods in one span, and the ring
         # holds `capacity` spans — n_pods still carries the true count.
@@ -706,16 +802,17 @@ class SchedulerLoop:
             # is encoder-owned), so spans carry donated=0 and one skip.
             donated=int(donated),
             donation_skipped=int(donation_skipped),
-            slo_burning=None,
-            outcome_ring_depth=0,
+            slo_burning=slo_burning,
+            outcome_ring_depth=(self.quality.ring_depth()
+                                if self.quality is not None else 0),
             rebalance_moves=rb_moves,
             rebalance_reverts=rb_reverts,
             gang_reshapes=gang_reshapes,
             reshape_reverts=reshape_reverts,
             scenario_phase=self.scenario_phase,
             trace_offset=int(self.trace_offset),
-            policy_shadow_disagreements=0,
-            policy_version=0,
+            policy_shadow_disagreements=pol_disagree,
+            policy_version=pol_version,
             cluster_id=self.cluster_id,
             scan_window_k=scan_window_k,
             retire_lag_cycles=retire_lag_cycles,
@@ -771,9 +868,13 @@ class SchedulerLoop:
         table_names, _gens = node_table
         gate_keys = ("static_ok", "fits", "affinity", "anti",
                      "sym_anti", "zone_ok", "spread_ok")
-        # The topology model is not ported (enable_netmodel is refused),
-        # so every network term comes from direct probes.
-        prov = {"network": "direct_probe"}
+        netmodel = self.encoder.netmodel
+        if netmodel is not None:
+            prov = {"network": "netmodel_blend",
+                    "pair_coverage": float(netmodel.coverage_fraction(
+                        self.encoder.num_nodes))}
+        else:
+            prov = {"network": "direct_probe"}
         k = min(self.cfg.explain_top_k, len(table_names))
         total = comps["total"]
         now = time.time()
@@ -2638,6 +2739,24 @@ class SchedulerLoop:
         self._flush_preemption_waits()
         self._flush_gang_timeouts()
         self.encoder.expire_nominations(self.cfg.preemption_wait_s)
+        # Outcome observability: harvest pending quality joins against
+        # the probes that arrived since the commits, and keep the SLO
+        # engine sampling even when no cycles are committing.
+        if self.quality is not None:
+            try:
+                now = time.monotonic()
+                if (now - self._quality_last_harvest
+                        >= self.cfg.quality_harvest_interval_s):
+                    self._quality_last_harvest = now
+                    self.quality.harvest(self.encoder)
+            except Exception as exc:  # noqa: BLE001 — observation only
+                _observation_guard(exc)
+        if self.slo is not None:
+            try:
+                self._slo_last_eval = time.monotonic()
+                self.slo.evaluate(self)
+            except Exception as exc:  # noqa: BLE001 — observation only
+                _observation_guard(exc)
         # Continuous rebalancing: settle in-flight moves, then scan for
         # improvement candidates and execute within budget.  The
         # rebalancer owns its interval gate.  A host-side failure (an
@@ -2648,8 +2767,96 @@ class SchedulerLoop:
             try:
                 self.rebalance.tick(self)
             except Exception as exc:  # noqa: BLE001 — retried next tick
-                if is_device_error(exc):
-                    raise
+                _observation_guard(exc)
+        # Learned scoring policy: join the explain/outcome stores into
+        # the example ring and run the bounded Adam steps (train tick),
+        # then shadow-score the retained decisions and run the
+        # promotion gate (eval tick).  Both off the scoring hot path.
+        if self.policy is not None:
+            try:
+                now = time.monotonic()
+                if (now - self._policy_last_train
+                        >= self.cfg.policy_train_interval_s):
+                    self._policy_last_train = now
+                    self._policy_train_tick()
+            except Exception as exc:  # noqa: BLE001 — observation only
+                _observation_guard(exc)
+            try:
+                now = time.monotonic()
+                if (now - self._policy_last_eval
+                        >= self.cfg.policy_eval_interval_s):
+                    self._policy_last_eval = now
+                    self._policy_eval_tick()
+            except Exception as exc:  # noqa: BLE001 — observation only
+                _observation_guard(exc)
+
+    def _policy_train_tick(self) -> None:
+        """One train tick: join fresh quality outcomes with their
+        explain records, feed the ring, run the Adam steps."""
+        if self.policy_dataset is not None:
+            batch = self.policy_dataset.collect(self.flight,
+                                                self.quality)
+            if batch is not None:
+                self.policy.add_examples(batch.comps, batch.feas,
+                                         batch.target, batch.cls)
+        self.policy.train()
+
+    def _policy_eval_tick(self) -> None:
+        """One eval tick: shadow-rank the retained explain records
+        (disagreement accounting), then run the counterfactual
+        promotion gate; without a replay trace it refuses."""
+        explains = (self.flight.explains()
+                    if self.flight is not None else [])
+        # Shadow-rank only records newer than the last tick — the
+        # explain store retains records across ticks.
+        newest = self._policy_shadow_twall
+        for rec in explains:
+            tw = float(rec.get("t_wall", 0.0))
+            if tw <= self._policy_shadow_twall:
+                continue
+            newest = max(newest, tw)
+            self.policy.shadow_rank(rec)
+        self._policy_shadow_twall = newest
+        self.policy.evals_total += 1
+        from kubernetesnetawarescheduler_tpu_torch.policy.replay_eval import (
+            evaluate_candidate,
+        )
+
+        candidate = self.policy.to_score_weights(self.cfg.weights)
+        decision = evaluate_candidate(
+            self.cfg, candidate, self.cfg.weights, explains,
+            trace_path=self.policy_eval_trace,
+            k_pad=self.policy.k_pad)
+        if not decision.promote:
+            self.policy.rejections_total += 1
+            return
+        self._apply_promotion(decision)
+
+    def _apply_promotion(self, decision) -> None:
+        """Install gate-approved weights: replace cfg (the loop, not the
+        shared object, owns its config) and drop the static cache so the
+        next cycle re-derives the normalization under the promoted
+        weights."""
+        import dataclasses as _dc
+
+        self.cfg = _dc.replace(self.cfg,
+                               weights=decision.candidate_weights)
+        self.policy.cfg = self.cfg
+        if self.policy_dataset is not None:
+            self.policy_dataset.cfg = self.cfg
+        self._static_version = None
+        self._static_val = None
+        with self._static_lock:
+            self._static_ex = None
+        self.policy.note_promotion(decision.to_dict(),
+                                   decision.candidate_weights)
+        if self.flight is not None:
+            self.flight.meta["policy_promotion"] = {
+                "version": self.policy.promoted_version,
+                "reason": decision.reason,
+                "replay_delta": decision.replay_delta,
+                "t_wall": decision.t_wall,
+            }
 
     def _flush_preemption_waits(self) -> None:
         """Requeue preemptors whose confirmation deadline passed (a

@@ -16,9 +16,10 @@ its diagonal pinned to the loopback optimum ``w_bw``.
 
 The JAX package gates its optional constraint blocks with ``lax.cond``;
 here each gate is a Python ``if`` on a scalar (one host sync on the
-card, counted by :func:`~.state.host_flag`).  The policy layer's traced
-weight vector (``wvec``) is not ported yet: weights come from
-``cfg.weights``.
+card, counted by :func:`~.state.host_flag`).  The scorers take an
+optional weight vector ``wvec`` (:func:`weights_vector`), a tensor that
+replaces every ``cfg.weights`` constant of the expression — the policy
+layer's counterfactual re-scoring seam; ``None`` keeps the constants.
 """
 
 from __future__ import annotations
@@ -46,6 +47,22 @@ NEG_INF = float(np.float32(-1e30))
 NEG_HALF = float(np.float32(-1e30) * np.float32(0.5))
 _EPS = 1e-9
 
+# Canonical order of the flat weight vector the scoring functions
+# optionally accept (``wvec``): the ScoreWeights field order, which
+# policy/model.WEIGHT_FIELDS mirrors.
+WVEC_FIELDS = ("cpu", "mem", "net_tx", "net_rx", "bandwidth", "disk",
+               "peer_bw", "peer_lat", "balance", "soft_affinity",
+               "spread")
+
+
+def weights_vector(weights) -> np.ndarray:
+    """Flatten a :class:`ScoreWeights` into the canonical ``f32[11]``
+    vector the ``wvec`` arguments below take (as a tensor on the
+    state's device).  ``weights_vector(cfg.weights)`` gives the same
+    bits as ``wvec=None``."""
+    return np.asarray([float(getattr(weights, f))
+                       for f in WVEC_FIELDS], np.float32)
+
 
 def normalize_metrics(metrics: torch.Tensor, node_valid: torch.Tensor,
                       goodness: torch.Tensor) -> torch.Tensor:
@@ -61,17 +78,22 @@ def normalize_metrics(metrics: torch.Tensor, node_valid: torch.Tensor,
     return torch.where(valid, flipped, 0.0)
 
 
-def metric_scores(state: ClusterState, cfg: SchedulerConfig) -> torch.Tensor:
+def metric_scores(state: ClusterState, cfg: SchedulerConfig,
+                  wvec: torch.Tensor | None = None) -> torch.Tensor:
     """Pod-independent per-node score ``f32[N]``: the weighted continuous
     vote over normalized metrics, decayed toward 0.5 by staleness, with
     nodes below ``cfg.stale_conf_floor`` confidence left out of the
-    normalization span."""
+    normalization span.  ``wvec`` replaces ``cfg.weights``."""
     dev = state.device
     extra = (0.0,) * (cfg.num_metrics - len(GOODNESS))
     goodness = torch.tensor(GOODNESS + extra, dtype=torch.float32,
                             device=dev)
-    w = torch.tensor(cfg.weights.metric_vector() + extra,
-                     dtype=torch.float32, device=dev)
+    if wvec is None:
+        w = torch.tensor(cfg.weights.metric_vector() + extra,
+                         dtype=torch.float32, device=dev)
+    else:
+        w = torch.nn.functional.pad(
+            wvec[:len(GOODNESS)].to(torch.float32), (0, len(extra)))
     conf = torch.exp(-state.metrics_age / cfg.staleness_tau_s)
     span_valid = state.node_valid & (conf > cfg.stale_conf_floor)
     norm = normalize_metrics(state.metrics, span_valid, goodness)
@@ -109,25 +131,31 @@ def net_normalizers(lat: torch.Tensor, bw: torch.Tensor,
 
 
 def net_desirability(lat: torch.Tensor, bw: torch.Tensor,
-                     node_valid: torch.Tensor, w_bw: float,
-                     w_lat: float) -> torch.Tensor:
+                     node_valid: torch.Tensor, w_bw, w_lat) -> torch.Tensor:
     """``C[N, N] = w_bw * bw_norm - w_lat * lat_norm`` over valid pairs,
     diagonal pinned to ``w_bw`` (co-located endpoints talk over
-    loopback, which no physical link beats)."""
+    loopback, which no physical link beats).  The weights are Python
+    floats or 0-d f32 tensors."""
     pair_valid = node_valid[:, None] & node_valid[None, :]
     bw_max, lat_max = net_normalizers(lat, bw, node_valid)
     c = w_bw * bw / bw_max - w_lat * lat / lat_max
     eye = torch.eye(lat.shape[0], dtype=torch.bool, device=lat.device)
-    c = torch.where(eye, float(np.float32(w_bw)), c)
+    diag = (w_bw.to(torch.float32) if torch.is_tensor(w_bw)
+            else float(np.float32(w_bw)))
+    c = torch.where(eye, diag, c)
     return torch.where(pair_valid, c, 0.0)
 
 
-def net_cost_matrix(state: ClusterState,
-                    cfg: SchedulerConfig) -> torch.Tensor:
+def net_cost_matrix(state: ClusterState, cfg: SchedulerConfig,
+                    wvec: torch.Tensor | None = None) -> torch.Tensor:
     """The network desirability matrix of ``state`` under ``cfg``'s
-    weights (:func:`net_desirability`)."""
+    weights, or ``wvec``'s (:func:`net_desirability`)."""
+    if wvec is None:
+        w_bw, w_lat = cfg.weights.peer_bw, cfg.weights.peer_lat
+    else:
+        w_bw, w_lat = wvec[6], wvec[7]
     return net_desirability(state.lat, state.bw, state.node_valid,
-                            cfg.weights.peer_bw, cfg.weights.peer_lat)
+                            w_bw, w_lat)
 
 
 def _use_bf16(cfg: SchedulerConfig, device: torch.device) -> bool:
@@ -145,11 +173,12 @@ def prep_net_matrix(c: torch.Tensor, cfg: SchedulerConfig) -> torch.Tensor:
     return ct.to(torch.bfloat16) if _use_bf16(cfg, c.device) else ct
 
 
-def static_node_scores(state: ClusterState, cfg: SchedulerConfig):
+def static_node_scores(state: ClusterState, cfg: SchedulerConfig,
+                       wvec: torch.Tensor | None = None):
     """The two batch-invariant score ingredients: the metric vote
     ``base f32[N]`` and the prepared ``C.T``."""
-    return (metric_scores(state, cfg),
-            prep_net_matrix(net_cost_matrix(state, cfg), cfg))
+    return (metric_scores(state, cfg, wvec=wvec),
+            prep_net_matrix(net_cost_matrix(state, cfg, wvec=wvec), cfg))
 
 
 class NetExtrema(NamedTuple):
@@ -286,9 +315,19 @@ def network_scores(state: ClusterState, pods: PodBatch,
     return net.T if transposed else net
 
 
+def _soft_scale(cfg: SchedulerConfig, wvec: torch.Tensor | None):
+    """The soft-affinity scale, ``soft_affinity / 100``, as the JAX
+    package writes it: rounded once from the constant, or divided in
+    f32 from ``wvec``."""
+    if wvec is None:
+        return float(np.float32(cfg.weights.soft_affinity / 100.0))
+    return wvec[9] / 100.0
+
+
 def soft_affinity_scores(state: ClusterState, pods: PodBatch,
                          cfg: SchedulerConfig,
-                         transposed: bool = False) -> torch.Tensor:
+                         transposed: bool = False,
+                         wvec: torch.Tensor | None = None) -> torch.Tensor:
     """Weighted preferred-affinity term ``f32[P, N]`` (``[N, P]``
     transposed): node-label terms (bonus where ALL the term's labels are
     present; empty terms add nothing) and resident-group terms (bonus on
@@ -312,17 +351,18 @@ def soft_affinity_scores(state: ClusterState, pods: PodBatch,
         group_match = ((gb & pg) != 0).any(dim=-1)
         group_term = torch.where(group_match, pods.soft_grp_w[:, :, None],
                                  0.0).sum(1)
-        scale = float(np.float32(cfg.weights.soft_affinity / 100.0))
-        out = scale * (label_term + group_term)
+        out = _soft_scale(cfg, wvec) * (label_term + group_term)
         bank = out.T if transposed else out
     else:
         bank = torch.zeros(shape, dtype=torch.float32, device=state.device)
-    return bank + soft_zone_scores(state, pods, cfg, transposed=transposed)
+    return bank + soft_zone_scores(state, pods, cfg, transposed=transposed,
+                                   wvec=wvec)
 
 
 def soft_zone_scores(state: ClusterState, pods: PodBatch,
                      cfg: SchedulerConfig,
-                     transposed: bool = False) -> torch.Tensor:
+                     transposed: bool = False,
+                     wvec: torch.Tensor | None = None) -> torch.Tensor:
     """Zone-scoped preferred pod (anti-)affinity, ``f32[P, N]``: bonus
     ``w_t`` on nodes whose ZONE hosts a member of the term's group
     (``gz_counts`` presence); zone-less nodes match nothing.  Skipped
@@ -340,7 +380,7 @@ def soft_zone_scores(state: ClusterState, pods: PodBatch,
     zmatch = (((pres[None, None, :, :] & zb) != 0).any(dim=-1)
               & has_zone[None, None, :])                     # [P, T, N]
     term = torch.where(zmatch, pods.soft_zone_w[:, :, None], 0.0).sum(1)
-    out = float(np.float32(cfg.weights.soft_affinity / 100.0)) * term
+    out = _soft_scale(cfg, wvec) * term
     return out.T if transposed else out
 
 
@@ -353,7 +393,8 @@ def spread_active(pods: PodBatch) -> torch.Tensor:
 
 def spread_terms(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
                  gz_counts: torch.Tensor | None = None,
-                 static_ok: torch.Tensor | None = None):
+                 static_ok: torch.Tensor | None = None,
+                 wvec: torch.Tensor | None = None):
     """Zone-level topology-spread penalty and mask, ``(f32[P, N],
     bool[P, N])``: placing on zone ``z`` is allowed iff ``count[z] + 1 -
     min(count) <= maxSkew``; hard constraints mask, soft ones pay
@@ -387,7 +428,8 @@ def spread_terms(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
     ok = ~(violates & pods.spread_hard[:, None])
     excess = (skew_after - pods.spread_maxskew[:, None]).clamp_min(0).to(
         torch.float32)
-    w_spread = float(np.float32(cfg.weights.spread))
+    w_spread = (float(np.float32(cfg.weights.spread)) if wvec is None
+                else wvec[10])
     penalty = torch.where(violates & ~pods.spread_hard[:, None],
                           w_spread * excess, 0.0)
     return penalty, ok
@@ -515,20 +557,27 @@ def feasibility_mask(state: ClusterState, pods: PodBatch,
             & zone_affinity_ok(state, pods))
 
 
+def _balance_weight(cfg: SchedulerConfig, wvec: torch.Tensor | None):
+    return (float(np.float32(cfg.weights.balance)) if wvec is None
+            else wvec[8])
+
+
 def score_pods(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
-               static=None) -> torch.Tensor:
+               static=None, wvec: torch.Tensor | None = None) -> torch.Tensor:
     """Full masked score matrix ``f32[P, N]``; ``NEG_INF`` marks
     infeasible.  ``static`` is an optional precomputed
-    :func:`static_node_scores` pair."""
+    :func:`static_node_scores` pair.  ``wvec`` (a :func:`weights_vector`
+    tensor) replaces every ``cfg.weights`` constant of the expression;
+    ``None`` keeps them."""
     if static is None:
-        static = static_node_scores(state, cfg)
+        static = static_node_scores(state, cfg, wvec=wvec)
     base, ct = static
     net = network_scores(state, pods, cfg, ct=ct)
-    soft = soft_affinity_scores(state, pods, cfg)
-    bal = float(np.float32(cfg.weights.balance)) * balance_penalty(state,
-                                                                   pods)
+    soft = soft_affinity_scores(state, pods, cfg, wvec=wvec)
+    bal = _balance_weight(cfg, wvec) * balance_penalty(state, pods)
     sok = static_feasibility(state, pods)
-    spread_pen, spread_ok = spread_terms(state, pods, cfg, static_ok=sok)
+    spread_pen, spread_ok = spread_terms(state, pods, cfg, static_ok=sok,
+                                         wvec=wvec)
     raw = base[None, :] + net + soft - bal - spread_pen
     ok = feasibility_mask(state, pods, static_ok=sok) & spread_ok
     return torch.where(ok, raw, NEG_INF)
@@ -547,38 +596,41 @@ def winner_from_scores(scores: torch.Tensor):
 
 
 def score_winner(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
-                 static=None):
+                 static=None, wvec: torch.Tensor | None = None):
     """Score then winner: ``(best f32[P], node i32[P])``."""
-    return winner_from_scores(score_pods(state, pods, cfg, static))
+    return winner_from_scores(score_pods(state, pods, cfg, static,
+                                         wvec=wvec))
 
 
 _GATE_KEYS = ("ok", "static_ok", "fits", "affinity", "anti", "sym_anti",
               "zone_ok", "spread_ok")
 
 
-def _dense_static(state: ClusterState, cfg: SchedulerConfig, static):
+def _dense_static(state: ClusterState, cfg: SchedulerConfig, static,
+                  wvec: torch.Tensor | None = None):
     """``static`` when it is the dense ``(base, C.T)`` pair, else a fresh
     :func:`static_node_scores` pair.  The kernel backend's static is a
     :class:`~.kernels.StaticPack` that carries no ``C.T``; the
     decomposition always runs dense, so it builds its own pair then."""
     if isinstance(static, tuple) and len(static) == 2:
         return static
-    return static_node_scores(state, cfg)
+    return static_node_scores(state, cfg, wvec=wvec)
 
 
 def _explain_terms(state: ClusterState, pods: PodBatch,
-                   cfg: SchedulerConfig, static=None) -> dict:
+                   cfg: SchedulerConfig, static=None,
+                   wvec: torch.Tensor | None = None) -> dict:
     """Every additive term of :func:`score_pods` and every individual
     feasibility gate, as ``[P, N]`` (or broadcastable) tensors on the
     state's device.  ``static`` may be the dense pair or the kernel
     backend's pack (see :func:`_dense_static`)."""
-    base, ct = _dense_static(state, cfg, static)
+    base, ct = _dense_static(state, cfg, static, wvec=wvec)
     net = network_scores(state, pods, cfg, ct=ct)
-    soft = soft_affinity_scores(state, pods, cfg)
-    bal = float(np.float32(cfg.weights.balance)) * balance_penalty(state,
-                                                                   pods)
+    soft = soft_affinity_scores(state, pods, cfg, wvec=wvec)
+    bal = _balance_weight(cfg, wvec) * balance_penalty(state, pods)
     sok = static_feasibility(state, pods)
-    spread_pen, spread_ok = spread_terms(state, pods, cfg, static_ok=sok)
+    spread_pen, spread_ok = spread_terms(state, pods, cfg, static_ok=sok,
+                                         wvec=wvec)
     free = state.cap - state.used
     fits = (pods.req[:, None, :] <= free[None, :, :] + _EPS).all(dim=-1)
     aff_req = pods.affinity_bits[:, None, :]
@@ -604,7 +656,8 @@ def _explain_terms(state: ClusterState, pods: PodBatch,
 
 
 def explain_scores(state: ClusterState, pods: PodBatch,
-                   cfg: SchedulerConfig, static=None
+                   cfg: SchedulerConfig, static=None,
+                   wvec: torch.Tensor | None = None
                    ) -> dict[str, np.ndarray]:
     """Host-side score decomposition for placement explainability: the
     additive terms (f32) and the feasibility gates (bool) of
@@ -617,7 +670,7 @@ def explain_scores(state: ClusterState, pods: PodBatch,
     total`` where feasible.  The decomposition is dense under both
     backends; with the kernel backend's pack as ``static`` it builds its
     own dense pair."""
-    terms = _explain_terms(state, pods, cfg, static=static)
+    terms = _explain_terms(state, pods, cfg, static=static, wvec=wvec)
     shape = tuple(terms["net"].shape)
     out = {}
     for key, val in terms.items():

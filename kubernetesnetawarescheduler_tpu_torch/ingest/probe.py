@@ -197,9 +197,12 @@ class AgentProber:
 class ProbeOrchestrator:
     """Budgeted pair probing into an Encoder.
 
-    Pair selection is stalest-first.  The JAX package's planner and
-    topology-model hooks (``netmodel/``) are not ported yet (ROADMAP
-    Queue A item 12).
+    Pair selection is stalest-first by default; passing a ``planner``
+    (e.g. :class:`~..netmodel.EIGProbePlanner`) replaces it with
+    expected-information-gain selection (the stalest-first selector is
+    still handed to the planner for its exploration share).  A
+    ``model`` (:class:`~..netmodel.TopologyModel`) receives every
+    successful observation and is re-fit at the end of each cycle.
 
     ``forget_s`` bounds the per-pair bookkeeping: entries whose last
     probe is older than the horizon are pruned on ``advance_clock``
@@ -208,12 +211,14 @@ class ProbeOrchestrator:
     entries forever (the pre-existing behaviour)."""
 
     def __init__(self, encoder: Encoder, prober: Prober,
-                 names: Sequence[str],
+                 names: Sequence[str], planner=None, model=None,
                  forget_s: float = 0.0,
                  quarantine_streak: int = 3) -> None:
         self._encoder = encoder
         self._prober = prober
         self._names = list(names)
+        self._planner = planner
+        self._model = model
         self._forget_s = float(forget_s)
         self._last_probe: dict[tuple[int, int], float] = {}
         self._clock = 0.0
@@ -239,6 +244,8 @@ class ProbeOrchestrator:
 
     def advance_clock(self, dt_s: float) -> None:
         self._clock += dt_s
+        if self._model is not None:
+            self._model.advance_clock(dt_s)
         if self._forget_s > 0:
             horizon = self._clock - self._forget_s
             stale = [p for p, t in self._last_probe.items() if t < horizon]
@@ -247,21 +254,44 @@ class ProbeOrchestrator:
             self.pruned_total += len(stale)
 
     def _stalest_pairs(self, budget: int) -> list[tuple[int, int]]:
-        # O(P log budget) selection over a generator — never
-        # materializes or fully sorts the O(N^2) pair set (12.5M pairs
-        # at the 5k-node design point).
+        """The ``budget`` pairs ``(i < j)`` probed longest ago, never-probed
+        first, ties in ``(i, j)`` order: what ``heapq.nsmallest`` over
+        the row-major pair walk keyed by the last probe time (-inf when
+        never probed) returns, as the JAX package computes it.
+
+        While ``budget`` never-probed pairs remain, those are the first
+        ``budget`` of them in walk order, found by a walk that skips the
+        probed pairs: O(probed + budget) instead of a pass over the N²/2
+        pairs (12.5M at 5k nodes).  Otherwise the full selection runs."""
         n = len(self._names)
+        if budget <= 0:
+            return []
+        probed = self._last_probe
+        if n * (n - 1) // 2 - len(probed) >= budget:
+            out: list[tuple[int, int]] = []
+            for i in range(n):
+                for j in range(i + 1, n):
+                    if (i, j) not in probed:
+                        out.append((i, j))
+                        if len(out) == budget:
+                            return out
         pairs = ((i, j) for i in range(n) for j in range(i + 1, n))
         return heapq.nsmallest(
-            budget, pairs, key=lambda p: self._last_probe.get(p, -np.inf))
+            budget, pairs, key=lambda p: probed.get(p, -np.inf))
 
-    def run_cycle(self, budget: int = 64) -> int:
+    def _select_pairs(self, budget: int) -> list[tuple[int, int]]:
+        if self._planner is not None:
+            return self._planner.select_pairs(
+                len(self._names), budget, self._stalest_pairs)
+        return self._stalest_pairs(budget)
+
+    def run_cycle(self, budget: int = 64, fit: bool = True) -> int:
         """Probe the selected ``budget`` pairs; returns successes.
         Failures are counted and skipped — the pair just stays stale
         (no crash, unlike the reference's nil-body read,
         scheduler.go:397-405)."""
         done = 0
-        for i, j in self._stalest_pairs(budget):
+        for i, j in self._select_pairs(budget):
             a, b = self._names[i], self._names[j]
             try:
                 lat_ms, bw_bps = self._prober.probe(a, b)
@@ -285,9 +315,19 @@ class ProbeOrchestrator:
                 continue
             self._streaks.pop((i, j), None)
             self._encoder.update_link(a, b, lat_ms=lat_ms, bw_bps=bw_bps)
+            if self._model is not None:
+                ia = self._encoder.node_slot(a)
+                ib = self._encoder.node_slot(b)
+                if ia is not None and ib is not None:
+                    self._model.observe(ia, ib, lat_ms, bw_bps, self._clock)
             self._last_probe[(i, j)] = self._clock
             self.successes += 1
             done += 1
+        if done and fit and self._model is not None:
+            if self._model.fit():
+                # Fresh model params change the blended snapshot even
+                # with no new direct probe on a given pair.
+                self._encoder.touch_net()
         return done
 
     @staticmethod

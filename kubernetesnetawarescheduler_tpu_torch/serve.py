@@ -28,10 +28,10 @@ What differs from the JAX daemon:
 - ``--jax-profile-dir`` (its name kept so deploy command lines carry
   over) wraps the run in ``torch.profiler`` and writes a Chrome trace
   there; every device step carries the flight recorder's cycle id.
-- Flags and config fields of layers not ported yet (placement quality,
-  SLOs, the learned policy, the topology model, the mesh and multi-host
-  serving) make the daemon exit with code 2 and one line naming the
-  layer's ROADMAP item, before anything starts.
+- Flags of layers not ported yet (the policy gate's scenario replay
+  trace, the mesh and multi-host serving) make the daemon exit with code
+  2 and one line naming the layer's ROADMAP item, before anything
+  starts.
 - The audit thread and the state-chaos thread end on a fault of the
   device instead of retrying it; shutdown raises that fault after every
   thread is stopped and the daemon's state is saved.
@@ -54,13 +54,9 @@ from kubernetesnetawarescheduler_tpu_torch.config import (
 )
 
 # CLI flags of layers this package does not have yet, with the ROADMAP
-# item each needs.  Config fields go through the loop's own refusal
-# (core.loop._refuse_unported).
+# item each needs.
 _UNPORTED_FLAGS = (
-    ("quality_obs", "--quality-obs", "obs/quality.py", 12),
-    ("slo", "--slo", "obs/slo.py", 12),
-    ("learned_score", "--learned-score", "policy/", 12),
-    ("policy_eval_trace", "--policy-eval-trace", "policy/", 12),
+    ("policy_eval_trace", "--policy-eval-trace", "scenario/", 14),
     ("mesh", "--mesh", "parallel/sharding.py", 15),
     ("multihost", "--multihost", "parallel/multihost.py", 15),
     ("coordinator", "--coordinator", "parallel/multihost.py", 15),
@@ -69,22 +65,13 @@ _UNPORTED_FLAGS = (
 )
 
 
-def _unported(ap: argparse.ArgumentParser, args,
-              cfg: SchedulerConfig) -> str | None:
+def _unported(ap: argparse.ArgumentParser, args) -> str | None:
     """The refusal line for the first unported layer switched on by a
-    flag (any value but its default) or a config field, or None."""
-    from kubernetesnetawarescheduler_tpu_torch.core.loop import (
-        _refuse_unported,
-    )
-
+    flag (any value but its default), or None."""
     for attr, flag, needs, item in _UNPORTED_FLAGS:
         if getattr(args, attr) != ap.get_default(attr):
             return (f"{flag} needs {needs} (ROADMAP Queue A item {item}), "
                     "which is not ported yet")
-    try:
-        _refuse_unported(cfg, None)
-    except NotImplementedError as exc:
-        return str(exc)
     return None
 
 
@@ -242,14 +229,41 @@ def _parser() -> argparse.ArgumentParser:
                     help="rebuild the static score prep on a background "
                          "thread; equivalent to enable_async_static=true "
                          "in --config")
+    ap.add_argument("--quality-obs", action="store_true",
+                    help="outcome observability (obs/quality.py): "
+                         "join each bound pod's score-time network "
+                         "prediction against later probe truth — "
+                         "realized bw/lat, regret vs best "
+                         "alternative, calibration residuals — in a "
+                         "bounded outcome ring (/debug/slo, "
+                         "/metrics); equivalent to "
+                         "enable_quality_obs=true in --config")
+    ap.add_argument("--slo", action="store_true",
+                    help="SLO burn-rate engine (obs/slo.py): "
+                         "evaluate the declarative objectives "
+                         "(score p99, bind tail, quality regret, "
+                         "unrepaired drift) over multi-window burn "
+                         "rates, emit SLOBurn Events and degrade "
+                         "/readyz while burning; equivalent to "
+                         "enable_slo=true in --config")
+    ap.add_argument("--learned-score", action="store_true",
+                    help="learned scoring policy (policy/): fit "
+                         "term-level score multipliers on the "
+                         "explain/outcome join and shadow-score "
+                         "recorded decisions; equivalent to "
+                         "enable_learned_score=true in --config. "
+                         "Needs explain capture (cfg.enable_explain) "
+                         "and the quality observer for training "
+                         "signal")
     # Layers not ported yet: accepted so deploy command lines parse, and
     # refused with their ROADMAP item (see _UNPORTED_FLAGS).
-    for flag in ("--quality-obs", "--slo", "--learned-score", "--mesh",
-                 "--multihost"):
+    for flag in ("--mesh", "--multihost"):
         ap.add_argument(flag, action="store_true",
                         help="not ported yet; refused")
     ap.add_argument("--policy-eval-trace", default="",
-                    help="not ported yet; refused")
+                    help="scenario trace the policy promotion gate "
+                         "replays; needs scenario/, not ported yet; "
+                         "refused")
     ap.add_argument("--coordinator", default="",
                     help="not ported yet; refused")
     ap.add_argument("--num-processes", type=int, default=None,
@@ -276,9 +290,15 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
         over["enable_async_static"] = True
     if args.rebalance:
         over["enable_rebalance"] = True
+    if args.quality_obs:
+        over["enable_quality_obs"] = True
+    if args.slo:
+        over["enable_slo"] = True
+    if args.learned_score:
+        over["enable_learned_score"] = True
     if over:
         cfg = dataclasses.replace(cfg, **over)
-    refusal = _unported(ap, args, cfg)
+    refusal = _unported(ap, args)
     if refusal is not None:
         print(f"refusing to start: {refusal}", file=sys.stderr)
         return 2
@@ -295,6 +315,19 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
               f"bind coalesce window {cfg.bind_coalesce_window}, "
               f"bind max inflight {cfg.bind_max_inflight}",
               file=sys.stderr)
+    if cfg.enable_learned_score:
+        print(f"learned scoring policy enabled (shadow-only: the "
+              f"promotion gate's scenario replay needs ROADMAP Queue A "
+              f"item 14): ring {cfg.policy_ring}, train every "
+              f"{cfg.policy_train_interval_s}s", file=sys.stderr)
+    if cfg.enable_quality_obs:
+        print(f"quality observer enabled: outcome ring "
+              f"{cfg.quality_ring_size}, harvest every "
+              f"{cfg.quality_harvest_interval_s}s", file=sys.stderr)
+    if cfg.enable_slo:
+        print(f"slo engine enabled: score p99 {cfg.slo_score_p99_ms}ms, "
+              f"burn windows {cfg.slo_fast_window_s}s/"
+              f"{cfg.slo_slow_window_s}s", file=sys.stderr)
     if cfg.enable_rebalance:
         print(f"rebalancer enabled: min gain "
               f"{cfg.rebalance_min_gain}, budget "
@@ -385,6 +418,34 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
     if loop.flight is not None:
         loop.flight.meta["checkpoint_state"] = loop.checkpoint_state
 
+    # Learned scoring policy: resume parameters/optimizer/example ring
+    # from policy.npz when the restored checkpoint carries one.
+    if (cfg.enable_learned_score and args.checkpoint_dir
+            and loop.checkpoint_state == "restored"):
+        from kubernetesnetawarescheduler_tpu_torch.core.checkpoint import (
+            load_policy,
+        )
+
+        from kubernetesnetawarescheduler_tpu_torch.core.state import (
+            is_device_error,
+        )
+
+        try:
+            restored_policy = load_policy(args.checkpoint_dir, cfg,
+                                          seed=args.seed, device=device)
+        except Exception as exc:  # noqa: BLE001 — the policy is optional
+            if is_device_error(exc):
+                raise
+            restored_policy = None
+            print(f"WARNING: policy checkpoint load failed: {exc}",
+                  file=sys.stderr)
+        if restored_policy is not None:
+            loop.policy = restored_policy
+            print("restored learned-score policy "
+                  f"(version {restored_policy.version}, promoted "
+                  f"{restored_policy.promoted_version})",
+                  file=sys.stderr)
+
     if args.decision_log:
         from kubernetesnetawarescheduler_tpu_torch.core.checkpoint import (
             DecisionLog,
@@ -465,6 +526,32 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
               "real cluster): lat/bw matrices stay empty and scoring "
               "degrades to metric-vote only", file=sys.stderr)
 
+    # Learned topology model: dense confidence-weighted lat/bw
+    # estimates fit on the probe stream (netmodel/), on the encoder's
+    # device.  A checkpoint restore may already have attached one
+    # (netmodel.npz); otherwise start fresh.  The EIG planner replaces
+    # stalest-first pair selection with uncertainty x
+    # placement-relevance selection.
+    netmodel = None
+    planner = None
+    if cfg.enable_netmodel:
+        from kubernetesnetawarescheduler_tpu_torch.netmodel import (
+            EIGProbePlanner,
+            TopologyModel,
+        )
+
+        netmodel = loop.encoder.netmodel
+        if netmodel is None:
+            netmodel = TopologyModel(cfg, seed=args.seed,
+                                     device=loop.encoder.device)
+            loop.encoder.attach_netmodel(netmodel)
+        planner = EIGProbePlanner(
+            netmodel, explore_frac=cfg.netmodel_explore_frac,
+            seed=args.seed)
+        loop.probe_planner = planner
+        print("netmodel enabled: blending learned topology estimates "
+              "into lat/bw", file=sys.stderr)
+
     if args.probe_period_s > 0 and prober is not None:
         from kubernetesnetawarescheduler_tpu_torch.ingest.probe import (
             ProbeOrchestrator,
@@ -474,7 +561,8 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
         )
 
         orch = ProbeOrchestrator(
-            loop.encoder, prober, names, forget_s=cfg.probe_forget_s,
+            loop.encoder, prober, names, planner=planner,
+            model=netmodel, forget_s=cfg.probe_forget_s,
             quarantine_streak=cfg.quarantine_streak_events)
         loop.probe_orchestrator = orch
 
@@ -499,6 +587,26 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
                     except Exception:  # noqa: BLE001 — best-effort;
                         # the refusals are already counted in /metrics
                         pass
+                if netmodel is not None:
+                    for i, j, pred, meas, _t in \
+                            netmodel.drain_degradations():
+                        try:
+                            a = loop.encoder.node_name(i)
+                            b = loop.encoder.node_name(j)
+                            if loop.rebalance is not None:
+                                loop.rebalance.note_link_event(
+                                    a, b, "degraded", 1)
+                            loop.client.create_event(link_event(
+                                src=a, dst=b, reason="LinkDegraded",
+                                streak=1,
+                                message=(
+                                    f"link {a}<->{b} measured "
+                                    f"{meas / 1e9:.2f} Gbps vs expected "
+                                    f"{pred / 1e9:.2f} Gbps"),
+                                component=cfg.scheduler_name))
+                        except Exception:  # noqa: BLE001 — best-effort;
+                            # the degradation is already counted
+                            pass
                 orch.advance_clock(args.probe_period_s)
                 stop.wait(args.probe_period_s)
 

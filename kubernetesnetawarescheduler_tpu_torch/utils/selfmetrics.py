@@ -1,11 +1,12 @@
 """Self-metrics: Prometheus text exposition of the scheduler itself.
 
 The PyTorch package's copy of the JAX package's ``utils/selfmetrics.py``.
-The integrity auditor, state chaos and rebalancer families render when
-those layers are attached, with the JAX names, labels, HELP and TYPE.
-The families of layers the port does not have yet (placement quality,
-SLOs, the learned policy, the topology model, the fleet) are absent,
-exactly as the JAX package renders them with those layers off.
+The integrity auditor, state chaos, rebalancer, topology model,
+placement quality, SLO and learned-policy families render when those
+layers are attached, with the JAX names, labels, HELP and TYPE.  The
+fleet's families (``render_fleet_metrics``) need ``fleet/`` (ROADMAP
+Queue A item 13) and are absent, as the JAX package renders a solo
+loop.
 
 The reference *consumes* Prometheus (node_exporter scrapes,
 scheduler.go:275-279) but exposes nothing about itself — its only
@@ -196,6 +197,35 @@ def render_metrics(loop) -> str:
             "Queued bind batches folded into an adjacent batch's "
             "fanout (sorted by node/namespace before POSTing)")
 
+    # Learned topology model (netmodel/): direct-probe pair coverage,
+    # prediction-residual quantiles, planner selection entropy and the
+    # residual monitor's degradation count.
+    netmodel = getattr(enc, "netmodel", None)
+    if netmodel is not None:
+        gauge("netaware_netmodel_pair_coverage_fraction",
+              netmodel.coverage_fraction(enc.num_nodes),
+              "Fraction of node pairs ever directly probed (the rest "
+              "ride model estimates)")
+        p50, p99 = netmodel.residual_quantiles()
+        gauge("netaware_netmodel_residual_p50", p50,
+              "Median |log-bandwidth residual| of fresh probes vs "
+              "model prediction")
+        gauge("netaware_netmodel_residual_p99", p99,
+              "p99 |log-bandwidth residual| of fresh probes vs model "
+              "prediction")
+        counter("netaware_netmodel_sgd_steps_total",
+                float(netmodel.steps_total),
+                "Jitted mini-batch SGD steps dispatched")
+        counter("netaware_netmodel_link_degradations_total",
+                float(netmodel.degradations_total),
+                "Fresh measurements diverging sharply from a confident "
+                "prediction (each also gets a LinkDegraded event)")
+    planner = getattr(loop, "probe_planner", None)
+    if planner is not None:
+        gauge("netaware_netmodel_probe_selection_entropy_bits",
+              float(planner.last_entropy_bits),
+              "Shannon entropy of the last probe cycle's EIG score "
+              "distribution (collapse = planner fixation)")
     orch = getattr(loop, "probe_orchestrator", None)
     if orch is not None:
         stats = orch.staleness()
@@ -499,6 +529,80 @@ def render_metrics(loop) -> str:
                     f'netaware_pipeline_stage_ms{{stage="{stage}",'
                     f'stat="{stat[:-3]}"}} {_fmt(b[stat])}')
 
+    # Outcome observability (obs/quality.py): did the placements
+    # the scheduler committed turn out to be GOOD?  Regret is in the
+    # same desirability units the score kernel optimized; calibration
+    # residuals measure how honest the score-time network prediction
+    # was against later probe truth.
+    quality = getattr(loop, "quality", None)
+    if quality is not None:
+        qs = quality.summary()
+        counter("netaware_quality_commits_noted_total",
+                float(qs["noted_total"]),
+                "Bound pods whose score-time prediction was captured "
+                "for outcome joining")
+        counter("netaware_quality_outcomes_total",
+                float(qs["harvested_total"]),
+                "Placement outcomes evaluated against observed probe "
+                "state (regret + calibration)")
+        counter("netaware_quality_no_peer_total",
+                float(qs["no_peer_total"]),
+                "Bound pods skipped by the quality observer (no "
+                "resolvable peers at commit time)")
+        counter("netaware_quality_calibration_samples_total",
+                float(qs["calibration_samples"]),
+                "Pod-peer samples contributing to netmodel "
+                "calibration residuals")
+        counter("netaware_quality_pending_dropped_total",
+                float(qs["pending_dropped"]),
+                "Pending observations evicted before harvest "
+                "(capacity)")
+        gauge("netaware_quality_ring_depth", float(qs["ring_depth"]),
+              "Evaluated outcomes retained in the bounded ring")
+        gauge("netaware_quality_pending_depth", float(qs["pending"]),
+              "Commits awaiting their next harvest join")
+        hist("netaware_quality_regret",
+             "Per-pod placement regret vs the best feasible "
+             "alternative, in net-desirability score units",
+             [("", quality.regret_hist.snapshot())])
+        hist("netaware_quality_bw_residual_log1p",
+             "Per-pod |log1p(predicted bw) - log1p(observed bw)| "
+             "calibration residual",
+             [("", quality.bw_residual_hist.snapshot())])
+
+    # SLO burn-rate engine (obs/slo.py): multi-window burn per
+    # objective, plus a 0/1 burning flag alertmanager can gate on
+    # without re-deriving the window math.
+    slo = getattr(loop, "slo", None)
+    if slo is not None:
+        ss = slo.snapshot()
+        counter("netaware_slo_evaluations_total",
+                float(ss["evaluations_total"]),
+                "SLO engine evaluation passes")
+        counter("netaware_slo_burn_events_total",
+                float(ss["burn_events_total"]),
+                "Not-burning -> burning transitions (each also gets "
+                "an SLOBurn event)")
+        _register("netaware_slo_burn_rate")
+        lines.append("# HELP netaware_slo_burn_rate Error-budget burn "
+                     "rate per objective and window (1.0 = burning "
+                     "exactly at budget)")
+        lines.append("# TYPE netaware_slo_burn_rate gauge")
+        for name, obj in sorted(ss["objectives"].items()):
+            for window in ("fast", "slow"):
+                lines.append(
+                    f'netaware_slo_burn_rate{{objective="{name}",'
+                    f'window="{window}"}} '
+                    f"{_fmt(obj[f'burn_{window}'])}")
+        _register("netaware_slo_burning")
+        lines.append("# HELP netaware_slo_burning Whether the "
+                     "objective is burning on BOTH windows (1 = page)")
+        lines.append("# TYPE netaware_slo_burning gauge")
+        for name, obj in sorted(ss["objectives"].items()):
+            lines.append(
+                f'netaware_slo_burning{{objective="{name}"}} '
+                f"{1 if obj['burning'] else 0}")
+
     # Continuous rebalancing (core/rebalance.py): how often the
     # descheduler acted, what held it back (the skip breakdown is the
     # rebalance-storm runbook's first read), and the crash-safety
@@ -587,6 +691,46 @@ def render_metrics(loop) -> str:
                   float(resh["reshapes_inflight"]),
                   "Reshapes currently staged in the reshape ledger "
                   "(crash-safe window)")
+
+    # Learned scoring policy (policy/): training volume, shadow
+    # disagreement (the promotion runbook's first read — a promotion
+    # with near-zero disagreement changes nothing; one with high
+    # disagreement is high-variance), and the gate's verdict history.
+    policy = getattr(loop, "policy", None)
+    if policy is not None:
+        ps = policy.summary()
+        counter("netaware_policy_train_steps_total",
+                float(ps["steps_total"]),
+                "Adam mini-batch steps dispatched over the example "
+                "ring")
+        counter("netaware_policy_examples_total",
+                float(ps["examples_total"]),
+                "Training examples harvested from the explain/"
+                "outcome join")
+        counter("netaware_policy_promotions_total",
+                float(ps["promotions_total"]),
+                "Candidate weight vectors promoted through the "
+                "counterfactual replay gate")
+        counter("netaware_policy_rejections_total",
+                float(ps["rejections_total"]),
+                "Gate runs that refused promotion (no trace, records "
+                "regression, or below the replay margin)")
+        counter("netaware_policy_shadow_disagreement_total",
+                float(ps["shadow_disagreement_total"]),
+                "Recorded decisions the shadow policy would have "
+                "placed on a different node")
+        counter("netaware_policy_shadow_agree_total",
+                float(ps["shadow_agree_total"]),
+                "Recorded decisions the shadow policy agrees with")
+        gauge("netaware_policy_ring_depth",
+              float(ps["ring_depth"]),
+              "Training examples resident in the bounded ring")
+        gauge("netaware_policy_version", float(ps["version"]),
+              "Policy parameter version (increments per train tick)")
+        gauge("netaware_policy_promoted_version",
+              float(ps["promoted_version"]),
+              "Parameter version live in the scorer (0 = hand-tuned "
+              "weights, never promoted)")
 
     return "\n".join(lines) + "\n"
 

@@ -7,8 +7,8 @@ usage ledger equal.  The decision log of the same drive is byte-identical,
 ``replay_decisions`` replays alike, and a loop resumed from one
 checkpoint places the same pods in both packages.  The shapes are
 ``tests/test_checkpoint.py``'s (40 nodes, ``max_nodes=64``,
-``max_pods=16``).  The learned layers that ride beside a checkpoint are
-not ported yet and raise.
+``max_pods=16``).  The learned layers that ride beside a checkpoint
+(``netmodel.npz``, ``policy.npz``) load across packages too.
 """
 
 from __future__ import annotations
@@ -205,14 +205,57 @@ def test_replay_and_resume_from_one_checkpoint_match(tmp_path):
 
 
 def test_learned_layers_raise(tmp_path):
+    """The learned layers ride beside the checkpoint in the JAX files'
+    layout: a saved policy and topology model load back exactly, in
+    either package.  A stored model or policy whose shapes no longer
+    match the config raises in its own loader, and the restore starts
+    that layer fresh instead of failing."""
+    from kubernetesnetawarescheduler_tpu.netmodel import (
+        TopologyModel as JModel,
+    )
+    from kubernetesnetawarescheduler_tpu.policy import (
+        ScoringPolicy as JPolicy,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.netmodel import (
+        TopologyModel,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.policy import ScoringPolicy
+
     _, loop = _drained(TORCH, tmp_path)
     path = str(tmp_path / "ckpt")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tck.save_checkpoint(path, loop.encoder, policy=object())
-    tck.save_checkpoint(path, loop.encoder)
+    tcfg = TCfg(**CFG, enable_learned_score=True, enable_netmodel=True)
+    policy = ScoringPolicy(tcfg, device="cpu")
+    model = TopologyModel(tcfg, seed=3, device="cpu")
+    for k in range(20):
+        model.observe(k % 7, k % 5 + 8, 0.4, 2e10, float(k))
+    model.fit(4)
+    loop.encoder.attach_netmodel(model)
+    tck.save_checkpoint(path, loop.encoder, policy=policy)
     assert tck.load_policy(path, TCfg(**CFG)) is None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tck.load_policy(path, TCfg(**CFG, enable_learned_score=True))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tck.load_checkpoint(path, TCfg(**CFG, enable_netmodel=True),
-                            device="cpu")
+    back = tck.load_policy(path, tcfg, device="cpu")
+    assert back.version == policy.version
+    enc = tck.load_checkpoint(path, tcfg, device="cpu")
+    assert enc.netmodel is not None and enc.netmodel.steps_total == 4
+    for a, b in zip(model.predict(), enc.netmodel.predict()):
+        np.testing.assert_array_equal(a, b)
+    jcfg = JCfg(**CFG, enable_learned_score=True, enable_netmodel=True)
+    jenc = jck.load_checkpoint(path, jcfg)
+    assert isinstance(jenc.netmodel, JModel)
+    assert isinstance(jck.load_policy(path, jcfg), JPolicy)
+    np.testing.assert_array_equal(jenc.netmodel.predict()[1],
+                                  model.predict()[1])
+    skew = TCfg(**CFG, explain_top_k=9, enable_learned_score=True,
+                enable_netmodel=True, netmodel_rank=3)
+    with pytest.raises(ValueError):
+        TopologyModel.load(os.path.join(path, "netmodel.npz"), skew,
+                           device="cpu")
+    with pytest.raises(ValueError):
+        ScoringPolicy.load(os.path.join(path, "policy.npz"), skew,
+                           device="cpu")
+    fresh = tck.load_checkpoint(path, skew, device="cpu")
+    assert fresh.netmodel is not None and fresh.netmodel.steps_total == 0
+    assert tck.load_policy(path, skew, device="cpu").version == 0
+    # A save without the layers drops their files.
+    tck.save_checkpoint(path, tck.load_checkpoint(path, device="cpu"))
+    assert not os.path.exists(os.path.join(path, "netmodel.npz"))
+    assert tck.load_policy(path, tcfg, device="cpu") is None

@@ -683,3 +683,116 @@ def test_rebalance_scan_on_card_equals_cpu(cuda):
     assert torch.equal(dev[2].cpu(), cpu[2])
     assert torch.allclose(dev[0].cpu(), cpu[0], rtol=1e-4, atol=1e-4)
     assert torch.allclose(dev[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)
+
+
+def _netmodel_params(dev, n=5120, seed=4):
+    """Seeded topology-model parameters (a trained model's magnitudes)."""
+    from kubernetesnetawarescheduler_tpu_torch.netmodel.model import (
+        TopoParams,
+    )
+
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale, loc=0.0):
+        return torch.from_numpy(np.asarray(
+            loc + scale * rng.standard_normal(shape), np.float32)).to(dev)
+
+    return TopoParams(x=t((n, 4), 1.0), h=t((n,), 0.2), u=t((n, 8), 0.5),
+                      v=t((n, 8), 0.5), su=t((n,), 0.3), sv=t((n,), 0.3),
+                      mu=t((), 0.0, 22.0))
+
+
+def test_netmodel_predict_dense_on_card_equals_cpu(cuda):
+    from kubernetesnetawarescheduler_tpu_torch.netmodel.model import (
+        _predict_dense,
+    )
+
+    dev_lat, dev_bw = _predict_dense(_netmodel_params(cuda))
+    cpu_lat, cpu_bw = _predict_dense(_netmodel_params("cpu"))
+    torch.cuda.synchronize()
+    assert torch.allclose(dev_lat.cpu(), cpu_lat, rtol=1e-5, atol=0.0)
+    assert torch.allclose(dev_bw.cpu(), cpu_bw, rtol=1e-5, atol=0.0)
+
+
+def test_netmodel_adam_step_on_card_equals_cpu(cuda):
+    from kubernetesnetawarescheduler_tpu_torch.netmodel.model import (
+        TopoParams,
+        _sgd_step,
+    )
+
+    rng = np.random.default_rng(5)
+    b = 256
+    batch = (rng.integers(0, 5120, b), rng.integers(0, 5120, b),
+             rng.uniform(0.1, 3.0, b).astype(np.float32),
+             rng.uniform(20.0, 24.0, b).astype(np.float32),
+             (rng.random(b) > 0.1).astype(np.float32),
+             (rng.random(b) > 0.1).astype(np.float32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _netmodel_params(dev)
+        zeros = TopoParams(*(torch.zeros_like(x) for x in p))
+        t = torch.zeros((), dtype=torch.float32, device=dev)
+        args = [torch.from_numpy(np.asarray(a)).to(dev) for a in batch]
+        outs.append(_sgd_step(p, zeros, zeros, t, zeros, *args, 0.05))
+    torch.cuda.synchronize()
+    for dev_tree, cpu_tree in zip(outs[0][:3] + outs[0][4:],
+                                  outs[1][:3] + outs[1][4:]):
+        for a, c in zip(dev_tree, cpu_tree):
+            assert torch.allclose(a.cpu(), c, rtol=1e-4, atol=1e-6)
+    assert float(outs[0][3]) == float(outs[1][3]) == 1.0
+
+
+def test_policy_adam_step_on_card_equals_cpu(cuda):
+    from kubernetesnetawarescheduler_tpu_torch.policy.model import (
+        NUM_TERMS,
+        PolicyParams,
+        _sgd_step,
+    )
+
+    rng = np.random.default_rng(6)
+    b, k = 128, 8
+    comps = rng.normal(size=(b, k, NUM_TERMS)).astype(np.float32)
+    feas = (rng.random((b, k)) > 0.2).astype(np.float32)
+    feas[:, 0] = 1.0
+    target = np.zeros(b, np.int32)
+    cls = rng.integers(-1, 32, (b, k)).astype(np.int32)
+    theta = (0.3 * rng.normal(size=NUM_TERMS)).astype(np.float32)
+    adj = rng.normal(size=32).astype(np.float32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = PolicyParams(torch.from_numpy(theta).to(dev),
+                         torch.from_numpy(adj).to(dev))
+        zeros = PolicyParams(*(torch.zeros_like(x) for x in p))
+        t = torch.zeros((), dtype=torch.float32, device=dev)
+        args = [torch.from_numpy(a).to(dev)
+                for a in (comps, feas, target, cls)]
+        outs.append(_sgd_step(p, zeros, zeros, t, zeros, *args, 0.05))
+    torch.cuda.synchronize()
+    for i in (0, 1, 2, 4):
+        for a, c in zip(outs[0][i], outs[1][i]):
+            assert torch.allclose(a.cpu(), c, rtol=1e-4, atol=1e-6)
+
+
+def test_quality_harvest_on_card_equals_cpu(cuda):
+    from kubernetesnetawarescheduler_tpu_torch.obs.quality import _evaluate
+
+    rng = np.random.default_rng(7)
+    n, b, k = 5120, 2048, 4
+    lat = rng.uniform(0.1, 5.0, (n, n)).astype(np.float32)
+    bw = rng.uniform(1e9, 1e10, (n, n)).astype(np.float32)
+    valid = rng.random(n) < 0.95
+    chosen = rng.integers(0, n, b).astype(np.int32)
+    peers = rng.integers(-1, n, (b, k)).astype(np.int32)
+    traffic = rng.uniform(0.5, 9.0, (b, k)).astype(np.float32)
+    pred_lat = rng.uniform(0.1, 5.0, (b, k)).astype(np.float32)
+    pred_bw = rng.uniform(1e9, 1e10, (b, k)).astype(np.float32)
+    args = (lat, bw, valid, chosen, peers, traffic, pred_lat, pred_bw)
+    w = SchedulerConfig().weights
+    cpu = _evaluate(*(torch.from_numpy(a) for a in args), w.peer_bw,
+                    w.peer_lat)
+    dev = _evaluate(*(torch.from_numpy(a).to(cuda) for a in args),
+                    w.peer_bw, w.peer_lat)
+    torch.cuda.synchronize()
+    for d, c in zip(dev[:-1], cpu[:-1]):
+        assert torch.allclose(d.cpu(), c, rtol=1e-5, atol=1e-6)
+    assert torch.equal(dev[-1].cpu(), cpu[-1])

@@ -226,7 +226,29 @@ def test_stream_waves_round_trip():
 
 
 def test_netmodel_blend_raises():
-    enc = tencode.Encoder(TCfg(max_nodes=8, max_pods=4, max_peers=2),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="netmodel"):
-        enc.attach_netmodel(object())
+    """An attached, enabled topology model blends the net group (the
+    snapshot equals ``expected_device_arrays()``); an attached object
+    that is no model raises at the next snapshot instead of being
+    skipped."""
+    from kubernetesnetawarescheduler_tpu_torch.k8s import types as ttypes
+    from kubernetesnetawarescheduler_tpu_torch.netmodel import (
+        TopologyModel,
+    )
+
+    cfg = TCfg(max_nodes=8, max_pods=4, max_peers=2, enable_netmodel=True)
+    enc = tencode.Encoder(cfg, device="cpu")
+    for i in range(4):
+        enc.upsert_node(ttypes.Node(name=f"n{i}", capacity={"cpu": 4.0}))
+    model = TopologyModel(cfg, device="cpu")
+    for k in range(12):
+        model.observe(k % 2, 2 + k % 2, 0.5, 1e10, float(k))
+    model.fit(3)
+    enc.attach_netmodel(model)
+    enc.update_link("n0", "n2", lat_ms=0.5, bw_bps=1e10)
+    snap = enc.snapshot()
+    want = enc.expected_device_arrays()
+    np.testing.assert_array_equal(snap.bw.numpy(), want["bw"])
+    assert want["bw"][0, 3] > 0.0 == enc._bw[0, 3]
+    enc.attach_netmodel(object())
+    with pytest.raises(AttributeError):
+        enc.snapshot()

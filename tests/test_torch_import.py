@@ -63,6 +63,11 @@ _MODULES = {
     "k8s.conformance", "serve", "__main__",
     # Robustness: the auditor, the injectors and the rebalancer.
     "core.rebalance", "core.state_chaos", "k8s.chaos",
+    # The learning layers: the topology model and its planner, the
+    # quality observer and the SLO engine, the learned scoring policy.
+    "netmodel", "netmodel.model", "netmodel.planner", "obs",
+    "obs.quality", "obs.slo", "policy", "policy.model", "policy.dataset",
+    "policy.replay_eval",
 }
 
 

@@ -178,6 +178,10 @@ def test_pallas_backend_serial_drive_matches_jax():
                                   "enable_learned_score", "enable_netmodel",
                                   "mesh"])
 def test_unported_layer_refused_at_construction(flag):
+    """The mesh (ROADMAP item 15) is refused when the loop is built.  The
+    learning layers (item 12) are built with the loop; what of them is
+    still unported, the promotion gate's scenario replay (item 14), is
+    refused when its trace is set, never mid-tick."""
     cfg_kw = dict(max_nodes=8, max_pods=4, max_peers=2)
     loop_kw = {}
     if flag == "mesh":
@@ -186,9 +190,25 @@ def test_unported_layer_refused_at_construction(flag):
         cfg_kw[flag] = True
     cluster = tfc.build_fake_cluster(tfc.ClusterSpec(num_nodes=4,
                                                      seed=1))[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.SchedulerLoop(cluster, TCfg(**cfg_kw), device="cpu",
-                            **loop_kw)
+    if flag == "mesh":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 15"):
+            tloop.SchedulerLoop(cluster, TCfg(**cfg_kw), device="cpu",
+                                **loop_kw)
+        return
+    loop = tloop.SchedulerLoop(cluster, TCfg(**cfg_kw), device="cpu")
+    try:
+        layer = {"enable_quality_obs": loop.quality,
+                 "enable_slo": loop.slo,
+                 "enable_learned_score": loop.policy,
+                 "enable_netmodel": loop.encoder}[flag]
+        assert layer is not None
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 14"):
+            loop.policy_eval_trace = "trace.jsonl"
+        assert loop.policy_eval_trace is None
+    finally:
+        loop.stop_bind_worker()
 
 
 def test_rebalance_layer_built_at_construction():

@@ -2,11 +2,12 @@
 ``tests/test_serve.py``: ``--once`` with checkpoint save and restore, a
 checkpoint of another cluster ignored, the UDS server answering while the
 daemon runs, a ``kube:<url>`` drive against the port's fake API server,
-each flag or config field of an unported layer refused with its ROADMAP
-item, the robustness flags starting the auditor, the state-fault injector
-and the rebalancer, their ``/metrics`` families equal to the JAX
-package's (names, labels, HELP and TYPE), and ``--device`` defaulting to
-the card."""
+each flag of an unported layer refused with its ROADMAP item, the
+learning layers' flags and config fields starting their layers, the
+robustness flags starting the auditor, the state-fault injector and the
+rebalancer, their ``/metrics`` families equal to the JAX package's
+(names, labels, HELP and TYPE), and ``--device`` defaulting to the
+card."""
 
 from __future__ import annotations
 
@@ -130,11 +131,9 @@ def test_kube_apiserver_drive_binds_the_pending_pod(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--quality-obs"], 12), (["--slo"], 12), (["--learned-score"], 12),
-    (["--policy-eval-trace", "t.jsonl"], 12), (["--mesh"], 15), (["--multihost"], 15),
-    (["--coordinator", "h:1"], 15), (["--num-processes", "2"], 15),
-    (["--process-id", "0"], 15),
-    ({"enable_netmodel": True}, 12), ({"enable_quality_obs": True}, 12),
+    (["--policy-eval-trace", "t.jsonl"], 14), (["--mesh"], 15),
+    (["--multihost"], 15), (["--coordinator", "h:1"], 15),
+    (["--num-processes", "2"], 15), (["--process-id", "0"], 15),
 ])
 def test_unported_layer_is_refused_before_anything_starts(tmp_path, capsys,
                                                           extra, item):
@@ -147,6 +146,60 @@ def test_unported_layer_is_refused_before_anything_starts(tmp_path, capsys,
     assert len(err) == 1
     assert f"ROADMAP Queue A item {item}" in err[0]
     assert not os.path.exists(tmp_path / "scorer.sock")
+
+
+@pytest.mark.parametrize("extra,families", [
+    (["--quality-obs"], ("netaware_quality_outcomes_total",)),
+    (["--slo"], ("netaware_slo_evaluations_total",)),
+    (["--learned-score"], ("netaware_policy_train_steps_total",)),
+    ({"enable_netmodel": True}, ("netaware_netmodel_sgd_steps_total",)),
+    ({"enable_quality_obs": True, "enable_slo": True,
+      "enable_learned_score": True, "enable_netmodel": True,
+      "enable_explain": True},
+     ("netaware_quality_outcomes_total", "netaware_slo_evaluations_total",
+      "netaware_policy_train_steps_total",
+      "netaware_netmodel_sgd_steps_total")),
+])
+def test_learning_layers_start_from_flags_and_config(tmp_path, extra,
+                                                     families):
+    """The learning layers' flags and config fields start their layers:
+    each family shows once on ``/metrics``, ``/debug/slo`` and
+    ``/debug/policy`` answer, and the daemon stops cleanly."""
+    if isinstance(extra, dict):
+        cfgp = tmp_path / "cfg.json"
+        cfgp.write_text(json.dumps(extra))
+        extra = ["--config", str(cfgp)]
+    uds = str(tmp_path / "scorer.sock")
+    stop = threading.Event()
+    result = {}
+    th = threading.Thread(
+        target=lambda: result.setdefault("rc", serve.main(
+            _argv(tmp_path, *extra, "--probe-period-s", "0.05"), stop)),
+        daemon=True)
+    th.start()
+    try:
+        body = ""
+        for _ in range(400):
+            if os.path.exists(uds):
+                body = call_uds(uds, "/metrics", b"").decode()
+                if all(f"# TYPE {f} " in body for f in families):
+                    break
+            stop.wait(0.05)
+        types_ = [ln.split()[2] for ln in body.splitlines()
+                  if ln.startswith("# TYPE ")]
+        for family in families:
+            assert types_.count(family) == 1, family
+        assert len(types_) == len(set(types_))
+        slo = json.loads(call_uds(uds, "/debug/slo", b""))
+        policy = json.loads(call_uds(uds, "/debug/policy", b""))
+        assert set(slo) == {"slo", "quality"}
+        assert policy["enabled"] is (
+            "netaware_policy_train_steps_total" in families)
+    finally:
+        stop.set()
+        th.join(60.0)
+    assert not th.is_alive()
+    assert result.get("rc") == 0
 
 
 def _metric(body: str, name: str, label: str = "") -> float:
