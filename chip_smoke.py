@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's density replay, serving seam, scheduling
-loop, Score/Filter webhook, device-replay feeds, robustness layers and
-learning layers on one NVIDIA GPU and check them.
+loop, Score/Filter webhook, device-replay feeds, robustness layers,
+learning layers and scenario engine on one NVIDIA GPU and check them.
 
 Run from the repository root:
 
@@ -159,8 +159,30 @@ csrc`` and prints one JSON object per phase:
                 ``no_replay_trace``, SLO evaluations); and the daemon with
                 ``--quality-obs --slo --learned-score`` and
                 ``enable_netmodel`` for 10 s (the families once each,
-                ``/debug/slo`` and ``/debug/policy``, a clean shutdown;
-                ``--policy-eval-trace`` refused, naming ROADMAP item 14).
+                ``/debug/slo`` and ``/debug/policy``, a clean shutdown).
+11. ``scenario`` the scenario engine: the bench suite's campaign
+                (``run_scenario_config``: 256 nodes in three classes,
+                batch 256, every knob on) with its virtual duration cut
+                to ``SCENARIO_DURATION_S``, which must give a clean
+                scorecard, no pod dropped from the queue or lost, no
+                half-moved gang, every state fault repaired, and names
+                bound twice only among the evicted pods, each twice (its
+                wall split by part and the loop's phases reported); the
+                JAX tests' state-fault replay on the card (faults
+                applied and repaired, ≥ 90% bound); a knobs-off trace of
+                the campaign's spec at 5,120 nodes whose ``pod_waves``
+                drain through the loop under ``"xla"`` and ``"pallas"``
+                (each pod bound or unschedulable once, no node over
+                capacity, ≥ 1 static launch per wave with one compaction
+                each, one launch held against its plain version, the
+                bindings the backends share reported); the suite's policy
+                leg (``run_policy_config``: bindings identical with the
+                policy attached, the loser refused by the records leg
+                before any replay, the winner's decision and ratios
+                reported); and the daemon at ``fake:512`` with
+                ``--learned-score --policy-eval-trace`` on the leg's
+                trace, which must finish a gate evaluation, with its
+                replays on the card, and stop every thread it started.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -2559,8 +2581,6 @@ BW_LAT = dict(cpu=0.5, mem=0.5, net_tx=0.0, net_rx=0.0, bandwidth=1.0,
 
 
 def phase_learn():
-    import contextlib
-    import io
     import os
     import tempfile
     import threading
@@ -2998,12 +3018,6 @@ def phase_learn():
         base_argv = ["--cluster", f"fake:{NODES}", "--uds", dsock,
                      "--config", cfgp, "--device", "cuda", "--quality-obs",
                      "--slo", "--learned-score"]
-        err = io.StringIO()
-        with contextlib.redirect_stderr(err):
-            refused = serve.main(base_argv + ["--policy-eval-trace", "x",
-                                              "--once"])
-        check(refused == 2 and "ROADMAP Queue A item 14" in err.getvalue(),
-              f"--policy-eval-trace: rc {refused}, {err.getvalue()[-300:]}")
         stop = threading.Event()
         outcome: dict = {}
 
@@ -3094,6 +3108,513 @@ def phase_learn():
     return info
 
 
+# The scenario engine.  The campaign is the JAX suite's scenario leg at
+# its own shape (256 nodes in three classes, base rate 360, batch 256,
+# every knob on) with its virtual duration cut from 2,900 s to
+# SCENARIO_DURATION_S (≈209 k pods); the fault drive is JAX
+# tests/test_scenario.py's state-fault replay; the width drive streams a
+# knobs-off trace of the campaign's spec at the serving width, its rate
+# ×20 to hold the leg's occupancy, through the loop under both backends;
+# the policy gate is the suite's policy leg at its defaults, then the
+# daemon replaying that leg's trace.
+SCENARIO_DURATION_S = 580.0
+FAULT_DURATION_S, FAULT_RATE = 60.0, 25.0
+WIDTH_RATE, WIDTH_DURATION_S, WIDTH_BATCH = 7200.0, 4.0, 256
+WIDTH_CAPTURE_AT = 20
+POLICY_DAEMON_NODES = 512
+
+
+class _CountingList(list):
+    """A cluster's binding history that also counts every name bound,
+    whatever the replay later truncates."""
+
+    def __init__(self, counts) -> None:
+        super().__init__()
+        self.counts = counts
+
+    def append(self, binding) -> None:
+        self.counts[binding.pod_name] += 1
+        super().append(binding)
+
+
+def phase_scenario():
+    import collections
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import threading
+
+    from kubernetesnetawarescheduler_tpu_torch import serve
+    from kubernetesnetawarescheduler_tpu_torch.api.server import call_uds
+    from kubernetesnetawarescheduler_tpu_torch.bench import suite
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        build_fake_cluster,
+        feed_metrics,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import preempt
+    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+    from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
+    from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
+        IntegrityAuditor,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.core.rebalance import (
+        Rebalancer,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.score import _EPS
+    from kubernetesnetawarescheduler_tpu_torch.obs.quality import (
+        QualityObserver,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.policy import replay_eval
+    from kubernetesnetawarescheduler_tpu_torch.scenario import (
+        generate as sgen,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.scenario import (
+        replay as srep,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.scenario.scorecard import (
+        check_scorecard,
+    )
+
+    t_phase = time.perf_counter()
+    errors: list[str] = []
+    card = nvidia_smi()
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    def counts() -> dict:
+        return {n: fn.launches for n, fn in K.KERNELS.items()}
+
+    def over_capacity(s) -> int:
+        return int(((s.used > s.cap + _EPS).any(dim=1) & s.node_valid)
+                   .sum())
+
+    build_dir = (Path(__file__).resolve().parent
+                 / "kubernetesnetawarescheduler_tpu_torch" / "_build")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    launches = {n: 0 for n in K.KERNELS}
+
+    # 1. The campaign.  Each loop the replay builds keeps a full count of
+    # the names bound (the replay truncates the binding history), every
+    # eviction is recorded, and the replay's wall is split by what its
+    # outermost calls spend (a call made inside another counts in the
+    # outer one; the oracle's loop counts as the oracle).
+    split: collections.Counter = collections.Counter()
+    depth = {"n": 0}
+    restore: list = []
+
+    def timed_part(owner, attr: str, part: str) -> None:
+        real = getattr(owner, attr)
+        restore.append((owner, attr, real))
+
+        def wrapper(*a, **kw):
+            if depth["n"]:
+                return real(*a, **kw)
+            depth["n"] = 1
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                split[part] += time.perf_counter() - t0
+                depth["n"] = 0
+
+        setattr(owner, attr, wrapper)
+
+    built: list = []
+    evicted: collections.Counter = collections.Counter()
+    real_build = srep._build_loop
+    real_evict = preempt.evict_as_unit
+
+    def build(*a, **kw):
+        out = real_build(*a, **kw)
+        client = out[2]
+        inner = client.inner if hasattr(client, "inner") else client
+        names: collections.Counter = collections.Counter()
+        inner.bindings = _CountingList(names)
+        built.append({"loop": out[0], "names": names})
+        return out
+
+    def evict(client, enc, victims):
+        done = real_evict(client, enc, victims)
+        evicted.update(v.name for v in done)
+        return done
+
+    srep._build_loop = build
+    preempt.evict_as_unit = evict
+    for owner, attr, part in (
+            (SchedulerLoop, "run_once", "cycles"),
+            (SchedulerLoop, "maintain", "loop_maintain"),
+            (SchedulerLoop, "run_until_drained", "final_drain"),
+            (IntegrityAuditor, "audit_once", "audits"),
+            (QualityObserver, "harvest", "harvest"),
+            (Rebalancer, "tick", "rebalance_tick"),
+            (Encoder, "set_network", "network_uploads"),
+            (srep, "_sampled_oracle_bw", "oracle")):
+        timed_part(owner, attr, part)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        camp = suite.run_scenario_config(duration_s=SCENARIO_DURATION_S,
+                                         device="cuda").metrics
+    finally:
+        srep._build_loop = real_build
+        preempt.evict_as_unit = real_evict
+        for owner, attr, real in restore:
+            setattr(owner, attr, real)
+    peak_device = int(torch.cuda.max_memory_allocated())
+    d = camp["detail"]
+    sc = d["scorecard"]
+    main_run = built[0]
+    main_loop, names = main_run["loop"], main_run["names"]
+    rebound = {n: c for n, c in names.items() if c > 1}
+    inv = dict(d["invariants"])
+    check(d["scorecard_problems"] == [] and check_scorecard(sc) == [],
+          f"campaign: scorecard problems {d['scorecard_problems']}")
+    check(d["queue_dropped"] == 0, f"campaign: {d['queue_dropped']} pods "
+          f"dropped from the queue")
+    check(d["half_moved_gangs"] == 0,
+          f"campaign: {d['half_moved_gangs']} half-moved gangs")
+    integ = sc["repair_events"]["integrity"]
+    check(integ.get("unrepaired", -1) == 0,
+          f"campaign: unrepaired state faults {integ}")
+    check(len(main_loop.queue) == 0, f"campaign: {len(main_loop.queue)} "
+          f"pods still queued after the drain")
+    check(inv.get("pods_lost", -1) == 0 and inv.get("ledger_orphans", -1)
+          == 0 and inv.get("ledger_missing", -1) == 0,
+          f"campaign: invariants {inv} (a pending pod neither queued nor "
+          f"warned unschedulable, or a ledger mismatch)")
+    check(set(rebound) <= set(evicted)
+          and all(c == 2 for c in rebound.values())
+          and inv.get("pods_double_bound", -1) <= len(rebound),
+          f"campaign: names bound twice {dict(list(rebound.items())[:8])} "
+          f"({len(rebound)}) are not the evicted pods, each twice "
+          f"({len(evicted)} evicted)")
+    check(d["pods_streamed"] == d["gen_stats"]["pods"],
+          f"campaign: streamed {d['pods_streamed']} of "
+          f"{d['gen_stats']['pods']} generated pods")
+    campaign = {
+        "nodes": d["num_nodes"], "batch": d["batch"],
+        "duration_virtual_s": d["duration_virtual_s"],
+        "pods_per_wall_s": camp["value"],
+        "gen_wall_s": d["gen_wall_s"], "replay_wall_s": d["replay_wall_s"],
+        "cycle_p50_ms": d["cycle_p50_ms"],
+        "cycle_p99_ms": d["cycle_p99_ms"],
+        "pods_streamed": d["pods_streamed"], "pods_bound": d["pods_bound"],
+        "unschedulable_events": d["unschedulable_events"],
+        "peak_rss_bytes": d["peak_rss_bytes"],
+        "rss_first_bytes": d["rss_first_bytes"],
+        "rss_last_bytes": d["rss_last_bytes"],
+        "max_memory_allocated": peak_device,
+        "gen_stats": d["gen_stats"], "trace_bytes_gz": d["trace_bytes_gz"],
+        "repair_events": sc["repair_events"],
+        "rebalance": {k: sc["rebalance"][k] for k in (
+            "pods_evicted_total", "half_moved_gangs", "within_budget")},
+        "names_bound_twice": len(rebound), "evicted": len(evicted),
+        "wall_split_s": {**split, "other": d["replay_wall_s"]
+                         - sum(split.values())},
+        "loop_phases": main_loop.timer.summary(),
+        "invariants": inv, "scorecard": sc}
+    del built, main_run, main_loop
+
+    # 2. The fault drive: JAX tests/test_scenario.py's state-fault replay
+    # on the card, only the state-fault knob on.
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        fspec = sgen.ScenarioSpec(
+            seed=1, duration_s=FAULT_DURATION_S, base_rate=FAULT_RATE,
+            tick_s=1.0, gang_fraction=0.0, gang_sizes=(4,),
+            serving_lifetime_s=10.0, batch_lifetime_s=5.0,
+            gang_lifetime_s=8.0, lifetime_floor_s=2.0,
+            state_fault_rate_per_s=0.1,
+            cluster=ClusterSpec(num_nodes=32, seed=3))
+        fpath = os.path.join(tmp, "faulty.jsonl")
+        fstats = sgen.generate_trace(fspec, fpath)
+        t0 = time.perf_counter()
+        fres = srep.replay_trace(fpath, batch=16, chaos=False, drift=False,
+                                 state_faults=True, rebalance=False,
+                                 quality=False, oracle_sample=0,
+                                 queue_capacity=1024, device="cuda")
+        fwall = time.perf_counter() - t0
+    applied = sum(fres.state_faults.values())
+    check(fstats["state_faults"] > 0 and applied > 0,
+          f"fault drive: {applied} faults applied of "
+          f"{fstats['state_faults']} generated")
+    check(fres.integrity is not None
+          and fres.integrity["unrepaired"] == 0,
+          f"fault drive: integrity {fres.integrity}")
+    check(fres.pods_bound >= 0.9 * fres.pods_streamed,
+          f"fault drive: {fres.pods_bound} of {fres.pods_streamed} bound")
+    check(fres.queue_dropped == 0,
+          f"fault drive: {fres.queue_dropped} dropped")
+    fault = {"pods_streamed": fres.pods_streamed,
+             "pods_bound": fres.pods_bound, "state_faults": fres.state_faults,
+             "integrity": fres.integrity, "wall_s": fwall}
+
+    # 3. The width drive: a knobs-off trace of the campaign's spec at the
+    # serving width, its pod_waves through a loop of _build_loop's config,
+    # as built ("xla") and with the kernel backend.
+    wspec = dataclasses.replace(
+        suite.scenario_spec(num_nodes=NODES, duration_s=WIDTH_DURATION_S,
+                            base_rate=WIDTH_RATE, seed=SEED),
+        link_burst_rate_per_s=0.0, node_churn_rate_per_s=0.0,
+        state_fault_rate_per_s=0.0, chaos_seed=None)
+    armed: dict = {"on": False, "calls": 0}
+    real_static = tiled_score.static_tile_scores
+
+    def capturing(pack, groups, pods, use_bfloat16, transposed=False,
+                  peers=None):
+        if armed["on"]:
+            armed["calls"] += 1
+            if armed["calls"] == WIDTH_CAPTURE_AT:
+                armed["args"] = (pack, groups.clone(), pods, use_bfloat16)
+        return real_static(pack, groups, pods, use_bfloat16,
+                           transposed=transposed, peers=peers)
+
+    width: dict = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        wpath = os.path.join(tmp, "width.jsonl.gz")
+        t0 = time.perf_counter()
+        wstats = sgen.generate_trace(wspec, wpath)
+        width["gen_wall_s"] = time.perf_counter() - t0
+        width["pods"] = wstats["pods"]
+        header, _ = sgen.read_trace(wpath)
+        loop0, wcfg, *_ = srep._build_loop(
+            header, WIDTH_BATCH, "parallel", chaos=False,
+            queue_capacity=4096, device="cuda")
+        loop0.stop_bind_worker()
+        del loop0
+        runs = {}
+        for backend in ("xla", "pallas"):
+            cfg = dataclasses.replace(wcfg, score_backend=backend)
+            cluster, lat, bw = build_fake_cluster(wspec.cluster)
+            loop = SchedulerLoop(cluster, cfg, method="parallel",
+                                 device="cuda")
+            loop.encoder.set_network(lat, bw)
+            feed_metrics(cluster, loop.encoder,
+                         np.random.default_rng(wspec.seed + 1))
+            _, events = sgen.read_trace(wpath)
+            waves = 0
+            K.reset_launch_counts()
+            armed["on"] = backend == "pallas"
+            tiled_score.static_tile_scores = capturing
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                for _t, wave in srep.pod_waves(events, WIDTH_BATCH,
+                                               wspec.tick_s,
+                                               cfg.scheduler_name):
+                    cluster.add_pods(wave)
+                    loop.run_once(timeout=0.0)
+                    waves += 1
+                    stall = 0
+                    while len(loop.queue) > 2 * WIDTH_BATCH and stall < 8:
+                        before = (loop.scheduled, len(loop.queue))
+                        loop.run_once(timeout=0.0)
+                        stall = (stall + 1 if (loop.scheduled,
+                                               len(loop.queue)) == before
+                                 else 0)
+                loop.run_until_drained()
+                loop.flush_binds()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c = counts()
+            finally:
+                tiled_score.static_tile_scores = real_static
+                armed["on"] = False
+                loop.stop_bind_worker()
+            if backend == "pallas":
+                for n, v in c.items():
+                    launches[n] += v
+            bound = [(b.pod_name, b.node_name) for b in cluster.bindings]
+            bnames = [n for n, _ in bound]
+            warned = {e.involved_pod for e in cluster.events
+                      if e.type == "Warning"}
+            pending = [p.name for p in cluster.list_pending_pods()]
+            check(len(bnames) == len(set(bnames)),
+                  f"width {backend}: {len(bnames) - len(set(bnames))} pods "
+                  f"bound twice")
+            check(len(bnames) + len(pending) == wstats["pods"]
+                  and all(n in warned for n in pending)
+                  and len(loop.queue) == 0,
+                  f"width {backend}: {len(bnames)} bound + {len(pending)} "
+                  f"pending of {wstats['pods']} "
+                  f"({sum(n not in warned for n in pending)} not "
+                  f"unschedulable)")
+            over = over_capacity(loop.encoder.snapshot())
+            check(over == 0, f"width {backend}: {over} nodes over capacity")
+            if backend == "pallas":
+                check(c["static_scores_kernel"] >= waves,
+                      f"width: {c['static_scores_kernel']} static launches "
+                      f"for {waves} waves")
+                check(c["peer_columns"] == c["static_scores_kernel"],
+                      f"width: peer columns compacted {c['peer_columns']} "
+                      f"times for {c['static_scores_kernel']} static "
+                      f"launches")
+            runs[backend] = {"bindings": dict(bound)}
+            width[backend] = {"pods_per_s": len(bnames) / wall,
+                              "wall_s": wall, "bound": len(bnames),
+                              "unschedulable": len(pending),
+                              "waves": waves, "launches": c,
+                              "loop_phases": loop.timer.summary()}
+            del loop, cluster, lat, bw
+    shared = sum(runs["pallas"]["bindings"].get(k) == v
+                 for k, v in runs["xla"]["bindings"].items())
+    width["bindings_shared"] = shared
+    kernel_check = {}
+    if "args" not in armed:
+        check(False, "width: no static-kernel call was captured")
+    else:
+        pack, groups, kpods, bf16 = armed["args"]
+        with uncounted():
+            raw_t, ok_t = K.static_tile_scores(pack, groups, kpods, bf16,
+                                               transposed=True)
+            raw, ok = K.static_tile_scores_plain(pack, groups, kpods, bf16)
+        torch.cuda.synchronize()
+        raw_t, ok_t = raw_t.T, ok_t.T
+        err = (float((raw_t[ok] - raw[ok]).abs().max())
+               if bool(ok.any()) else 0.0)
+        kernel_check = {"launch": WIDTH_CAPTURE_AT,
+                        "shape": list(raw_t.shape),
+                        "feasible": int(ok.sum()), "max_abs_err": err}
+        check(bool(ok.any()) and torch.equal(ok_t, ok) and torch.allclose(
+            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
+              f"width: static kernel differs from plain by {err}, mask on "
+              f"{int((ok_t != ok).sum())}")
+        del armed["args"], pack, groups, kpods
+    width["static_kernel_vs_plain"] = kernel_check
+
+    # 4. The policy gate: the suite's policy leg at its defaults; the
+    # loser must be refused by the records leg before any replay (two
+    # replays in all: the winner's incumbent and candidate).
+    replays = {"n": 0}
+    real_ratio = replay_eval._replay_ratio
+
+    def counted_ratio(*a, **kw):
+        replays["n"] += 1
+        return real_ratio(*a, **kw)
+
+    replay_eval._replay_ratio = counted_ratio
+    try:
+        pdoc = suite.run_policy_config(device="cuda").metrics
+    finally:
+        replay_eval._replay_ratio = real_ratio
+    pol = pdoc["detail"]["policy"]
+    check(pol["disabled_bit_identical"],
+          "policy: bindings differ with the policy attached")
+    check(pol["rejection"]["reason"] == "records_regression"
+          and replays["n"] == 2,
+          f"policy: the loser was {pol['rejection']['reason']} after "
+          f"{replays['n']} replays in all")
+    gate = {
+        "decision": pol["promotion"]["reason"],
+        "promoted": pol["promoted"],
+        "incumbent_bw_ratio_vs_oracle": pol["incumbent_bw_ratio_vs_oracle"],
+        "candidate_bw_ratio_vs_oracle": pol["candidate_bw_ratio_vs_oracle"],
+        "oracle_gain_recovered_fraction":
+            pol["oracle_gain_recovered_fraction"],
+        "rejection": pol["rejection"]["reason"],
+        "records_delta": pol["rejection"]["records_delta"],
+        "shadow_overhead_fraction": pol["shadow_overhead_fraction"],
+        "shadow_ms_p50": pdoc["detail"]["shadow_ms_p50"],
+        "cycle_ms_p50_off": pdoc["detail"]["cycle_ms_p50_off"],
+        "cycle_ms_p50_on": pdoc["detail"]["cycle_ms_p50_on"],
+        "ab_p50_inflation": pdoc["detail"]["ab_p50_inflation"],
+        "gate_replay_wall_s": pdoc["detail"]["gate_replay_wall_s"],
+        "explains_recorded": pdoc["detail"]["explains_recorded"]}
+
+    # The daemon with the policy leg's trace: it starts, its first
+    # maintain() runs the gate with both replays on the card, and every
+    # thread it started ends.
+    daemon: dict = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        trace = os.path.join(tmp, "policy.jsonl.gz")
+        sgen.generate_trace(suite.policy_trace_spec(), trace)
+        dsock = os.path.join(tmp, "policy.sock")
+        cfgp = os.path.join(tmp, "config.json")
+        with open(cfgp, "w") as fh:
+            json.dump({"max_nodes": POLICY_DAEMON_NODES, "max_pods": 64,
+                       "max_peers": PEERS, "enable_explain": True}, fh)
+        argv = ["--cluster", f"fake:{POLICY_DAEMON_NODES}", "--uds", dsock,
+                "--config", cfgp, "--device", "cuda", "--learned-score",
+                "--policy-eval-trace", trace, "--probe-period-s", "0"]
+        stop = threading.Event()
+        outcome: dict = {}
+        err = io.StringIO()
+
+        def run_daemon():
+            try:
+                with contextlib.redirect_stderr(err):
+                    outcome["rc"] = serve.main(argv, stop)
+            except BaseException as exc:  # noqa: BLE001 - checked below
+                outcome["error"] = repr(exc)
+
+        before = {t.name for t in threading.enumerate()}
+        th = threading.Thread(target=run_daemon, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        pol_doc: dict = {}
+        try:
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline and th.is_alive():
+                if os.path.exists(dsock):
+                    break
+                time.sleep(0.1)
+            daemon["start_s"] = time.perf_counter() - t0
+            if not os.path.exists(dsock):
+                fail("scenario", f"the daemon did not start: {outcome}")
+            deadline = time.monotonic() + 180
+            while time.monotonic() < deadline and th.is_alive():
+                pol_doc = json.loads(call_uds(dsock, "/debug/policy", b""))
+                if (pol_doc.get("rejections_total", 0)
+                        + pol_doc.get("promotions_total", 0)) >= 1:
+                    break
+                time.sleep(0.5)
+            daemon["first_eval_s"] = time.perf_counter() - t0
+            rest = DAEMON_S - (time.perf_counter() - t0)
+            if rest > 0:
+                time.sleep(rest)
+        finally:
+            stop.set()
+            th.join(timeout=120)
+        for _ in range(50):
+            alive = [t.name for t in threading.enumerate()
+                     if t.name not in before and t.is_alive()]
+            if not alive:
+                break
+            time.sleep(0.1)
+        check(pol_doc.get("eval_trace") == trace,
+              f"daemon /debug/policy eval_trace {pol_doc.get('eval_trace')}")
+        tally = {k: pol_doc.get(k, 0) for k in (
+            "evals_total", "rejections_total", "promotions_total")}
+        check(tally["evals_total"] >= 1
+              and tally["rejections_total"] + tally["promotions_total"]
+              == tally["evals_total"],
+              f"daemon: the gate did not finish an evaluation ({tally})")
+        check("NEVER be promoted" not in err.getvalue(),
+              "daemon: the shadow-only WARN with a trace given")
+        check(not th.is_alive(), "the daemon did not stop")
+        check(outcome.get("rc") == 0 and "error" not in outcome,
+              f"daemon shutdown: {outcome}")
+        check(not alive, f"threads left running: {alive}")
+        daemon.update({"nodes": POLICY_DAEMON_NODES, **tally,
+                       "seconds": time.perf_counter() - t0})
+
+    info = {"phase": "scenario", "card": card, "campaign": campaign,
+            "fault_drive": fault, "width": width, "policy": gate,
+            "daemon": daemon, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("scenario", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3132,6 +3653,7 @@ def main() -> int:
     feed_res = run_phase("feed", phase_feed)
     robust_res = run_phase("robust", phase_robust)
     learn_res = run_phase("learn", phase_learn)
+    scenario_res = run_phase("scenario", phase_scenario)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -3147,8 +3669,9 @@ def main() -> int:
     # winner, the webhook's Score/Filter drive for the masked kernel.  The
     # scheduling loop (its four identity drives) runs the static kernel
     # and its compaction, and so do the feed phase's headline drain and
-    # the robust phase's loop drives (identity, rebalance, reshape), and
-    # the learn phase's gang placements and loop drives.
+    # the robust phase's loop drives (identity, rebalance, reshape), the
+    # learn phase's gang placements and loop drives, and the scenario
+    # phase's width drive.
     path_of = {"static_scores_kernel": "main",
                "masked_scores_kernel": "webhook",
                "winner_scores_kernel": "serve",
@@ -3158,7 +3681,8 @@ def main() -> int:
                "webhook": webhook_res["launches"],
                "feed": feed_res["launches"],
                "robust": robust_res["launches"],
-               "learn": learn_res["launches"]}
+               "learn": learn_res["launches"],
+               "scenario": scenario_res["launches"]}
     rows = []
     for kname in K.KERNELS:
         r = kres[prec][kname]

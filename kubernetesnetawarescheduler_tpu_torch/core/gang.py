@@ -278,11 +278,11 @@ def gang_bias(state, member_nodes: Sequence[int],
     return _f32(cfg.gang_weight) * c.mean(dim=1)
 
 
-def _pair_sums(state, nodes: torch.Tensor, valid: torch.Tensor,
-               cfg: SchedulerConfig) -> torch.Tensor:
-    """``f32[S]``: per row of ``nodes i64[S, M]`` the sum of ``C`` over
-    ordered pairs of valid members (loopback pin for co-placed pairs,
-    self pairs excluded)."""
+def _pair_terms(state, nodes: torch.Tensor, valid: torch.Tensor,
+                cfg: SchedulerConfig) -> np.ndarray:
+    """``f32[S, M, M]`` on the host: per row of ``nodes i64[S, M]`` the
+    ``C`` of every ordered pair of valid members (loopback pin for
+    co-placed pairs, self pairs and invalid members 0)."""
     bw_max, lat_max = _net_normalizers(state)
     w = cfg.weights
     idx = nodes.clamp(0, state.bw.shape[0] - 1)
@@ -293,7 +293,73 @@ def _pair_sums(state, nodes: torch.Tensor, valid: torch.Tensor,
     m = nodes.shape[1]
     eye = torch.eye(m, dtype=torch.bool, device=nodes.device)
     ok = valid[:, :, None] & valid[:, None, :] & ~eye
-    return torch.where(ok, c, 0.0).sum(dim=(1, 2))
+    return torch.where(ok, c, 0.0).cpu().numpy()
+
+
+def _seq_sum(values, acc=np.float32(0.0)) -> np.float32:
+    for v in values:
+        acc = np.float32(acc + v)
+    return acc
+
+
+def _lanes_sum(lanes) -> np.float32:
+    """LLVM's ``vector.reduce.fadd`` under ``reassoc``: halve the
+    vector, add the halves lane by lane, repeat."""
+    lanes = list(lanes)
+    while len(lanes) > 1:
+        h = len(lanes) // 2
+        lanes = [np.float32(lanes[i] + lanes[i + h]) for i in range(h)]
+    return lanes[0]
+
+
+def _row_lanes_sum(c: np.ndarray) -> np.float32:
+    """One lane per row, each summed in column order, then the lanes
+    reduced by :func:`_lanes_sum`."""
+    return _lanes_sum(_seq_sum(row) for row in c)
+
+
+def _column_lanes_sum(c: np.ndarray, tail: bool) -> np.float32:
+    """Rows in order over 8 column lanes: lane ``l`` adds the row's
+    columns ``l, l + 8, ...`` to the running sum's lane (the running
+    sum rides in lane 0), and the lanes are reduced after each row.
+    With ``tail``, the last 8 columns skip the lanes and are added one
+    by one after them."""
+    split = c.shape[1] - 8 if tail else c.shape[1]
+    acc = np.float32(0.0)
+    for row in c:
+        lanes = [np.float32(-0.0)] * 8
+        lanes[0] = acc
+        for j, v in enumerate(row[:split]):
+            lanes[j % 8] = np.float32(lanes[j % 8] + v)
+        acc = _seq_sum(row[split:], _lanes_sum(lanes))
+    return acc
+
+
+def _xla_sum(c: np.ndarray, batch: int | None = None) -> np.float32:
+    """The sum of one ``f32[M, M]`` in the order XLA:CPU adds it, so the
+    gang objective has the JAX package's bits: the two passes of
+    :func:`place_gang` often place the same nodes in another member
+    order, and that tie goes one way or the other by the last bit.
+
+    ``batch`` is ``None`` for the eager sum of
+    :func:`intra_gang_pair_score`; for :func:`realization_scores` it is
+    the number of rows its jitted program reduces at once (padded to a
+    power of two), which moves LLVM's choice of vectorization.  The
+    eager sum vectorizes across rows for ``M`` of 2, 4 or 8 and adds in
+    row-major order otherwise.  The jitted one vectorizes across rows
+    for ``M`` up to 4, and for 8 when it reduces at most 2 rows;
+    otherwise it walks the rows over 8 column lanes, the last 8 columns
+    added one by one when it reduces a single row.  These are the
+    programs XLA:CPU builds for an x86-64 host with 256-bit vectors;
+    ``tests/test_torch_gang.py`` holds them against the JAX package."""
+    m = c.shape[0]
+    if batch is None:
+        if m in (2, 4, 8):
+            return _row_lanes_sum(c)
+        return _seq_sum(c.reshape(-1))
+    if m <= 4 or (m == 8 and batch <= 2):
+        return _row_lanes_sum(c)
+    return _column_lanes_sum(c, tail=batch == 1)
 
 
 def intra_gang_pair_score(state, member_nodes: Sequence[int],
@@ -308,8 +374,8 @@ def intra_gang_pair_score(state, member_nodes: Sequence[int],
     if len(nodes) < 2:
         return 0.0
     idx = _index(state, nodes)[None, :]
-    return float(_pair_sums(state, idx, torch.ones_like(idx, dtype=torch.bool),
-                            cfg)[0])
+    c = _pair_terms(state, idx, torch.ones_like(idx, dtype=torch.bool), cfg)
+    return float(_xla_sum(c[0]))
 
 
 def mean_intra_gang_bw(bw: np.ndarray,
@@ -396,15 +462,22 @@ def realization_scores(state, nodes_stack: np.ndarray,
     ``f64[S]`` — each row's :func:`intra_gang_pair_score` (the same
     math: pairwise C over valid members, loopback pin for co-placed
     pairs, self-pairs excluded), so per-shape and cross-shape
-    comparisons share one scale.  The JAX package pads S and M to powers
-    of two to bound its retraces; padded members are invalid and add
-    nothing, and with no trace to bound this port does not pad."""
+    comparisons share one scale.  The JAX package pads M to a power of
+    two (at least 2) to bound its retraces; padded members are invalid
+    and add nothing, but the width sets XLA's order of addition, so the
+    port pads M the same way and sums each row as :func:`_xla_sum`
+    does."""
     dev = state.bw.device
-    nodes = torch.as_tensor(np.asarray(nodes_stack, np.int64), device=dev)
-    valid = torch.as_tensor(np.asarray(valid_stack, bool)
-                            & (np.asarray(nodes_stack) >= 0), device=dev)
-    return _pair_sums(state, nodes, valid, cfg).cpu().numpy().astype(
-        np.float64)
+    s, m = np.asarray(nodes_stack).shape
+    mp = 1 << max(1, (m - 1).bit_length())
+    nodes = np.full((s, mp), -1, np.int64)
+    valid = np.zeros((s, mp), bool)
+    nodes[:, :m] = nodes_stack
+    valid[:, :m] = np.asarray(valid_stack, bool) & (nodes[:, :m] >= 0)
+    c = _pair_terms(state, torch.as_tensor(nodes, device=dev),
+                    torch.as_tensor(valid, device=dev), cfg)
+    sp = 1 << max(0, (s - 1).bit_length())
+    return np.array([_xla_sum(row, batch=sp) for row in c], np.float64)
 
 
 def realization_key(target: int, placed: int, priority: float,

@@ -13,12 +13,12 @@ reconcile paths.  What differs from the JAX loop:
 - The assignment reaches the host through ``.cpu()`` (:func:`_to_host`),
   which waits for the kernels that wrote it.
 - The mesh is not ported yet: asking for one raises
-  :class:`NotImplementedError` when the loop is built, never mid-cycle,
-  and so does a policy replay trace (``policy_eval_trace``, whose gate
-  replays a scenario) when it is set.  Placement quality, SLOs, the
-  learned policy and rebalancing are ported; a device fault inside a
-  maintain-time tick or at the commit seam propagates instead of being
-  swallowed with the host-side errors the JAX loop swallows.
+  :class:`NotImplementedError` when the loop is built, never mid-cycle.
+  Placement quality, SLOs, the learned policy with its promotion gate
+  (whose replay leg runs ``policy_eval_trace`` on the loop's device)
+  and rebalancing are ported; a device fault inside a maintain-time
+  tick or at the commit seam propagates instead of being swallowed with
+  the host-side errors the JAX loop swallows.
 - Explain capture (``enable_explain``) works under both score backends
   (the JAX loop records nothing under ``score_backend="pallas"``), and
   a capture dropped on a host-side error is counted in the flight
@@ -265,10 +265,10 @@ class SchedulerLoop:
         else:
             self.policy = None
             self.policy_dataset = None
-        # Replay trace the eval tick's promotion gate would replay
-        # (refused when set: see the property below); no trace -> the
-        # gate refuses every promotion (shadow-only fail-safe).
-        self._policy_eval_trace: str | None = None
+        # Replay trace the eval tick's promotion gate replays; no
+        # trace -> the gate refuses every promotion (shadow-only
+        # fail-safe).
+        self.policy_eval_trace: str | None = None
         self._policy_last_train = 0.0
         self._policy_last_eval = 0.0
         # Last-seen cumulative shadow-disagreement count, for the
@@ -669,22 +669,6 @@ class SchedulerLoop:
         loop's snapshot is encoder-owned (delta-ingest patches it), so
         its dispatches never donate — count the skip."""
         self.donation_skipped_total += 1
-
-    @property
-    def policy_eval_trace(self) -> str | None:
-        """The scenario trace the promotion gate replays (None: the gate
-        refuses every promotion)."""
-        return self._policy_eval_trace
-
-    @policy_eval_trace.setter
-    def policy_eval_trace(self, path: str | None) -> None:
-        # The replay leg needs scenario/: refuse the trace when it is
-        # set, never mid-tick.
-        if path:
-            raise NotImplementedError(
-                "a policy replay trace needs scenario/ (ROADMAP Queue A "
-                "item 14), which is not ported yet")
-        self._policy_eval_trace = None
 
     def _span_commit(self, sb, pods: Sequence[Pod],
                      static_version: int | None = None,
@@ -2823,10 +2807,12 @@ class SchedulerLoop:
         )
 
         candidate = self.policy.to_score_weights(self.cfg.weights)
+        # The gate's replays run on the loop's own device.
         decision = evaluate_candidate(
             self.cfg, candidate, self.cfg.weights, explains,
             trace_path=self.policy_eval_trace,
-            k_pad=self.policy.k_pad)
+            k_pad=self.policy.k_pad,
+            replay_kwargs={"device": self.encoder.device})
         if not decision.promote:
             self.policy.rejections_total += 1
             return

@@ -8,8 +8,8 @@ parts, wired through the serving loop's maintain cadence:
 - :mod:`.dataset` — off-hot-path join of explain records and quality
   outcomes into training examples;
 - :mod:`.replay_eval` — the counterfactual promotion gate: the
-  recorded re-score here; its seeded scenario replay needs
-  ``scenario/`` (ROADMAP Queue A item 14).
+  recorded re-score, then a seeded scenario replay of incumbent vs
+  candidate weights (``scenario/``).
 
 Disabled (the default) the subsystem is never constructed and
 scoring is bit-identical to the hand-tuned weights.

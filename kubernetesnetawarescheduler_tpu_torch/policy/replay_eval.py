@@ -2,10 +2,10 @@
 replay before they may touch the live scorer.
 
 The PyTorch package's copy of the JAX package's
-``policy/replay_eval.py``, its records leg: candidate weights are never
-promoted directly.  Two counterfactual legs decide:
+``policy/replay_eval.py``: candidate weights are never promoted
+directly.  Two counterfactual legs decide:
 
-1. **Recorded-decision re-score** (cheap, always available; ported):
+1. **Recorded-decision re-score** (cheap, always available):
    every retained explain record's candidate set is re-ranked under the
    candidate term multipliers; the candidate policy's winner is
    compared against the incumbent's recorded winner on the NET
@@ -15,11 +15,14 @@ promoted directly.  Two counterfactual legs decide:
    published disagreement rate.
 
 2. **Seeded scenario replay** (authoritative): the same scenario trace
-   replayed through the real loop under incumbent and candidate
-   weights, scorecards compared on the realized-bandwidth ratio.  It
-   needs ``scenario/`` (ROADMAP Queue A item 14), which is not ported:
-   :func:`_replay_ratio` raises, and a loop or daemon given a replay
-   trace refuses it when it is set, never mid-tick.
+   replayed through the real loop twice — incumbent weights vs
+   candidate weights (via :func:`scenario.replay.replay_trace`'s
+   ``score_weights`` override) — and the scorecards compared on
+   ``bandwidth.realized_bw_ratio_vs_oracle``.  Promotion requires the
+   candidate to beat the incumbent by at least
+   ``cfg.policy_promote_margin``.  The replays run on the device
+   ``replay_kwargs["device"]`` names (``replay_trace``'s default,
+   ``"cuda"``, when it names none); the serving loop passes its own.
 
 No trace, no promotion: without the replay leg the gate refuses
 (``no_replay_trace``) and the policy keeps shadow-scoring.
@@ -140,12 +143,25 @@ def _replay_ratio(trace_path: str, weights: ScoreWeights,
                   cfg: SchedulerConfig,
                   replay_kwargs: Mapping[str, Any] | None
                   ) -> tuple[float, dict[str, Any]]:
-    """One counterfactual campaign: replay the trace under ``weights``
-    and return the scorecard's realized-bandwidth ratio plus the card.
-    The replay needs ``scenario/`` (ROADMAP Queue A item 14)."""
-    raise NotImplementedError(
-        "the policy gate's scenario replay needs scenario/ (ROADMAP "
-        "Queue A item 14), which is not ported yet")
+    """One counterfactual campaign: replay the trace under
+    ``weights`` and return the scorecard's realized-bandwidth ratio
+    (-1.0 when the replay produced no oracle sample) plus the card."""
+    from kubernetesnetawarescheduler_tpu_torch.scenario.replay import (
+        replay_trace,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.scenario.scorecard import (
+        build_scorecard,
+    )
+
+    kw = dict(replay_kwargs or {})
+    kw.setdefault("quality", True)
+    res = replay_trace(trace_path, score_weights=weights, **kw)
+    card = build_scorecard(res)
+    ratio = card.get("bandwidth", {}).get(
+        "realized_bw_ratio_vs_oracle")
+    if ratio is None or not np.isfinite(ratio):
+        return -1.0, card
+    return float(ratio), card
 
 
 def evaluate_candidate(cfg: SchedulerConfig,

@@ -28,10 +28,11 @@ What differs from the JAX daemon:
 - ``--jax-profile-dir`` (its name kept so deploy command lines carry
   over) wraps the run in ``torch.profiler`` and writes a Chrome trace
   there; every device step carries the flight recorder's cycle id.
-- Flags of layers not ported yet (the policy gate's scenario replay
-  trace, the mesh and multi-host serving) make the daemon exit with code
-  2 and one line naming the layer's ROADMAP item, before anything
-  starts.
+- Flags of layers not ported yet (the mesh and multi-host serving)
+  make the daemon exit with code 2 and one line naming the layer's
+  ROADMAP item, before anything starts.
+- ``--policy-eval-trace`` hands the promotion gate its trace; the
+  gate's replays run on the daemon's device.
 - The audit thread and the state-chaos thread end on a fault of the
   device instead of retrying it; shutdown raises that fault after every
   thread is stopped and the daemon's state is saved.
@@ -56,7 +57,6 @@ from kubernetesnetawarescheduler_tpu_torch.config import (
 # CLI flags of layers this package does not have yet, with the ROADMAP
 # item each needs.
 _UNPORTED_FLAGS = (
-    ("policy_eval_trace", "--policy-eval-trace", "scenario/", 14),
     ("mesh", "--mesh", "parallel/sharding.py", 15),
     ("multihost", "--multihost", "parallel/multihost.py", 15),
     ("coordinator", "--coordinator", "parallel/multihost.py", 15),
@@ -255,15 +255,17 @@ def _parser() -> argparse.ArgumentParser:
                          "Needs explain capture (cfg.enable_explain) "
                          "and the quality observer for training "
                          "signal")
+    ap.add_argument("--policy-eval-trace", default="",
+                    help="scenario trace (scenario/generate.py format) "
+                         "the policy promotion gate replays "
+                         "counterfactually; without one the gate "
+                         "refuses every promotion and the policy "
+                         "stays shadow-only")
     # Layers not ported yet: accepted so deploy command lines parse, and
     # refused with their ROADMAP item (see _UNPORTED_FLAGS).
     for flag in ("--mesh", "--multihost"):
         ap.add_argument(flag, action="store_true",
                         help="not ported yet; refused")
-    ap.add_argument("--policy-eval-trace", default="",
-                    help="scenario trace the policy promotion gate "
-                         "replays; needs scenario/, not ported yet; "
-                         "refused")
     ap.add_argument("--coordinator", default="",
                     help="not ported yet; refused")
     ap.add_argument("--num-processes", type=int, default=None,
@@ -316,10 +318,15 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
               f"bind max inflight {cfg.bind_max_inflight}",
               file=sys.stderr)
     if cfg.enable_learned_score:
-        print(f"learned scoring policy enabled (shadow-only: the "
-              f"promotion gate's scenario replay needs ROADMAP Queue A "
-              f"item 14): ring {cfg.policy_ring}, train every "
-              f"{cfg.policy_train_interval_s}s", file=sys.stderr)
+        print(f"learned scoring policy enabled (shadow-first): ring "
+              f"{cfg.policy_ring}, train every "
+              f"{cfg.policy_train_interval_s}s, gate margin "
+              f"{cfg.policy_promote_margin}", file=sys.stderr)
+    # Legal-but-weaker configurations — learned scoring without an eval
+    # trace stays shadow-only — are named with the flag that fixes them.
+    for warn in cfg.startup_warnings(
+            policy_eval_trace=args.policy_eval_trace or None):
+        print(f"WARN: {warn}", file=sys.stderr)
     if cfg.enable_quality_obs:
         print(f"quality observer enabled: outcome ring "
               f"{cfg.quality_ring_size}, harvest every "
@@ -445,6 +452,8 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
                   f"(version {restored_policy.version}, promoted "
                   f"{restored_policy.promoted_version})",
                   file=sys.stderr)
+    if args.policy_eval_trace:
+        loop.policy_eval_trace = args.policy_eval_trace
 
     if args.decision_log:
         from kubernetesnetawarescheduler_tpu_torch.core.checkpoint import (

@@ -253,6 +253,47 @@ def test_joint_scoring_helpers_match_jax():
             ts, np.where(ok, row, -1), cfg_t), rel=1e-6)
 
 
+def _random_net(seed: int, n: int = 40):
+    """One random network, as a duck-typed state of each package."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    bw = rng.uniform(1.0, 100.0, (n, n)).astype(np.float32)
+    lat = rng.uniform(0.1, 5.0, (n, n)).astype(np.float32)
+    valid = np.ones(n, bool)
+    valid[-4:] = False
+    js = types.SimpleNamespace(bw=jnp.asarray(bw), lat=jnp.asarray(lat),
+                               node_valid=jnp.asarray(valid))
+    ts = types.SimpleNamespace(bw=torch.from_numpy(bw),
+                               lat=torch.from_numpy(lat),
+                               node_valid=torch.from_numpy(valid))
+    return rng, js, ts
+
+
+@pytest.mark.parametrize("m", [2, 3, 4, 5, 7, 8, 12, 16, 32])
+def test_gang_objective_has_the_jax_bits(m):
+    """The gang objective sums its pair terms in XLA's order: the same
+    bits as the JAX package for every placement, a member permutation
+    included (the two passes of ``place_gang`` tie on such permutations,
+    and the tie goes one way or the other by the last bit), and for
+    ``realization_scores`` at every batch of candidates."""
+    rng, js, ts = _random_net(m)
+    kw = dict(max_nodes=64, max_pods=16, max_peers=4)
+    cfg_j, cfg_t = JCfg(**kw), TCfg(**kw)
+    for _ in range(6):
+        members = rng.integers(0, 36, m)
+        members[rng.random(m) < 0.1] = -1
+        for order in (members, rng.permutation(members)):
+            assert tgang.intra_gang_pair_score(ts, order, cfg_t) == \
+                jgang.intra_gang_pair_score(js, order, cfg_j)
+    for s in (1, 2, 3, 5, 9):
+        nodes = rng.integers(-1, 36, (s, m)).astype(np.int32)
+        valid = rng.random((s, m)) < 0.9
+        np.testing.assert_array_equal(
+            tgang.realization_scores(ts, nodes, valid, cfg_t),
+            jgang.realization_scores(js, nodes, valid, cfg_j))
+
+
 @pytest.mark.parametrize("shaped", [False, True])
 def test_place_gang_matches_jax(shaped):
     answers = []

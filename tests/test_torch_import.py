@@ -68,6 +68,9 @@ _MODULES = {
     "netmodel", "netmodel.model", "netmodel.planner", "obs",
     "obs.quality", "obs.slo", "policy", "policy.model", "policy.dataset",
     "policy.replay_eval",
+    # The scenario engine and the bench suite's frame and legs.
+    "scenario", "scenario.generate", "scenario.replay", "scenario.scorecard",
+    "bench.suite", "bench.envinfo", "bench.artifact",
 }
 
 

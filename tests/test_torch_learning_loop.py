@@ -12,8 +12,8 @@ under ``"pallas"`` (ROADMAP Queue C item 3), so its policy would get no
 examples there.  Bindings, quality outcomes (rtol 1e-5), the policy's
 steps, version and examples, the model's steps, the ``/metrics`` family
 names and the ``/debug/slo`` and ``/debug/policy`` keys agree.  The
-daemon accepts the layers' flags and refuses ``--policy-eval-trace``
-(ROADMAP item 14).  A device fault in a learning tick or at the commit
+daemon accepts the layers' flags and ``--policy-eval-trace``.  A
+device fault in a learning tick or at the commit
 seam propagates; a host error is swallowed as in the JAX loop.
 """
 
@@ -201,12 +201,17 @@ def test_daemon_accepts_the_learning_flags(tmp_path, capsys):
 
 
 def test_daemon_refuses_the_policy_eval_trace(tmp_path, capsys):
+    """The gate's replay leg is ported (ROADMAP item 14): the daemon
+    starts with ``--policy-eval-trace`` and without the shadow-only
+    WARN."""
     argv = ["--cluster", "fake:16", "--uds", str(tmp_path / "s.sock"),
             "--device", "cpu", "--learned-score", "--policy-eval-trace",
             "trace.jsonl", "--once"]
-    assert serve.main(argv) == 2
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and "ROADMAP Queue A item 14" in err[0]
+    assert serve.main(argv) == 0
+    err = capsys.readouterr().err
+    assert "ROADMAP Queue A item 14" not in err
+    assert "learned scoring policy enabled" in err
+    assert "NEVER be promoted" not in err
 
 
 def _cuda_fault(*_a, **_k):

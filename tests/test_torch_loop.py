@@ -179,9 +179,8 @@ def test_pallas_backend_serial_drive_matches_jax():
                                   "mesh"])
 def test_unported_layer_refused_at_construction(flag):
     """The mesh (ROADMAP item 15) is refused when the loop is built.  The
-    learning layers (item 12) are built with the loop; what of them is
-    still unported, the promotion gate's scenario replay (item 14), is
-    refused when its trace is set, never mid-tick."""
+    learning layers (item 12) are built with the loop, and the promotion
+    gate's replay trace (item 14) is stored when it is set."""
     cfg_kw = dict(max_nodes=8, max_pods=4, max_peers=2)
     loop_kw = {}
     if flag == "mesh":
@@ -203,10 +202,9 @@ def test_unported_layer_refused_at_construction(flag):
                  "enable_learned_score": loop.policy,
                  "enable_netmodel": loop.encoder}[flag]
         assert layer is not None
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 14"):
-            loop.policy_eval_trace = "trace.jsonl"
         assert loop.policy_eval_trace is None
+        loop.policy_eval_trace = "trace.jsonl"
+        assert loop.policy_eval_trace == "trace.jsonl"
     finally:
         loop.stop_bind_worker()
 

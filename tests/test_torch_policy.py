@@ -9,7 +9,12 @@ the same parameters, ``shadow_rank``, ``to_score_weights``,
 are identical.  ``weights_vector(cfg.weights)`` gives the same bits as
 ``wvec=None`` in the port's dense scorer, and a non-default ``wvec``
 agrees with JAX at 1e-4.  ``policy.npz`` loads across packages both
-ways.  The gate's scenario replay is ROADMAP item 14 and raises.
+ways.  The gate's scenario replay leg (``_replay_ratio``) gives the
+same ratio and scorecard as JAX on one small trace, and every decision
+(``replay_win``, ``replay_below_margin``, ``replay_no_oracle_sample``,
+``records_regression``) equals JAX's; the loop's eval tick replays its
+trace on the loop's device, and the daemon accepts
+``--policy-eval-trace``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from kubernetesnetawarescheduler_tpu_torch.core import state as tstate
 from kubernetesnetawarescheduler_tpu_torch.policy import dataset as tds
 from kubernetesnetawarescheduler_tpu_torch.policy import model as tpm
 from kubernetesnetawarescheduler_tpu_torch.policy import replay_eval as tre
+from kubernetesnetawarescheduler_tpu_torch.scenario import generate as tgen
+from kubernetesnetawarescheduler_tpu_torch.scenario import replay as trep
 from tests import gen
 
 # One intra-op thread per test process: the suite runs in parallel
@@ -237,10 +244,130 @@ def _blind_record(i: int) -> dict:
 
 
 def test_replay_leg_names_item_14():
+    """The gate's replay leg is ported (ROADMAP item 14): a candidate
+    the records leg lets through reaches ``_replay_ratio``, whose replay
+    opens the trace."""
     cfg = TORCH.cfg()
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(FileNotFoundError):
         tre.evaluate_candidate(cfg, cfg.weights, cfg.weights, [],
-                               trace_path="trace.jsonl")
+                               trace_path="missing-trace.jsonl",
+                               replay_kwargs={"device": "cpu"})
+
+
+# -- the gate's replay leg ------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def gate_trace(tmp_path_factory):
+    """The suite's policy trace (a std half and an edge half with
+    degraded links, link bursts) at 32 nodes and 8 virtual seconds."""
+    from kubernetesnetawarescheduler_tpu_torch.bench import suite as tsuite
+
+    spec = tsuite.policy_trace_spec(num_nodes=32, duration_s=8.0,
+                                    base_rate=12.0, seed=3)
+    path = str(tmp_path_factory.mktemp("gate") / "trace.jsonl.gz")
+    tgen.generate_trace(spec, path)
+    return path
+
+
+_GATE_KW = dict(batch=16, oracle_sample=48, rebalance=False,
+                state_faults=False)
+
+
+def _memo_replays(monkeypatch):
+    """Each package's ``_replay_ratio`` runs a distinct replay once per
+    test (the decision logic is still each package's own)."""
+    for mod in (jre, tre):
+        real = mod._replay_ratio
+        seen: dict = {}
+
+        def memo(path, weights, cfg, kw, real=real, seen=seen):
+            key = (path, repr(dataclasses.asdict(weights)),
+                   repr(sorted((kw or {}).items())))
+            if key not in seen:
+                seen[key] = real(path, weights, cfg, kw)
+            return seen[key]
+
+        monkeypatch.setattr(mod, "_replay_ratio", memo)
+
+
+def test_replay_ratio_and_gate_decisions_match_jax(gate_trace, monkeypatch):
+    _memo_replays(monkeypatch)
+    outs = []
+    for pkg, dev in ((JAX, {}), (TORCH, {"device": "cpu"})):
+        cfg = pkg.cfg()
+        aware = pkg.W(**W)
+        blind = dataclasses.replace(aware, peer_bw=0.0, peer_lat=0.0)
+        kw = {**_GATE_KW, **dev}
+        ratio, card = pkg.re._replay_ratio(gate_trace, aware, cfg, kw)
+        row = [ratio, sorted(card), card["bandwidth"], card["pods"]]
+        for cand, inc, margin, extra, records in (
+                (aware, blind, 0.005, {}, []),            # replay_win
+                (aware, blind, 10.0, {}, []),             # below margin
+                (aware, aware, None, {"oracle_sample": 0}, []),
+                (blind, aware, None, {},                  # records leg
+                 [_blind_record(i) for i in range(4)])):
+            row.append(_decision(pkg.re.evaluate_candidate(
+                cfg, cand, inc, records, trace_path=gate_trace,
+                margin=margin, k_pad=8,
+                replay_kwargs={**kw, **extra})))
+        outs.append(row)
+    assert outs[1] == outs[0]
+    reasons = [d["reason"] for d in outs[1][4:]]
+    assert reasons == ["replay_win", "replay_below_margin",
+                       "replay_no_oracle_sample", "records_regression"]
+    assert 0.0 <= outs[1][0]
+
+
+def test_loop_eval_tick_replays_its_trace(gate_trace):
+    """With a trace the loop's eval tick runs both legs of the gate, the
+    replays on the loop's device: a fresh policy's candidate equals the
+    incumbent, so the replay leg refuses it below the margin."""
+    from kubernetesnetawarescheduler_tpu_torch.bench import (
+        fakecluster as tfc,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import loop as tloop
+
+    cluster = tfc.build_fake_cluster(tfc.ClusterSpec(num_nodes=16,
+                                                     seed=1))[0]
+    loop = tloop.SchedulerLoop(cluster, TORCH.cfg(), device="cpu")
+    seen = []
+    real = tre._replay_ratio
+
+    def spy(path, weights, cfg, kw):
+        seen.append((path, dict(kw or {})))
+        return real(path, weights, cfg, {**(kw or {}), **_GATE_KW})
+
+    try:
+        loop.policy_eval_trace = gate_trace
+        assert loop.policy_eval_trace == gate_trace
+        tre._replay_ratio = spy
+        loop._policy_eval_tick()
+    finally:
+        tre._replay_ratio = real
+        loop.stop_bind_worker()
+    assert [p for p, _ in seen] == [gate_trace, gate_trace]
+    assert all(str(kw["device"]) == "cpu" for _, kw in seen)
+    pol = loop.policy
+    assert pol.evals_total == 1 and pol.rejections_total == 1
+    assert pol.promotions_total == 0
+
+
+@pytest.mark.parametrize("with_trace", [False, True])
+def test_serve_accepts_the_policy_eval_trace(tmp_path, capsys, gate_trace,
+                                             with_trace):
+    """``--policy-eval-trace`` reaches the loop; learned scoring without
+    it starts with the JAX daemon's WARN."""
+    from kubernetesnetawarescheduler_tpu_torch import serve
+
+    argv = ["--cluster", "fake:16", "--uds", str(tmp_path / "s.sock"),
+            "--device", "cpu", "--learned-score", "--once"]
+    if with_trace:
+        argv += ["--policy-eval-trace", gate_trace]
+    assert serve.main(argv) == 0
+    err = capsys.readouterr().err
+    assert "learned scoring policy enabled" in err
+    assert ("NEVER be promoted" in err) is not with_trace
 
 
 def test_policy_npz_loads_across_packages(tmp_path):

@@ -131,7 +131,7 @@ def test_kube_apiserver_drive_binds_the_pending_pod(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--policy-eval-trace", "t.jsonl"], 14), (["--mesh"], 15),
+    (["--mesh"], 15),
     (["--multihost"], 15), (["--coordinator", "h:1"], 15),
     (["--num-processes", "2"], 15), (["--process-id", "0"], 15),
 ])
