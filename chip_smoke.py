@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's density replay, serving seam, scheduling
 loop, Score/Filter webhook, device-replay feeds, robustness layers,
-learning layers and scenario engine on one NVIDIA GPU and check them.
+learning layers, scenario engine and bench suite on one NVIDIA GPU and
+check them.
 
 Run from the repository root:
 
@@ -183,6 +184,25 @@ csrc`` and prints one JSON object per phase:
                 ``--learned-score --policy-eval-trace`` on the leg's
                 trace, which must finish a gate evaluation, with its
                 replays on the card, and stop every thread it started.
+12. ``suite``   the bench suite's five ``BASELINE.json`` legs (density,
+                custom_network, affinity, binpack, sidecar) and its
+                constraint and gang audits (soft_affinity with its trade
+                analysis and sweeps, spread, zone_affinity, gang) at their
+                default shapes (sidecar and gang at 5,120 nodes), each
+                held to the JAX package's own bars (its suite tests and
+                the gang leg's docstring: no violation, no overcommit, no
+                skew beyond maxSkew, no half-bound gang, gang bandwidth
+                above the gang-blind baseline, custom ≤ original
+                transfer time, the ``.data`` and usage-summary schemas,
+                co-placement ≥ 0.9 of its attainable optimum); every
+                drain through the suite's ``_drain`` binds each pod once
+                or warns it unschedulable once and leaves no node over
+                capacity.  Then the sidecar workload at 5,120 nodes
+                through ``_make_loop``'s config with the kernel backend
+                and the dense one at f32 (identical bindings, ≥ 1 static
+                launch per real batch with one compaction each, one launch
+                held against its plain version) and as built (bf16),
+                reported in pods/s.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -271,6 +291,63 @@ def uncounted():
     finally:
         for name, fn in K.KERNELS.items():
             fn.launches = saved[name]
+
+
+class StaticCapture:
+    """Keeps the ``at``-th call of the static kernel's wrapper made while
+    ``on``, between :meth:`install` and :meth:`restore`, to hold it
+    against the plain version after the drive (:meth:`compare`)."""
+
+    def __init__(self, at: int = 1) -> None:
+        from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+
+        self.at, self.calls, self.on, self.args = at, 0, False, None
+        self._module = tiled_score
+        self._real = tiled_score.static_tile_scores
+
+    def _call(self, pack, groups, pods, use_bfloat16, transposed=False,
+              peers=None):
+        if self.on:
+            self.calls += 1
+            if self.calls == self.at:
+                self.args = (pack, groups.clone(), pods, use_bfloat16)
+        return self._real(pack, groups, pods, use_bfloat16,
+                          transposed=transposed, peers=peers)
+
+    def install(self) -> None:
+        self._module.static_tile_scores = self._call
+
+    def restore(self) -> None:
+        self._module.static_tile_scores = self._real
+        self.on = False
+
+    def compare(self, label: str, check) -> dict:
+        """The captured call on the kernel (transposed, uncounted) and on
+        its plain version: masks identical and feasible scores within
+        ``TOL``.  The capture is dropped."""
+        from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+
+        if self.args is None:
+            check(False, f"{label}: no static-kernel call was captured")
+            return {}
+        pack, groups, pods, bf16 = self.args
+        self.args = None
+        with uncounted():
+            raw_t, ok_t = K.static_tile_scores(pack, groups, pods, bf16,
+                                               transposed=True)
+            raw, ok = K.static_tile_scores_plain(pack, groups, pods, bf16)
+        torch.cuda.synchronize()
+        raw_t, ok_t = raw_t.T, ok_t.T
+        err = (float((raw_t[ok] - raw[ok]).abs().max())
+               if bool(ok.any()) else 0.0)
+        check(bool(ok.any()),
+              f"{label}: the captured batch has no feasible entry")
+        check(torch.equal(ok_t, ok) and torch.allclose(
+            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
+              f"{label}: static kernel differs from plain by {err}, mask "
+              f"on {int((ok_t != ok).sum())}")
+        return {"launch": self.at, "shape": list(raw_t.shape),
+                "feasible": int(ok.sum()), "max_abs_err": err}
 
 
 def nvidia_smi() -> str:
@@ -1638,14 +1715,14 @@ class _FeedSampler:
     warm-up, it sets every kernel count to 0 and arms the capture of one
     static-kernel call of the measured drain."""
 
-    def __init__(self, armed: dict) -> None:
-        self.armed = armed
+    def __init__(self, cap: StaticCapture) -> None:
+        self.cap = cap
 
     def start(self) -> None:
         from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
 
         K.reset_launch_counts()
-        self.armed["on"] = True
+        self.cap.on = True
 
 
 def phase_feed():
@@ -1662,7 +1739,6 @@ def phase_feed():
     )
     from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
-    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
     from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
     from kubernetesnetawarescheduler_tpu_torch.core.score import _EPS
 
@@ -1682,17 +1758,7 @@ def phase_feed():
 
     # 1. The headline drain, as bench.py calls it; one static-kernel call
     # of the measured drain is kept to hold against the plain version.
-    armed: dict = {"on": False, "calls": 0}
-    real_static = tiled_score.static_tile_scores
-
-    def capturing(pack, groups, pods, use_bfloat16, transposed=False,
-                  peers=None):
-        if armed["on"]:
-            armed["calls"] += 1
-            if armed["calls"] == FEED_CAPTURE_AT:
-                armed["args"] = (pack, groups.clone(), pods, use_bfloat16)
-        return real_static(pack, groups, pods, use_bfloat16,
-                           transposed=transposed, peers=peers)
+    cap = StaticCapture(FEED_CAPTURE_AT)
 
     seen: dict = {}
 
@@ -1702,15 +1768,15 @@ def phase_feed():
                             for b in loop.client.bindings]
         seen["over"] = over_capacity(loop.encoder.snapshot())
 
-    tiled_score.static_tile_scores = capturing
+    cap.install()
     try:
         res = density.run_density(
             NODES, PODS, batch_size=BATCH, mode="pipeline",
             chunk_batches=FEED_CHUNK_BATCHES, churn_links=FEED_CHURN_LINKS,
-            score_backend="pallas", sampler=_FeedSampler(armed),
+            score_backend="pallas", sampler=_FeedSampler(cap),
             after_drain=keep, device="cuda")
     finally:
-        tiled_score.static_tile_scores = real_static
+        cap.restore()
     batches = -(-PODS // BATCH)
     names = [n for n, _ in seen["bindings"]]
     launches = seen["launches"]
@@ -1727,30 +1793,11 @@ def phase_feed():
     check(launches["peer_columns"] == launches["static_scores_kernel"],
           f"headline: peer columns compacted {launches['peer_columns']} "
           f"times for {launches['static_scores_kernel']} static launches")
-    kernel_check = {}
-    if "args" not in armed:
-        check(False, "headline: no static-kernel call was captured")
-    else:
-        pack, groups, pods, bf16 = armed["args"]
-        with uncounted():
-            raw_t, ok_t = K.static_tile_scores(pack, groups, pods, bf16,
-                                               transposed=True)
-            raw, ok = K.static_tile_scores_plain(pack, groups, pods, bf16)
-        torch.cuda.synchronize()
-        raw_t, ok_t = raw_t.T, ok_t.T
-        err = (float((raw_t[ok] - raw[ok]).abs().max())
-               if bool(ok.any()) else 0.0)
-        kernel_check = {"launch": FEED_CAPTURE_AT,
-                        "shape": list(raw_t.shape),
-                        "feasible": int(ok.sum()), "max_abs_err": err,
-                        "peer_columns": int((pods.t != 0).any(0).sum())}
-        check(torch.equal(ok_t, ok),
-              f"headline: static mask differs on {int((ok_t != ok).sum())}")
-        check(bool(ok.any()), "headline: the captured batch has no "
-              "feasible entry")
-        check(torch.equal(ok_t, ok) and torch.allclose(
-            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
-              f"headline: static kernel differs from plain by {err}")
+    peer_cols = (int((cap.args[2].t != 0).any(0).sum())
+                 if cap.args is not None else 0)
+    kernel_check = cap.compare("headline", check)
+    if kernel_check:
+        kernel_check["peer_columns"] = peer_cols
     headline = {
         "pods_per_s": res.pods_per_sec, "wall_s": res.wall_s,
         "pods_bound": res.pods_bound,
@@ -1977,7 +2024,6 @@ def phase_robust():
     from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
     from kubernetesnetawarescheduler_tpu_torch.core import rebalance
-    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
     from kubernetesnetawarescheduler_tpu_torch.core.checkpoint import (
         load_checkpoint,
         save_checkpoint,
@@ -2167,27 +2213,17 @@ def phase_robust():
     # 2. Clean-run identity: a pipelined drain without audits and with an
     # audit at every maintain(); one static launch of the audited drive
     # is held against the plain version.
-    armed: dict = {"on": False, "calls": 0}
-    real_static = tiled_score.static_tile_scores
-
-    def capturing(pack, groups, pods, use_bfloat16, transposed=False,
-                  peers=None):
-        if armed["on"]:
-            armed["calls"] += 1
-            if armed["calls"] == ROBUST_CAPTURE_AT:
-                armed["args"] = (pack, groups.clone(), pods, use_bfloat16)
-        return real_static(pack, groups, pods, use_bfloat16,
-                           transposed=transposed, peers=peers)
+    cap = StaticCapture(ROBUST_CAPTURE_AT)
 
     ident = {}
-    tiled_score.static_tile_scores = capturing
+    cap.install()
     try:
         for audited in (False, True):
             cluster, loop = fresh_loop(cfg, burst_batches=8, pipelined=True)
             auditor = IntegrityAuditor(loop.encoder, loop) if audited else None
             pods = backlog(cfg)
             outs = []
-            armed["on"] = audited
+            cap.on = audited
             K.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2206,7 +2242,7 @@ def phase_robust():
                 torch.cuda.synchronize()
             finally:
                 loop.stop_bind_worker()
-            armed["on"] = False
+            cap.on = False
             run_launches = counts()
             for n, v in run_launches.items():
                 launches[n] += v
@@ -2226,7 +2262,7 @@ def phase_robust():
             check(ident[audited]["over"] == 0,
                   f"identity audited={audited}: nodes over capacity")
     finally:
-        tiled_score.static_tile_scores = real_static
+        cap.restore()
     a, b = ident[False], ident[True]
     check(a["bindings"] == b["bindings"], "identity: bindings differ with "
           "the auditor on")
@@ -2237,28 +2273,7 @@ def phase_robust():
     check(bool(b["audits"]) and all(b["audits"]),
           f"identity: {b['audits'].count(False)} audits not clean")
     check(a["counters"][0] > 0, "identity: nothing bound")
-    kernel_check = {}
-    if "args" not in armed:
-        check(False, "identity: no static-kernel call was captured")
-    else:
-        pack, groups, kpods, bf16 = armed["args"]
-        with uncounted():
-            raw_t, ok_t = K.static_tile_scores(pack, groups, kpods, bf16,
-                                               transposed=True)
-            raw, ok = K.static_tile_scores_plain(pack, groups, kpods, bf16)
-        torch.cuda.synchronize()
-        raw_t, ok_t = raw_t.T, ok_t.T
-        err = (float((raw_t[ok] - raw[ok]).abs().max())
-               if bool(ok.any()) else 0.0)
-        kernel_check = {"launch": ROBUST_CAPTURE_AT,
-                        "shape": list(raw_t.shape),
-                        "feasible": int(ok.sum()), "max_abs_err": err}
-        check(bool(ok.any()), "identity: the captured batch has no "
-              "feasible entry")
-        check(torch.equal(ok_t, ok) and torch.allclose(
-            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
-              f"identity: static kernel differs from plain by {err}, mask "
-              f"on {int((ok_t != ok).sum())}")
+    kernel_check = cap.compare("identity", check)
     identity = {"pods": LOOP_PODS, "chunk": ROBUST_CHUNK,
                 "audits": len(b["audits"]), "audit_ms": b["audit_ms"],
                 "wall_s": {"plain": a["wall_s"], "audited": b["wall_s"]},
@@ -2758,15 +2773,7 @@ def phase_learn():
     by_gang: dict = {}
     for p in gpods:
         by_gang.setdefault(gang_key_of(p), []).append(p)
-    armed: dict = {"on": False}
-    real_static = tiled_score.static_tile_scores
-
-    def capturing(pack, groups, pods, use_bfloat16, transposed=False,
-                  peers=None):
-        if armed["on"] and "args" not in armed:
-            armed["args"] = (pack, groups.clone(), pods, use_bfloat16)
-        return real_static(pack, groups, pods, use_bfloat16,
-                           transposed=transposed, peers=peers)
+    cap = StaticCapture()
 
     def judge(state) -> float:
         static = tiled_score.compute_assign_static(state, tcfg)
@@ -2782,11 +2789,11 @@ def phase_learn():
         return float(np.mean(vals))
 
     gang_bw = {}
-    tiled_score.static_tile_scores = capturing
+    cap.install()
     try:
         for label, state in (("sparse", sparse), ("blended", blended),
                              ("oracle", oracle)):
-            armed["on"] = label == "blended"
+            cap.on = label == "blended"
             K.reset_launch_counts()
             gang_bw[label] = judge(state)
             torch.cuda.synchronize()
@@ -2797,30 +2804,11 @@ def phase_learn():
                   f"topology {label}: {c['static_scores_kernel']} static "
                   f"launches for {LEARN_GANGS} gangs")
     finally:
-        tiled_score.static_tile_scores = real_static
-        armed["on"] = False
+        cap.restore()
     denom = gang_bw["oracle"] - gang_bw["sparse"]
     gain = ((gang_bw["blended"] - gang_bw["sparse"]) / denom
             if denom > 0 else 1.0)
-    kernel_check = {}
-    if "args" not in armed:
-        check(False, "topology: no static launch on the blended state")
-    else:
-        pack, groups, kpods, bf16 = armed["args"]
-        with uncounted():
-            raw_t, ok_t = K.static_tile_scores(pack, groups, kpods, bf16,
-                                               transposed=True)
-            raw, ok = K.static_tile_scores_plain(pack, groups, kpods, bf16)
-        torch.cuda.synchronize()
-        raw_t, ok_t = raw_t.T, ok_t.T
-        err = (float((raw_t[ok] - raw[ok]).abs().max())
-               if bool(ok.any()) else 0.0)
-        kernel_check = {"shape": list(raw_t.shape),
-                        "feasible": int(ok.sum()), "max_abs_err": err}
-        check(bool(ok.any()) and torch.equal(ok_t, ok) and torch.allclose(
-            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
-              f"topology: static kernel on the blended state differs from "
-              f"plain by {err}, mask on {int((ok_t != ok).sum())}")
+    kernel_check = cap.compare("topology (blended state)", check)
     p50, p99 = model.residual_quantiles()
     topology = {
         "nodes": NODES, "cycles": LEARN_CYCLES, "budget": LEARN_BUDGET,
@@ -3111,13 +3099,14 @@ def phase_learn():
 # The scenario engine.  The campaign is the JAX suite's scenario leg at
 # its own shape (256 nodes in three classes, base rate 360, batch 256,
 # every knob on) with its virtual duration cut from 2,900 s to
-# SCENARIO_DURATION_S (≈209 k pods); the fault drive is JAX
+# SCENARIO_DURATION_S (≈144 k pods, so that the whole script stays
+# inside its 1,200 s limit on a slow host); the fault drive is JAX
 # tests/test_scenario.py's state-fault replay; the width drive streams a
 # knobs-off trace of the campaign's spec at the serving width, its rate
 # ×20 to hold the leg's occupancy, through the loop under both backends;
 # the policy gate is the suite's policy leg at its defaults, then the
 # daemon replaying that leg's trace.
-SCENARIO_DURATION_S = 580.0
+SCENARIO_DURATION_S = 400.0
 FAULT_DURATION_S, FAULT_RATE = 60.0, 25.0
 WIDTH_RATE, WIDTH_DURATION_S, WIDTH_BATCH = 7200.0, 4.0, 256
 WIDTH_CAPTURE_AT = 20
@@ -3155,7 +3144,6 @@ def phase_scenario():
     )
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
     from kubernetesnetawarescheduler_tpu_torch.core import preempt
-    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
     from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
     from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
         IntegrityAuditor,
@@ -3362,17 +3350,7 @@ def phase_scenario():
                             base_rate=WIDTH_RATE, seed=SEED),
         link_burst_rate_per_s=0.0, node_churn_rate_per_s=0.0,
         state_fault_rate_per_s=0.0, chaos_seed=None)
-    armed: dict = {"on": False, "calls": 0}
-    real_static = tiled_score.static_tile_scores
-
-    def capturing(pack, groups, pods, use_bfloat16, transposed=False,
-                  peers=None):
-        if armed["on"]:
-            armed["calls"] += 1
-            if armed["calls"] == WIDTH_CAPTURE_AT:
-                armed["args"] = (pack, groups.clone(), pods, use_bfloat16)
-        return real_static(pack, groups, pods, use_bfloat16,
-                           transposed=transposed, peers=peers)
+    cap = StaticCapture(WIDTH_CAPTURE_AT)
 
     width: dict = {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -3399,8 +3377,8 @@ def phase_scenario():
             _, events = sgen.read_trace(wpath)
             waves = 0
             K.reset_launch_counts()
-            armed["on"] = backend == "pallas"
-            tiled_score.static_tile_scores = capturing
+            cap.on = backend == "pallas"
+            cap.install()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
@@ -3423,8 +3401,7 @@ def phase_scenario():
                 wall = time.perf_counter() - t0
                 c = counts()
             finally:
-                tiled_score.static_tile_scores = real_static
-                armed["on"] = False
+                cap.restore()
                 loop.stop_bind_worker()
             if backend == "pallas":
                 for n, v in c.items():
@@ -3464,28 +3441,7 @@ def phase_scenario():
     shared = sum(runs["pallas"]["bindings"].get(k) == v
                  for k, v in runs["xla"]["bindings"].items())
     width["bindings_shared"] = shared
-    kernel_check = {}
-    if "args" not in armed:
-        check(False, "width: no static-kernel call was captured")
-    else:
-        pack, groups, kpods, bf16 = armed["args"]
-        with uncounted():
-            raw_t, ok_t = K.static_tile_scores(pack, groups, kpods, bf16,
-                                               transposed=True)
-            raw, ok = K.static_tile_scores_plain(pack, groups, kpods, bf16)
-        torch.cuda.synchronize()
-        raw_t, ok_t = raw_t.T, ok_t.T
-        err = (float((raw_t[ok] - raw[ok]).abs().max())
-               if bool(ok.any()) else 0.0)
-        kernel_check = {"launch": WIDTH_CAPTURE_AT,
-                        "shape": list(raw_t.shape),
-                        "feasible": int(ok.sum()), "max_abs_err": err}
-        check(bool(ok.any()) and torch.equal(ok_t, ok) and torch.allclose(
-            raw_t[ok], raw[ok], rtol=TOL, atol=TOL),
-              f"width: static kernel differs from plain by {err}, mask on "
-              f"{int((ok_t != ok).sum())}")
-        del armed["args"], pack, groups, kpods
-    width["static_kernel_vs_plain"] = kernel_check
+    width["static_kernel_vs_plain"] = cap.compare("width", check)
 
     # 4. The policy gate: the suite's policy leg at its defaults; the
     # loser must be refused by the records leg before any replay (two
@@ -3615,6 +3571,306 @@ def phase_scenario():
     return info
 
 
+# The suite phase: the bench suite's nine BASELINE.json and audit legs at
+# their default shapes (``SUITE_LEGS``; ``SUITE_CUTS`` names a depth cut
+# per leg, none so far), then the sidecar workload under both backends.
+SUITE_LEGS = ("density", "custom_network", "affinity", "soft_affinity",
+              "spread", "zone_affinity", "binpack", "sidecar", "gang")
+SUITE_CUTS: dict[str, dict] = {}
+SIDECAR_APPS, SIDECAR_TIERS = 1024, 6
+SUITE_CAPTURE_AT = 2
+
+
+def phase_suite():
+    import collections
+    import os
+    import tempfile
+
+    from kubernetesnetawarescheduler_tpu_torch.bench import suite
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        build_fake_cluster,
+        feed_metrics,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.core.score import _EPS
+
+    t_phase = time.perf_counter()
+    errors: list[str] = []
+    card = nvidia_smi()
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    def counts() -> dict:
+        return {n: fn.launches for n, fn in K.KERNELS.items()}
+
+    def over_capacity(s) -> int:
+        return int(((s.used > s.cap + _EPS).any(dim=1) & s.node_valid)
+                   .sum())
+
+    # Every drain through the suite's _drain: each pod bound once or
+    # warned unschedulable once, the queue empty, no node over capacity.
+    real_drain = suite._drain
+    drains = collections.Counter()
+    where = {"leg": ""}
+
+    def checked_drain(loop, pods):
+        client = loop.client
+        nb, ne, un0 = (len(client.bindings), len(client.events),
+                       loop.unschedulable)
+        wall = real_drain(loop, pods)
+        names = {p.name for p in pods}
+        bound = collections.Counter(b.pod_name for b in client.bindings[nb:]
+                                    if b.pod_name in names)
+        warned = {e.involved_pod for e in client.events[ne:]
+                  if e.type == "Warning"}
+        pending = [n for n in names if not bound[n]]
+        leg = where["leg"]
+        drains[leg] += 1
+        check(all(c == 1 for c in bound.values()),
+              f"{leg}: {sum(c > 1 for c in bound.values())} pods bound "
+              f"twice in one drain")
+        check(len(pending) == loop.unschedulable - un0
+              and all(n in warned for n in pending)
+              and len(loop.queue) == 0,
+              f"{leg}: {len(bound)} bound + {len(pending)} pending of "
+              f"{len(names)}, unschedulable +{loop.unschedulable - un0}, "
+              f"{sum(n not in warned for n in pending)} not warned, "
+              f"{len(loop.queue)} queued")
+        over = over_capacity(loop.encoder.snapshot())
+        check(over == 0, f"{leg}: {over} nodes over capacity")
+        return wall
+
+    # Every loop a leg builds, for its phase split.
+    built: list = []
+    real_loop = suite.SchedulerLoop
+
+    def recording_loop(*a, **kw):
+        loop = real_loop(*a, **kw)
+        built.append(loop)
+        return loop
+
+    def split(loop) -> dict:
+        return {k: {"count": int(v["count"]), "total_s": v["total_s"],
+                    "p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"]}
+                for k, v in loop.timer.summary().items()
+                if k in ("encode", "score_assign", "bind")}
+
+    legs: dict[str, dict] = {}
+    build_dir = (Path(__file__).resolve().parent
+                 / "kubernetesnetawarescheduler_tpu_torch" / "_build")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    suite._drain = checked_drain
+    suite.SchedulerLoop = recording_loop
+    try:
+        with tempfile.TemporaryDirectory(dir=build_dir) as out:
+            for name in SUITE_LEGS:
+                where["leg"] = name
+                t0 = time.perf_counter()
+                try:
+                    res = suite.CONFIGS[name](out_dir=out, device="cuda",
+                                              **SUITE_CUTS.get(name, {}))
+                except Exception:  # noqa: BLE001 - fails the phase below
+                    errors.append(f"{name}: "
+                                  f"{traceback.format_exc()[-1500:]}")
+                    built.clear()
+                    continue
+                m = res.metrics
+                legs[name] = {"seconds": time.perf_counter() - t0,
+                              "metrics": m,
+                              "artifacts": [os.path.basename(p)
+                                            for p in res.artifacts],
+                              "loops": [split(lp) for lp in built]}
+                built.clear()
+                check_leg(name, m, res.artifacts, check)
+    finally:
+        suite._drain = real_drain
+        suite.SchedulerLoop = real_loop
+    peak_device = int(torch.cuda.max_memory_allocated())
+    for name in SUITE_LEGS:
+        if name not in ("density", "gang"):
+            check(drains[name] > 0, f"{name}: no drain went through _drain")
+
+    # The kernel on this slice's path: the sidecar workload at 5,120
+    # nodes through _make_loop's config, with the kernel backend and the
+    # dense one at f32 (identical bindings), and as built (bf16 dense).
+    probe, base_cfg = suite._make_loop(
+        NODES, SEED, suite.BW_LAT, batch=BATCH,
+        queue=2 * SIDECAR_APPS + BATCH, device="cuda")
+    probe.stop_bind_worker()
+    del probe
+    cap = StaticCapture(SUITE_CAPTURE_AT)
+
+    drives: dict[str, dict] = {}
+    launches = {n: 0 for n in K.KERNELS}
+    real_batches = 2 * -(-SIDECAR_APPS // BATCH)
+    for label, cfg in (
+            ("pallas_f32", dataclasses.replace(
+                base_cfg, score_backend="pallas", use_bfloat16=False)),
+            ("xla_f32", dataclasses.replace(
+                base_cfg, score_backend="xla", use_bfloat16=False)),
+            ("default_bf16", base_cfg)):
+        cluster, lat, bw = build_fake_cluster(
+            ClusterSpec(num_nodes=NODES, seed=SEED))
+        loop = SchedulerLoop(cluster, cfg, method="parallel", device="cuda")
+        loop.encoder.set_network(lat, bw)
+        feed_metrics(cluster, loop.encoder, np.random.default_rng(SEED + 1))
+        apps, sidecars = suite.generate_mesh_workload(
+            SIDECAR_APPS, SIDECAR_TIERS, scheduler_name=cfg.scheduler_name,
+            seed=SEED)
+        where["leg"] = f"sidecar drive {label}"
+        kernel = cfg.score_backend == "pallas"
+        K.reset_launch_counts()
+        cap.on = kernel
+        cap.install()
+        torch.cuda.synchronize()
+        try:
+            wall = checked_drain(loop, apps) + checked_drain(loop, sidecars)
+            torch.cuda.synchronize()
+            c = counts()
+        finally:
+            cap.restore()
+            loop.stop_bind_worker()
+        if kernel:
+            for n, v in c.items():
+                launches[n] += v
+            check(c["static_scores_kernel"] >= real_batches,
+                  f"sidecar drive: {c['static_scores_kernel']} static "
+                  f"launches for {real_batches} batches")
+            check(c["peer_columns"] == c["static_scores_kernel"],
+                  f"sidecar drive: peer columns compacted "
+                  f"{c['peer_columns']} times for "
+                  f"{c['static_scores_kernel']} static launches")
+        else:
+            check(c["static_scores_kernel"] == 0,
+                  f"sidecar drive {label}: the dense path launched "
+                  f"{c['static_scores_kernel']} static kernels")
+        by_name = {p.name: p for p in apps + sidecars}
+        bindings = [(b.pod_name, b.node_name) for b in cluster.bindings]
+        co = sum(cluster.node_of(a.name) != ""
+                 and cluster.node_of(a.name) == cluster.node_of(s.name)
+                 for a, s in zip(apps, sidecars))
+        drives[label] = {"bindings": bindings,
+                         "pods_per_s": loop.scheduled / wall,
+                         "wall_s": wall, "bound": loop.scheduled,
+                         "unschedulable": loop.unschedulable,
+                         "coplaced_same_node": co, "launches": c,
+                         "loop_phases": split(loop)}
+        check(len(bindings) == len(by_name) - loop.unschedulable,
+              f"sidecar drive {label}: {len(bindings)} bindings")
+        del loop, cluster, lat, bw
+    same = (drives["pallas_f32"]["bindings"]
+            == drives["xla_f32"]["bindings"])
+    check(same, "sidecar drive: the kernel backend and the dense one bind "
+          f"differently at f32 on "
+          f"{sum(x != y for x, y in zip(drives['pallas_f32']['bindings'], drives['xla_f32']['bindings']))}"
+          " pods")
+    shared_bf16 = len(set(drives["default_bf16"]["bindings"])
+                      & set(drives["xla_f32"]["bindings"]))
+    for d in drives.values():
+        d["bindings"] = len(d["bindings"])
+    kernel_check = cap.compare("sidecar drive", check)
+
+    info = {"phase": "suite", "card": card, "legs": legs,
+            "cuts": SUITE_CUTS, "drains_checked": dict(drains),
+            "sidecar_drive": {**drives,
+                              "pallas_equals_xla_f32": same,
+                              "bf16_bindings_shared_with_f32": shared_bf16,
+                              "static_kernel_vs_plain": kernel_check},
+            "max_memory_allocated": peak_device, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("suite", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
+
+def check_leg(name: str, m: dict, artifacts: list, check) -> None:
+    """The bars the JAX package holds its own legs to (its
+    ``tests/test_suite.py`` and the gang leg's docstring)."""
+    if name == "custom_network":
+        for n_pods, run in m["runs"].items():
+            check(0 < run["custom_ms"] <= run["original_ms"],
+                  f"custom_network {n_pods} pods: custom "
+                  f"{run['custom_ms']} ms > original {run['original_ms']}")
+        for path in artifacts:
+            lines = Path(path).read_text().splitlines()
+            check(len(lines) == 5 and lines[0].startswith("podsScheduled: ")
+                  and lines[1].startswith("dataPerPod(MB): 100")
+                  and lines[2].startswith("affectedNodes: ")
+                  and set(lines[3]) == {"-"}
+                  and lines[4].startswith("time(ms): "),
+                  f"custom_network: {Path(path).name} is not the .data "
+                  "schema")
+        check(len(artifacts) == 2 * len(m["runs"]) > 0,
+              f"custom_network: {artifacts}")
+    elif name == "density":
+        check(m["pods_bound"] > 0, "density: nothing bound")
+        [path] = artifacts
+        doc = json.loads(Path(path).read_text())
+        check(list(doc) == ["50", "90", "99", "100"]
+              and all(list(r[0]) == ["Name", "Cpu", "Mem"]
+                      for r in doc.values()),
+              f"density: usage summary keys {list(doc)}")
+        cpu = [doc[p][0]["Cpu"] for p in ("50", "90", "99", "100")]
+        check(cpu == sorted(cpu), f"density: Cpu not monotone {cpu}")
+    elif name in ("affinity", "zone_affinity"):
+        check(m["pods_bound"] > 0 and m["violations_total"] == 0,
+              f"{name}: violations {m['violations']}")
+        if name == "zone_affinity":
+            check(min(m["zone_aff_pods"], m["zone_anti_pods"],
+                      m["node_affinity_pods"]) > 0,
+                  f"zone_affinity: a constraint family is missing {m}")
+    elif name == "binpack":
+        for label in ("balanced", "unbalanced"):
+            check(m[label]["pods_bound"] > 0
+                  and m[label]["overcommit_nodes"] == 0
+                  and m[label]["capacity_violations"] == 0,
+                  f"binpack {label}: {m[label]}")
+        check(m["balanced"]["util_std"]
+              <= m["unbalanced"]["util_std"] + 0.05,
+              f"binpack: balanced util_std {m['balanced']['util_std']} > "
+              f"unbalanced {m['unbalanced']['util_std']} + 0.05")
+    elif name == "spread":
+        check(m["pods_bound"] > 0 and m["skew_violations"] == 0
+              and m["hard_spread_groups"] > 0, f"spread: {m}")
+    elif name == "soft_affinity":
+        check(m["pods_bound"] > 0 and m["violations_total"] == 0,
+              f"soft_affinity: {m['violations_total']} violations")
+        check(all(e["violations_total"] == 0
+                  for e in m["zone_pref_weight_sweep"]),
+              "soft_affinity: a sweep point violates a hard constraint")
+        check(len(m["zone_pref_weight_sweep"]) == 5
+              and len(m["zone_pref_batch_sweep"]) == 3
+              and "zone_pref_conclusion" in m,
+              "soft_affinity: a sweep entry is missing")
+        check(m["spread_colocation"] <= m["spread_colocation_control"],
+              f"soft_affinity: colocation {m['spread_colocation']} > "
+              f"control {m['spread_colocation_control']}")
+    elif name == "sidecar":
+        check(m["sidecar_pairs_placed"] > 0
+              and m["coplacement_vs_optimum"] >= 0.9
+              and m["same_rack_rate"] >= m["coplacement_rate"],
+              f"sidecar: {m}")
+    elif name == "gang":
+        check(m["gangs_partially_bound"] == 0
+              and m["gangs_fully_bound"] == m["gangs_submitted"] > 0,
+              f"gang: {m['gangs_partially_bound']} partially bound, "
+              f"{m['gangs_fully_bound']} of {m['gangs_submitted']} whole")
+        check(m["gang_bw_strictly_higher"],
+              f"gang: intra-gang bandwidth {m['mean_intra_gang_bw_gbps']} "
+              f"not above the baseline "
+              f"{m['baseline_intra_gang_bw_gbps']}")
+        check("gate_overhead_ratio" in m, "gang: no gate overhead ratio")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3654,6 +3910,7 @@ def main() -> int:
     robust_res = run_phase("robust", phase_robust)
     learn_res = run_phase("learn", phase_learn)
     scenario_res = run_phase("scenario", phase_scenario)
+    suite_res = run_phase("suite", phase_suite)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -3670,8 +3927,8 @@ def main() -> int:
     # scheduling loop (its four identity drives) runs the static kernel
     # and its compaction, and so do the feed phase's headline drain and
     # the robust phase's loop drives (identity, rebalance, reshape), the
-    # learn phase's gang placements and loop drives, and the scenario
-    # phase's width drive.
+    # learn phase's gang placements and loop drives, the scenario
+    # phase's width drive and the suite phase's sidecar drive.
     path_of = {"static_scores_kernel": "main",
                "masked_scores_kernel": "webhook",
                "winner_scores_kernel": "serve",
@@ -3682,7 +3939,8 @@ def main() -> int:
                "feed": feed_res["launches"],
                "robust": robust_res["launches"],
                "learn": learn_res["launches"],
-               "scenario": scenario_res["launches"]}
+               "scenario": scenario_res["launches"],
+               "suite": suite_res["launches"]}
     rows = []
     for kname in K.KERNELS:
         r = kres[prec][kname]

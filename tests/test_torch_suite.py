@@ -1,11 +1,15 @@
-"""The port's bench suite: its frame and its two legs on the CPU.
+"""The port's bench suite: its frame and its scenario and policy legs on
+the CPU.
 
 ``run_suite(["scenario", "policy"], small=True, device="cpu")`` runs
 the campaign and the policy gate at the JAX suite's small shapes: the
 scorecard lints clean (the repository's ``tools/scenario_check.py``
 included), the disabled policy is bit-identical, the seeded loser is
 refused by the records leg and the seeded winner promoted by the replay
-leg.  Every other leg of the JAX suite is refused by name, with its
+leg.  Every ported leg keeps the JAX leg's defaults and ``SMALL`` shape
+(the nine BASELINE and audit legs are held against the JAX legs in
+``test_torch_suite_baseline.py`` and ``test_torch_suite_audits.py``).
+Every leg the port does not run yet is refused by name, with its
 ROADMAP item, before any leg runs; ``--config all`` is refused the same
 way.  ``bench_env`` and ``write_artifact`` keep the JAX helpers' shape.
 """
@@ -79,11 +83,11 @@ def test_legs_keep_the_jax_suites_shapes():
     assert tsuite.ALL == tuple(jsuite.CONFIGS)
     assert set(tsuite.UNPORTED) | set(tsuite.CONFIGS) == set(jsuite.CONFIGS)
     assert tsuite.BW_LAT.__dict__ == jsuite.BW_LAT.__dict__
-    jspec = jsuite.run_scenario_config.__defaults__
-    tspec = tsuite.run_scenario_config.__defaults__
-    assert tspec[:-1] == jspec
-    assert tsuite.run_policy_config.__defaults__[:-1] == \
-        jsuite.run_policy_config.__defaults__
+    assert tsuite.LATENCY_ONLY.__dict__ == jsuite.LATENCY_ONLY.__dict__
+    for name, leg in tsuite.CONFIGS.items():
+        assert leg.__defaults__[:-1] == jsuite.CONFIGS[name].__defaults__, \
+            name
+        assert leg.__defaults__[-1] == "cuda", name
 
 
 @pytest.mark.parametrize("name", sorted(tsuite.UNPORTED))
