@@ -93,10 +93,20 @@ csrc`` and prints one JSON object per phase:
                 native``) over HTTP, per backend; the daemon
                 (``serve.main``, ``fake:5120``) answering ``/filter``,
                 ``/prioritize``, ``/readyz`` and ``/metrics`` (no repeated
-                ``# TYPE``) over its socket; ``drain_daemon(512, 2048)``
+                ``# TYPE``) over its socket; ``drain_daemon(512, 1024)``
                 against the fake API server, every pod bound exactly
-                once; and ``run_qps`` under both backends (32 sequential
-                requests, then 128 clients × 2,048 requests).
+                once; ``run_qps`` under both backends (32 sequential
+                requests, then 128 clients × 2,048 requests); the native
+                shim's load harness (``run_native_load``: 128 keep-alive
+                clients × 16 requests through the shim, then a daemon
+                process SIGKILLed under the same load) as built, which
+                must score every request, keep the shim's threads within
+                the fleet + 8 and fail open with ``/healthz`` 200; and the
+                same fleet through the shim in front of the kernel backend
+                at f32, whose masked launches must equal the batcher's
+                dispatches (one launch held against its plain version),
+                with 32 fixed payloads answered by the kernel and the
+                dense backend at f32 in identical bodies.
 8. ``feed``     the chunked device-replay feeds and explain capture:
                 bench.py's headline drain, ``run_density(5120, 65536,
                 batch_size=128, mode="pipeline", chunk_batches=16,
@@ -106,7 +116,7 @@ csrc`` and prints one JSON object per phase:
                 capacity, launch the static kernel once per batch with one
                 compaction each, and whose 200th measured static launch is
                 held against the plain version; the identity drive
-                (16,384 pods, no churn): ``mode="host"``, ``"device"`` and
+                (8,192 pods, no churn): ``mode="host"``, ``"device"`` and
                 ``"pipeline"`` with encode overlap on and off must bind
                 alike (the dense backend's pipeline drain is reported);
                 ``measure_multicycle_latency(5120, 128, k=8, reps=10)`` and
@@ -197,7 +207,17 @@ csrc`` and prints one JSON object per phase:
                 co-placement ≥ 0.9 of its attainable optimum); every
                 drain through the suite's ``_drain`` binds each pod once
                 or warns it unschedulable once and leaves no node over
-                capacity.  Then the sidecar workload at 5,120 nodes
+                capacity.  The five layer legs (topology, integrity,
+                quality, rebalance, reshape) at their default shapes,
+                held to their non-clock bars (coverage under 5%, every
+                state fault detected and repaired, observation and
+                no-drift controls bit-identical, the no-outage control
+                with no reshape, its filler on the same nodes and each
+                gang on the same node set, drift detected, no half-moved
+                or half-shaped gang, evictions within budget);
+                every loop they build ends with each submission of a pod
+                bound at most once, every unbound pod warned, the queue
+                empty and no node over capacity.  Then the sidecar workload at 5,120 nodes
                 through ``_make_loop``'s config with the kernel backend
                 and the dense one at f32 (identical bindings, ≥ 1 static
                 launch per real batch with one compaction each, one launch
@@ -239,7 +259,14 @@ WEBHOOK_P = (8, 16, 32, 64, 128, 256)
 WEBHOOK_SETUP_PODS, WEBHOOK_REQUESTS = 512, 64
 WEBHOOK_CANDS = (1, 16, 512, NODES)
 QPS_SEQ, QPS_CLIENTS, QPS_REQUESTS = 32, 128, 2048
-DRAIN_NODES, DRAIN_PODS = 512, 2048
+DRAIN_NODES, DRAIN_PODS = 512, 1024
+# The native shim under load (bench/native_load.py's defaults: 5,120 nodes,
+# max_pods 256, 128 clients of 16 requests, the backend killed mid-flight),
+# then the same fleet in front of the kernel backend at f32, its ``at``-th
+# masked launch held against the plain version, and fixed payloads.
+LOAD_CLIENTS, LOAD_REQUESTS = 128, 16
+LOAD_CAPTURE_AT = 8
+LOAD_PAYLOADS = 32
 HOP_REPS = 50
 TOL = 1e-4
 FLUSH_BYTES = 256 << 20   # > the H100's 50 MB L2
@@ -348,6 +375,61 @@ class StaticCapture:
               f"on {int((ok_t != ok).sum())}")
         return {"launch": self.at, "shape": list(raw_t.shape),
                 "feasible": int(ok.sum()), "max_abs_err": err}
+
+
+class MaskedCapture:
+    """Keeps the ``at``-th call of the masked kernel's wrapper made while
+    ``on``, between :meth:`install` and :meth:`restore`, to hold it
+    against the plain version after the drive (:meth:`compare`)."""
+
+    def __init__(self, at: int = 1) -> None:
+        from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+
+        self.at, self.calls, self.on, self.args = at, 0, False, None
+        self._module = tiled_score
+        self._real = tiled_score.masked_tile_scores
+
+    def _call(self, pack, used, cap, groups, anti, pods, bf16, peers=None):
+        if self.on:
+            self.calls += 1
+            if self.calls == self.at:
+                self.args = (pack, used.clone(), cap.clone(), groups.clone(),
+                             anti.clone(), pods, bf16)
+        return self._real(pack, used, cap, groups, anti, pods, bf16,
+                          peers=peers)
+
+    def install(self) -> None:
+        self._module.masked_tile_scores = self._call
+
+    def restore(self) -> None:
+        self._module.masked_tile_scores = self._real
+        self.on = False
+
+    def compare(self, label: str, check) -> dict:
+        """The captured call on the kernel (uncounted) and on its plain
+        version: infeasible entries identical and feasible scores within
+        ``TOL``.  The capture is dropped."""
+        from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+
+        if self.args is None:
+            check(False, f"{label}: no masked-kernel call was captured")
+            return {}
+        args, self.args = self.args, None
+        with uncounted():
+            got = K.masked_tile_scores(*args)
+            want = K.masked_tile_scores_plain(*args)
+        torch.cuda.synchronize()
+        mg, mw = got > -5e29, want > -5e29
+        err = (float((got[mg] - want[mw]).abs().max())
+               if torch.equal(mg, mw) and bool(mg.any()) else float("inf"))
+        check(bool(mw.any()),
+              f"{label}: the captured batch has no feasible entry")
+        check(torch.equal(mg, mw) and torch.allclose(
+            got[mg], want[mw], rtol=TOL, atol=TOL),
+              f"{label}: masked kernel differs from plain by {err}, mask "
+              f"on {int((mg != mw).sum())}")
+        return {"launch": self.at, "shape": list(got.shape),
+                "feasible": int(mw.sum()), "max_abs_err": err}
 
 
 def nvidia_smi() -> str:
@@ -1383,6 +1465,7 @@ def phase_webhook():
     from kubernetesnetawarescheduler_tpu_torch.bench.daemon_smoke import (
         drain_daemon,
     )
+    from kubernetesnetawarescheduler_tpu_torch.bench import native_load as nl
     from kubernetesnetawarescheduler_tpu_torch.bench.extender_qps import (
         build_webhook,
         run_qps,
@@ -1664,6 +1747,108 @@ def phase_webhook():
                           QPS_REQUESTS, seed=SEED, max_peers=WEBHOOK_PEERS,
                           score_backend=b, device="cuda").to_dict()
                for b in ("pallas", "xla")}
+
+        # The native shim's load harness as built (the dense backend).
+        t0 = time.perf_counter()
+        K.reset_launch_counts()
+        load = nl.run_native_load(NODES, WEBHOOK_MAX_PODS, LOAD_CLIENTS,
+                                  LOAD_REQUESTS, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        load["launches"] = {n: fn.launches for n, fn in K.KERNELS.items()}
+        load["seconds"] = time.perf_counter() - t0
+        kill = load["backend_kill"]
+        check(load["errors"] == 0
+              and load["scored_responses"] == load["requests"]
+              == LOAD_CLIENTS * LOAD_REQUESTS,
+              f"native load: {load['errors']} errors, "
+              f"{load['scored_responses']} of {load['requests']} scored")
+        check(load["shim_peak"].get("threads", 1 << 30) <= LOAD_CLIENTS + 8,
+              f"native load: shim peak {load['shim_peak']}")
+        check(kill["fail_open"] and kill["errors"] == 0
+              and kill["healthz_after"] == 200,
+              f"native load: backend kill {kill}")
+        check(kill["shim_after"].get("threads", 1 << 30) <= 8,
+              f"native load: shim threads after the kill {kill['shim_after']}")
+
+        # The same fleet in front of the kernel backend at f32, built from
+        # the harness's pieces; the dense backend at f32 beside it answers
+        # the fixed payloads.
+        shim_bin = nl.build_shim(str(tmp))
+        payloads, bodies, bound_by = None, {}, {}
+        for backend in ("pallas", "xla"):
+            lp, h = nl.build_backend(NODES, WEBHOOK_MAX_PODS, SEED, "cuda",
+                                     score_backend=backend,
+                                     use_bfloat16=False)
+            loops.append((lp, h))
+            lp.client.add_pods(generate_workload(
+                WorkloadSpec(num_pods=WEBHOOK_SETUP_PODS, seed=SEED + 5,
+                             services=8, peer_fraction=0.5),
+                scheduler_name=lp.cfg.scheduler_name))
+            lp.run_until_drained()
+            bound_by[backend] = sorted((b.pod_name, b.node_name)
+                                       for b in lp.client.bindings)
+            sock = str(tmp / f"load-{backend}.sock")
+            srv = ScorerServer(h, sock)
+            srv.start()
+            servers.append(srv)
+            port = nl._free_port()
+            proc = nl.start_shim(shim_bin, port, sock)
+            procs.append(proc)
+            if not nl.wait_healthz(port, 10.0):
+                check(False, f"load drive {backend}: the shim never came up")
+                continue
+            if backend == "pallas":
+                for _ in range(2):  # warm: the first waves allocate
+                    nl.run_fleet(port, LOAD_CLIENTS, LOAD_REQUESTS, 5000)
+                cap = MaskedCapture(LOAD_CAPTURE_AT)
+                cap.install()
+                d0 = h._batcher.dispatches
+                K.reset_launch_counts()
+                torch.cuda.synchronize()
+                try:
+                    cap.on = True
+                    load_drive = nl.timed_pass(port, proc.pid, LOAD_CLIENTS,
+                                               LOAD_REQUESTS)
+                    torch.cuda.synchronize()
+                    load_launches = {n: fn.launches
+                                     for n, fn in K.KERNELS.items()}
+                finally:
+                    cap.restore()
+                load_dispatches = h._batcher.dispatches - d0
+                load_drive["dispatches"] = load_dispatches
+                load_drive["launches"] = load_launches
+                check(load_drive["errors"] == 0
+                      and load_drive["scored_responses"]
+                      == LOAD_CLIENTS * LOAD_REQUESTS,
+                      f"load drive: {load_drive['errors']} errors, "
+                      f"{load_drive['scored_responses']} scored")
+                check(load_dispatches > 0
+                      and load_launches["masked_scores_kernel"]
+                      == load_dispatches,
+                      f"load drive: masked kernel launched "
+                      f"{load_launches['masked_scores_kernel']} times for "
+                      f"{load_dispatches} batcher dispatches")
+                load_drive["masked_vs_plain"] = cap.compare("load drive",
+                                                            check)
+                names = lp.encoder.known_node_names()
+                prng = np.random.default_rng(SEED + 17)
+                bound = [n for n, _ in bound_by[backend]]
+                payloads = [json.dumps(webhook_args(
+                    prng, i, names, bound,
+                    WEBHOOK_CANDS[i % len(WEBHOOK_CANDS)])).encode()
+                    for i in range(LOAD_PAYLOADS)]
+            bodies[backend] = nl.post_all(port, payloads)
+        check(bound_by["pallas"] == bound_by["xla"],
+              "load drive: the setup workload binds differently under the "
+              "two backends at f32")
+        differ = sum(a != b for a, b in zip(bodies["pallas"], bodies["xla"]))
+        check(len(bodies["pallas"]) == len(bodies["xla"]) == LOAD_PAYLOADS
+              and differ == 0
+              and all(st == 200 and json.loads(b) != []
+                      for st, b in bodies["pallas"]),
+              f"load drive: {differ} of {LOAD_PAYLOADS} shim bodies differ "
+              "between the kernel and the dense backend at f32")
+        load_drive["payload_bodies_differ"] = differ
     finally:
         for srv in servers:
             srv.stop()
@@ -1691,6 +1876,8 @@ def phase_webhook():
             "conc_qps_mean", "conc_qps_passes", "conc_ms", "mean_batch",
             "conc_dispatches", "conc512_qps", "rtt_budget")}
             for b, r in qps.items()},
+        "native_load": load, "load_drive_pallas_f32": load_drive,
+        "load_launches": load_launches,
         "seconds": time.perf_counter() - t_phase,
     }
     if errors:
@@ -1706,7 +1893,7 @@ def phase_webhook():
 # identity drive, the multicycle measurements and the explain drive.
 FEED_CHUNK_BATCHES, FEED_CHURN_LINKS = 16, 4
 FEED_CAPTURE_AT = 200          # the measured drain's launch held vs plain
-IDENTITY_PODS = 16384
+IDENTITY_PODS = 8192
 MULTICYCLE_K, MULTICYCLE_REPS = 8, 10
 
 
@@ -2587,8 +2774,9 @@ def phase_robust():
 # and the gang workload judged on the sparse, blended and oracle planes.
 # The leg's horizon is 280 cycles; at 5,120 nodes a cycle costs 0.4-1 s
 # of host (the planner's selection over 13.1 M pairs, then the refit),
-# so the depth is cut to 96 to keep the phase under ≈150 s.
-LEARN_CYCLES, LEARN_BUDGET, LEARN_STEPS = 96, 64, 36
+# so the depth is cut to 32 (phase `suite` runs the leg itself at its own
+# 1,024 nodes) to keep the whole script inside its limit on a slow host.
+LEARN_CYCLES, LEARN_BUDGET, LEARN_STEPS = 32, 64, 36
 LEARN_GANGS, LEARN_MEMBERS = 16, 8
 # The topology leg's score weights (the JAX suite's BW_LAT).
 BW_LAT = dict(cpu=0.5, mem=0.5, net_tx=0.0, net_rx=0.0, bandwidth=1.0,
@@ -3099,16 +3287,16 @@ def phase_learn():
 # The scenario engine.  The campaign is the JAX suite's scenario leg at
 # its own shape (256 nodes in three classes, base rate 360, batch 256,
 # every knob on) with its virtual duration cut from 2,900 s to
-# SCENARIO_DURATION_S (≈144 k pods, so that the whole script stays
+# SCENARIO_DURATION_S (≈36 k pods, so that the whole script stays
 # inside its 1,200 s limit on a slow host); the fault drive is JAX
 # tests/test_scenario.py's state-fault replay; the width drive streams a
 # knobs-off trace of the campaign's spec at the serving width, its rate
 # ×20 to hold the leg's occupancy, through the loop under both backends;
 # the policy gate is the suite's policy leg at its defaults, then the
 # daemon replaying that leg's trace.
-SCENARIO_DURATION_S = 400.0
+SCENARIO_DURATION_S = 100.0
 FAULT_DURATION_S, FAULT_RATE = 60.0, 25.0
-WIDTH_RATE, WIDTH_DURATION_S, WIDTH_BATCH = 7200.0, 4.0, 256
+WIDTH_RATE, WIDTH_DURATION_S, WIDTH_BATCH = 7200.0, 2.0, 256
 WIDTH_CAPTURE_AT = 20
 POLICY_DAEMON_NODES = 512
 
@@ -3571,13 +3759,32 @@ def phase_scenario():
     return info
 
 
-# The suite phase: the bench suite's nine BASELINE.json and audit legs at
-# their default shapes (``SUITE_LEGS``; ``SUITE_CUTS`` names a depth cut
-# per leg, none so far), then the sidecar workload under both backends.
+# The suite phase: the bench suite's nine BASELINE.json and audit legs and
+# its five layer legs at their default shapes (``SUITE_LEGS``), then the
+# sidecar workload under both backends.  ``SUITE_CUTS`` names a depth cut
+# per leg: the topology leg's probe horizon, 280 cycles at ≈0.14-0.24 s of
+# host each, is cut to 96 (coverage ≈1.2% of the pairs, under the leg's
+# 5%) to keep the whole script inside its limit on a slow host.
+LAYER_LEGS = ("topology", "integrity", "quality", "rebalance", "reshape")
 SUITE_LEGS = ("density", "custom_network", "affinity", "soft_affinity",
-              "spread", "zone_affinity", "binpack", "sidecar", "gang")
-SUITE_CUTS: dict[str, dict] = {}
+              "spread", "zone_affinity", "binpack", "sidecar",
+              "gang") + LAYER_LEGS
+SUITE_CUTS: dict[str, dict] = {"topology": dict(cycles=96)}
 SIDECAR_APPS, SIDECAR_TIERS = 1024, 6
+# What the phase line reports of each layer leg beside its wall seconds.
+LAYER_REPORT = {
+    "topology": ("gain_ratio", "coverage_fraction", "pairs_probed",
+                 "sgd_steps_total", "residual_p50", "residual_p99"),
+    "integrity": ("audits", "audit_ms_p50", "audit_ms_p99", "cycle_ms_p50",
+                  "overhead_fraction", "audit_per_cycle_fraction"),
+    "quality": ("harvest_ms_p50", "harvest_ms_p99", "cycle_ms_p50_off",
+                "cycle_ms_p50_on", "overhead_fraction", "regret_p99",
+                "bw_residual_p99"),
+    "rebalance": ("recovered_frac", "moves", "scan_ms_p50", "scan_ms_max",
+                  "evictions_per_pod_hour", "budget_per_pod_hour"),
+    "reshape": ("recovered_frac", "pods_evicted", "scan_ms_p50",
+                "scan_ms_max", "evictions_per_pod_hour"),
+}
 SUITE_CAPTURE_AT = 2
 
 
@@ -3644,14 +3851,96 @@ def phase_suite():
         check(over == 0, f"{leg}: {over} nodes over capacity")
         return wall
 
-    # Every loop a leg builds, for its phase split.
+    # Every loop a leg builds, for its phase split, with the submissions
+    # of each pod name to its cluster (a rebalancer's re-add included).
     built: list = []
     real_loop = suite.SchedulerLoop
 
-    def recording_loop(*a, **kw):
-        loop = real_loop(*a, **kw)
-        built.append(loop)
+    def recording_loop(cluster, *a, **kw):
+        adds = collections.Counter()
+        real_add = cluster.add_pod
+
+        def add_pod(pod):
+            adds[pod.name] += 1
+            real_add(pod)
+
+        cluster.add_pod = add_pod
+        loop = real_loop(cluster, *a, **kw)
+        built.append((loop, adds))
         return loop
+
+    def loop_end(leg: str, loop, adds) -> dict:
+        """A layer leg's loop at the leg's end: each submission of a pod
+        bound at most once, every pod left unbound warned unschedulable,
+        the queue empty and no node over capacity (the layer legs drain
+        through their own waves, not ``_drain``).  A rebalancer's moves
+        of one tick are each fitted against the capacity before the tick
+        and may overcommit a common target, in the JAX package as here
+        (ROADMAP Queue C item 8): over a loop with a rebalancer, every
+        node over capacity must be the target of a move, and is counted."""
+        client = loop.client
+        with client._lock:
+            pods = list(client._pods.values())
+        seen: set = set()
+        moved_to: set = set()
+        for b in client.bindings:
+            if b.pod_name in seen:
+                moved_to.add(b.node_name)
+            seen.add(b.pod_name)
+        bound = collections.Counter(b.pod_name for b in client.bindings)
+        warned = {e.involved_pod for e in client.events
+                  if e.type == "Warning"}
+        twice = [n for n, c in bound.items() if c > adds[n]]
+        unwarned = [p.name for p in pods
+                    if not p.node_name and p.name not in warned]
+        s = loop.encoder.snapshot()
+        over_rows = (((s.used > s.cap + _EPS).any(dim=1) & s.node_valid)
+                     .nonzero().flatten().tolist())
+        names, _ = loop.encoder.node_table()
+        over = {names[i] for i in over_rows}
+        check(not twice, f"{leg}: {len(twice)} pods bound more often than "
+              f"submitted ({twice[:3]})")
+        check(not unwarned and len(loop.queue) == 0,
+              f"{leg}: {len(unwarned)} pods unbound and not warned, "
+              f"{len(loop.queue)} queued")
+        rebalanced = getattr(loop, "rebalance", None) is not None
+        check(not over or (rebalanced and over <= moved_to),
+              f"{leg}: {len(over)} nodes over capacity, "
+              f"{len(over - moved_to)} of them no move's target")
+        return {"pods": len(pods), "bindings": len(client.bindings),
+                "submissions": sum(adds.values()),
+                "over_capacity_move_targets": len(over)}
+
+    def no_outage_control(loops) -> dict:
+        """The reshape leg's no-outage control (its first shape-aware
+        loop) against the outage control (the loop before it): the same
+        node for every filler pod and the same node set for every gang.
+        The shape-aware gang path may permute a gang's members over that
+        set, in the JAX package as here (ROADMAP Queue C item 9), so the
+        leg's ``no_outage_identical`` is reported, not checked."""
+        last = [{b.pod_name: b.node_name for b in lp.client.bindings}
+                for lp in loops]
+        a, b = last[1], last[2]
+        check(not loops[1].cfg.enable_gang_reshaping
+              and loops[2].cfg.enable_gang_reshaping,
+              "reshape: the leg built its loops in another order")
+        gangs_a, gangs_b = (collections.defaultdict(set) for _ in "ab")
+        for pods, gangs in ((a, gangs_a), (b, gangs_b)):
+            for pod, node in pods.items():
+                if pod.startswith("rg"):
+                    gangs[pod.split("-")[0]].add(node)
+        filler = [p for p in a if not p.startswith("rg")]
+        moved_filler = sum(a[p] != b.get(p) for p in filler)
+        regrouped = sum(gangs_a[g] != gangs_b[g] for g in gangs_a)
+        check(set(a) == set(b) and moved_filler == 0 and regrouped == 0
+              and len(gangs_a) > 0,
+              f"reshape: the no-outage control moved {moved_filler} filler "
+              f"pods and placed {regrouped} gangs on other nodes")
+        return {"gangs": len(gangs_a), "gangs_permuted": sum(
+                    any(a[p] != b.get(p) for p in a if p.startswith(g + "-"))
+                    for g in gangs_a),
+                "filler": len(filler), "filler_moved": moved_filler,
+                "gangs_on_other_nodes": regrouped}
 
     def split(loop) -> dict:
         return {k: {"count": int(v["count"]), "total_s": v["total_s"],
@@ -3685,7 +3974,15 @@ def phase_suite():
                               "metrics": m,
                               "artifacts": [os.path.basename(p)
                                             for p in res.artifacts],
-                              "loops": [split(lp) for lp in built]}
+                              "loops": [split(lp) for lp, _ in built]}
+                if name in LAYER_LEGS:
+                    legs[name]["loop_ends"] = [loop_end(name, lp, adds)
+                                               for lp, adds in built]
+                    check(name == "topology" or len(built) > 0,
+                          f"{name}: built no loop")
+                if name == "reshape":
+                    legs[name]["no_outage_control"] = no_outage_control(
+                        [lp for lp, _ in built])
                 built.clear()
                 check_leg(name, m, res.artifacts, check)
     finally:
@@ -3693,7 +3990,7 @@ def phase_suite():
         suite.SchedulerLoop = real_loop
     peak_device = int(torch.cuda.max_memory_allocated())
     for name in SUITE_LEGS:
-        if name not in ("density", "gang"):
+        if name not in ("density", "gang") + LAYER_LEGS:
             check(drains[name] > 0, f"{name}: no drain went through _drain")
 
     # The kernel on this slice's path: the sidecar workload at 5,120
@@ -3776,7 +4073,16 @@ def phase_suite():
         d["bindings"] = len(d["bindings"])
     kernel_check = cap.compare("sidecar drive", check)
 
-    info = {"phase": "suite", "card": card, "legs": legs,
+    layers = {n: {k: legs[n]["metrics"]["detail"][k] for k in keys}
+              for n, keys in LAYER_REPORT.items() if n in legs}
+    for n in layers:
+        layers[n]["seconds"] = legs[n]["seconds"]
+    if "reshape" in layers:
+        layers["reshape"].update({
+            k: legs["reshape"]["metrics"]["detail"]["reshape"][k]
+            for k in ("reshapes_total", "retiles", "shrinks", "regrows",
+                      "no_outage_identical")})
+    info = {"phase": "suite", "card": card, "layers": layers, "legs": legs,
             "cuts": SUITE_CUTS, "drains_checked": dict(drains),
             "sidecar_drive": {**drives,
                               "pallas_equals_xla_f32": same,
@@ -3869,6 +4175,48 @@ def check_leg(name: str, m: dict, artifacts: list, check) -> None:
               f"not above the baseline "
               f"{m['baseline_intra_gang_bw_gbps']}")
         check("gate_overhead_ratio" in m, "gang: no gate overhead ratio")
+    elif name in LAYER_LEGS:
+        d = m["detail"]
+        [path] = artifacts
+        check(Path(path).name == f"{name}.json"
+              and json.loads(Path(path).read_text())["metric"] == m["metric"],
+              f"{name}: artifact {path}")
+        check(d["bench_env"]["platform"] == "gpu",
+              f"{name}: bench_env platform {d['bench_env']['platform']}")
+        if name == "topology":
+            check(d["coverage_under_5pct"],
+                  f"topology: coverage {d['coverage_fraction']} >= 5%")
+            check(d["sgd_steps_total"] == d["cycles"] * 36,
+                  f"topology: {d['sgd_steps_total']} Adam steps for "
+                  f"{d['cycles']} cycles")
+        elif name == "integrity":
+            check(d["all_faults_detected"] and d["unrepaired_drift"] == 0,
+                  f"integrity: fault matrix {d['fault_matrix']}")
+            check(d["clean_run_bit_identical"],
+                  "integrity: the audited drain binds differently")
+        elif name == "quality":
+            check(d["bit_identical"],
+                  "quality: the observed drain binds differently")
+            check(d["drift_detected"],
+                  f"quality: drift not detected (bw residual p99 "
+                  f"{d['bw_residual_p99']} vs clean "
+                  f"{d['bw_residual_p99_clean']})")
+        elif name == "rebalance":
+            check(d["no_drift_bit_identical"] and d["no_drift_moves"] == 0,
+                  f"rebalance: the no-drift control moved "
+                  f"{d['no_drift_moves']} pods")
+            check(d["half_moved_gangs"] == 0,
+                  f"rebalance: {d['half_moved_gangs']} half-moved gangs")
+            check(d["evictions_per_pod_hour"] <= d["budget_per_pod_hour"],
+                  f"rebalance: {d['evictions_per_pod_hour']} evictions per "
+                  f"pod-hour over the budget {d['budget_per_pod_hour']}")
+        elif name == "reshape":
+            r = d["reshape"]
+            check(r["half_shaped_gangs"] == 0,
+                  f"reshape: {r['half_shaped_gangs']} half-shaped gangs")
+            check(r["no_outage_reshapes"] == 0,
+                  f"reshape: the no-outage control reshaped "
+                  f"{r['no_outage_reshapes']} gangs")
 
 
 def main() -> int:
@@ -3923,7 +4271,8 @@ def main() -> int:
                 "peer_columns": f"{src}:60"}
     # Each kernel's launches on the path it belongs to: the replay for
     # the static kernel and the compaction, the serving seam for the
-    # winner, the webhook's Score/Filter drive for the masked kernel.  The
+    # winner, the webhook's Score/Filter drive for the masked kernel (which
+    # also runs under the native shim's load, path ``native_load``).  The
     # scheduling loop (its four identity drives) runs the static kernel
     # and its compaction, and so do the feed phase's headline drain and
     # the robust phase's loop drives (identity, rebalance, reshape), the
@@ -3936,6 +4285,7 @@ def main() -> int:
     by_path = {"main": main_res["launches"], "serve": serve_res["launches"],
                "loop": loop_res["launches"],
                "webhook": webhook_res["launches"],
+               "native_load": webhook_res["load_launches"],
                "feed": feed_res["launches"],
                "robust": robust_res["launches"],
                "learn": learn_res["launches"],

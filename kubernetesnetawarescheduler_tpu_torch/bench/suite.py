@@ -3,7 +3,7 @@
 The PyTorch package's copy of the JAX package's ``bench/suite.py``: its
 frame (:class:`SuiteResult`, :class:`UsageSampler`, the artifact
 emitters, the loop scaffolding, :data:`SMALL`, :func:`run_suite`,
-:func:`main`) and eleven of its legs, each taking ``device`` (default
+:func:`main`) and sixteen of its legs, each taking ``device`` (default
 ``"cuda"``) and stopping every loop it builds before it returns:
 
 - the five ``BASELINE.json`` configurations: ``density`` (the
@@ -17,6 +17,14 @@ emitters, the loop scaffolding, :data:`SMALL`, :func:`run_suite`,
   ``spread`` (hard zone skew), ``zone_affinity`` (zone-scoped
   (anti-)affinity and nodeAffinity) and ``gang`` (atomic gangs, their
   bandwidth against a gang-blind baseline, the gate's overhead);
+- the robustness and learning layers: ``topology`` (the learned
+  topology model fed a probe budget under 5% of the pairs, judged by
+  gang placement on the sparse, blended and oracle planes),
+  ``integrity`` (the auditor's cost, bit-identity and the state-fault
+  matrix), ``quality`` (the observer's cost, bit-identity and drift
+  calibration), ``rebalance`` (link drift recovered by the budgeted
+  rebalancer against an oracle) and ``reshape`` (a zonal outage
+  recovered by elastic gang reshaping);
 - ``scenario`` — :func:`run_scenario_config`, the trace-driven campaign:
   a diurnal workload trace generated from a seed and streamed through
   the real ``SchedulerLoop`` with the chaos proxy, link bursts, node
@@ -26,9 +34,9 @@ emitters, the loop scaffolding, :data:`SMALL`, :func:`run_suite`,
   cost and the promotion gate: a seeded loser refused by the records
   leg, a seeded winner promoted by the scenario replay leg.
 
-Every other leg of the JAX suite is refused by name before any leg
-runs, with the ROADMAP item that ports it; ``--config all`` is refused
-the same way rather than running a subset.
+The one other leg of the JAX suite, ``fleet``, is refused by name
+before any leg runs, with the ROADMAP item that ports it; ``--config
+all`` is refused the same way rather than running a subset.
 
     python -m kubernetesnetawarescheduler_tpu_torch.bench.suite \\
         --config sidecar [--small] [--device cpu] [--out DIR]
@@ -45,6 +53,7 @@ import time
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from kubernetesnetawarescheduler_tpu_torch.bench.artifact import (
     write_artifact,
@@ -1401,6 +1410,1021 @@ def run_gang_config(out_dir: str | None = None, num_nodes: int = 5120,
                                     metrics))
 
 
+def run_topology_config(out_dir: str | None = None,
+                        num_nodes: int = 1024,
+                        probe_budget: int = 64,
+                        cycles: int = 280,
+                        num_gangs: int = 16,
+                        gang_members: int = 8,
+                        seed: int = 0, device="cuda") -> SuiteResult:
+    """Learned-topology leg (netmodel/) on ``device``: can the
+    coordinate-embedding + low-rank bandwidth model, fed only a probe
+    budget covering a few percent of the pair space, recover enough
+    structure that gang placement on the BLENDED matrices approaches
+    placement on the ground truth?
+
+    Three placements of the same gang workload, all judged against the
+    ground-truth bandwidth matrix:
+
+    - sparse  — model disabled; scoring sees only the raw probe
+      staging matrices (coverage < 5% of pairs, everything else 0);
+    - blended — model enabled; unprobed pairs filled with
+      confidence-weighted predictions;
+    - oracle  — scoring sees the full ground-truth matrices.
+
+    The reported bar is ``gain_ratio = (blended - sparse) /
+    (oracle - sparse)``: the fraction of the oracle's bandwidth gain
+    the learned model recovers.  Target >= 0.8 with probes covering
+    < 5% of pairs.
+    """
+    from kubernetesnetawarescheduler_tpu_torch.bench.envinfo import (
+        bench_env,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        generate_gang_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import (
+        assign as assign_lib,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.encode import Encoder
+    from kubernetesnetawarescheduler_tpu_torch.core.gang import (
+        gang_key_of,
+        mean_intra_gang_bw,
+        place_gang,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.score import (
+        static_node_scores,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.state import (
+        commit_assignments,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.ingest.probe import (
+        FakeProber,
+        ProbeOrchestrator,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.netmodel import (
+        EIGProbePlanner,
+        TopologyModel,
+    )
+
+    cfg = SchedulerConfig(
+        max_nodes=_round_up(num_nodes, 128),
+        max_pods=max(16, gang_members),
+        max_peers=4,
+        weights=BW_LAT,
+        enable_netmodel=True,
+        # ~10k Adam steps across the probe horizon: the inverse-sqrt
+        # lr decay needs that depth to pass its noise floor.
+        netmodel_steps=36,
+    )
+    cluster, lat, bw = build_fake_cluster(
+        ClusterSpec(num_nodes=num_nodes, seed=seed))
+    nodes = cluster.list_nodes()
+    names = [n.name for n in nodes]
+    enc = Encoder(cfg, device=device)
+    dev = enc.device
+    for node in nodes:
+        enc.upsert_node(node)
+    feed_metrics(cluster, enc, np.random.default_rng(seed + 1))
+
+    model = TopologyModel(cfg, seed=seed, device=device)
+    enc.attach_netmodel(model)
+    planner = EIGProbePlanner(
+        model, explore_frac=cfg.netmodel_explore_frac, seed=seed)
+    prober = FakeProber(names, lat, bw, noise=0.02, seed=seed)
+    orch = ProbeOrchestrator(enc, prober, names,
+                             planner=planner, model=model)
+    for _ in range(cycles):
+        orch.run_cycle(budget=probe_budget)
+        orch.advance_clock(60.0)
+    stale = orch.staleness()
+
+    # Gang workload shared by all three placements.
+    pods = generate_gang_workload(
+        num_gangs=num_gangs, member_counts=(gang_members,),
+        filler_pods=0, seed=seed)
+    by_gang: dict[str, list[Pod]] = {}
+    for p in pods:
+        key = gang_key_of(p)
+        if key:
+            by_gang.setdefault(key, []).append(p)
+    gang_keys = sorted(by_gang)
+
+    def _eval(state) -> float:
+        """Place every gang against ``state``; judge against truth."""
+        static = static_node_scores(state, cfg)
+        st, vals = state, []
+        for key in gang_keys:
+            members = by_gang[key]
+            batch = enc.encode_pods(members, lambda n: "")
+            a = place_gang(st, batch, cfg, static,
+                           assign_lib.assign_parallel, len(members))
+            st = commit_assignments(st, batch, torch.from_numpy(a).to(dev))
+            vals.append(mean_intra_gang_bw(
+                bw, np.asarray(a[:len(members)], np.int64)))
+        return float(np.mean(vals)) if vals else 0.0
+
+    blended_state = enc.snapshot()
+    model.enabled = False
+    enc.touch_net()
+    sparse_state = enc.snapshot()
+    model.enabled = True
+    n_pad = cfg.max_nodes
+    lat_pad = np.zeros((n_pad, n_pad), np.float32)
+    bw_pad = np.zeros((n_pad, n_pad), np.float32)
+    lat_pad[:num_nodes, :num_nodes] = lat
+    bw_pad[:num_nodes, :num_nodes] = bw
+    oracle_state = sparse_state.replace(
+        lat=torch.from_numpy(lat_pad).to(dev),
+        bw=torch.from_numpy(bw_pad).to(dev))
+
+    sparse_bw = _eval(sparse_state)
+    blended_bw = _eval(blended_state)
+    oracle_bw = _eval(oracle_state)
+    denom = oracle_bw - sparse_bw
+    gain_ratio = ((blended_bw - sparse_bw) / denom) if denom > 0 else 1.0
+
+    resid_p50, resid_p99 = model.residual_quantiles()
+
+    def _f(x: float) -> float | None:
+        return float(x) if np.isfinite(x) else None
+
+    coverage = float(stale["coverage_fraction"])
+    doc = {
+        "metric": "topology_model",
+        "value": round(float(gain_ratio), 6),
+        "unit": "blended_gain_fraction_of_oracle",
+        "seed": seed,
+        "detail": {
+            "num_nodes": num_nodes,
+            "probe_budget": probe_budget,
+            "cycles": cycles,
+            "num_gangs": num_gangs,
+            "gang_members": gang_members,
+            "pairs_total": int(stale["total_pairs"]),
+            "pairs_probed": int(stale["tracked_pairs"]),
+            "coverage_fraction": coverage,
+            "coverage_under_5pct": bool(coverage < 0.05),
+            "oracle_bw_gbps": oracle_bw / 1e9,
+            "sparse_bw_gbps": sparse_bw / 1e9,
+            "blended_bw_gbps": blended_bw / 1e9,
+            "gain_ratio": float(gain_ratio),
+            "gain_target_met": bool(gain_ratio >= 0.8),
+            "model_dim": cfg.netmodel_dim,
+            "model_rank": cfg.netmodel_rank,
+            "sgd_steps_total": model.steps_total,
+            "residual_p50": _f(resid_p50),
+            "residual_p99": _f(resid_p99),
+            "planner_entropy_bits": float(planner.last_entropy_bits),
+            "bench_env": bench_env(),
+        },
+    }
+    return SuiteResult("topology", doc,
+                       _write_audit(out_dir, "topology.json", doc))
+
+
+def _placements_sorted(loop: SchedulerLoop) -> list:
+    """Every binding of ``loop`` as ``(namespace, pod, node)``, sorted."""
+    return sorted((b.namespace, b.pod_name, b.node_name)
+                  for b in loop.client.bindings)
+
+
+def _last_placements(loop: SchedulerLoop) -> dict[str, str]:
+    """Pod -> node of its LAST binding (a moved pod re-binds)."""
+    out: dict[str, str] = {}
+    for b in loop.client.bindings:
+        out[b.pod_name] = b.node_name
+    return out
+
+
+def _drain_waves(loop: SchedulerLoop, pods: Sequence[Pod],
+                 batch: int) -> None:
+    """Batch-sized arrival waves, one cycle each, then drain and flush
+    (the rebalance and reshape legs' drain)."""
+    for start in range(0, len(pods), batch):
+        loop.client.add_pods(pods[start:start + batch])
+        loop.run_once()
+    loop.run_until_drained()
+    loop.flush_binds()
+
+
+def _degrade(lat0: np.ndarray, bw0: np.ndarray, idx: Sequence[int],
+             factor: float) -> tuple[np.ndarray, np.ndarray]:
+    """Copies of the float64 matrices with every link touching a node of
+    ``idx`` degraded: ``lat * factor``, ``bw / factor``, diagonal 0."""
+    lat_d, bw_d = lat0.copy(), bw0.copy()
+    for i in idx:
+        lat_d[i, :] *= factor
+        lat_d[:, i] *= factor
+        bw_d[i, :] /= factor
+        bw_d[:, i] /= factor
+    np.fill_diagonal(lat_d, 0.0)
+    return lat_d, bw_d
+
+
+def _realized_bw(pods: Sequence[Pod], placements: dict[str, str], enc,
+                 bw_d: np.ndarray, loopback: float) -> float:
+    """Traffic-weighted realized peer bandwidth of ``placements`` under
+    the ground truth ``bw_d`` (loopback pinned to the clean matrix max
+    for co-placed peers, the scorer's own convention)."""
+    total = 0.0
+    for pod in pods:
+        if not pod.peers:
+            continue
+        ni = placements.get(pod.name)
+        ii = enc.node_slot(ni) if ni else None
+        if ii is None:
+            continue
+        for peer, w in pod.peers.items():
+            nj = placements.get(peer)
+            jj = enc.node_slot(nj) if nj else None
+            if jj is None:
+                continue
+            total += w * (loopback if ii == jj else float(bw_d[ii, jj]))
+    return total
+
+
+def _host_network(loop: SchedulerLoop) -> tuple[np.ndarray, np.ndarray]:
+    """The staging ``(lat, bw)`` matrices as float64 host copies."""
+    enc = loop.encoder
+    with enc._lock:
+        return (np.array(enc._lat, dtype=np.float64),
+                np.array(enc._bw, dtype=np.float64))
+
+
+def run_integrity_config(out_dir: str | None = None,
+                         num_nodes: int = 512,
+                         num_pods: int = 512, batch: int = 32,
+                         seed: int = 0, device="cuda") -> SuiteResult:
+    """State-integrity leg on ``device``: what does the anti-entropy
+    audit cost, and does self-healing actually heal?
+
+    Three proofs in one artifact:
+
+    - **overhead** — the same workload drains twice from identical
+      seeds, auditor off then auditor on (one ``audit_once`` per
+      serving cycle, so the audit-cost sample is dense);
+      ``overhead_fraction`` = median audit wall time / the default
+      background audit interval, bar < 5%.  ``audit_per_cycle_fraction``
+      reports the stress ratio (audit p50 / cycle p50).
+    - **bit-identity** — both drains must produce the same pod->node
+      bindings: a passing audit only re-runs the flush the next cycle
+      would have done anyway.
+    - **fault matrix** — every runtime state-fault class
+      (core/state_chaos.py) injected against the audited loop must be
+      detected within one audit and repaired bit-identically
+      (``unrepaired_drift`` == 0).
+    """
+    from kubernetesnetawarescheduler_tpu_torch.bench.envinfo import (
+        bench_env,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
+        IntegrityAuditor,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.state_chaos import (
+        run_state_fault_matrix,
+    )
+
+    def _drain_timed(loop, pods, auditor=None):
+        # Batch-sized arrival waves, not one bulk add (one burst cycle
+        # would leave the percentile one sample); one audit per cycle.
+        cycle_ms = []
+
+        def _tick():
+            t0 = time.perf_counter()
+            loop.run_once()
+            cycle_ms.append((time.perf_counter() - t0) * 1e3)
+            if auditor is not None:
+                auditor.audit_once()
+
+        for start in range(0, len(pods), batch):
+            loop.client.add_pods(pods[start:start + batch])
+            _tick()
+        while len(loop.queue) or loop._pipe_inflight is not None:
+            _tick()
+        loop.flush_binds()
+        loop.stop_bind_worker()
+        return cycle_ms
+
+    _warm_like(num_nodes, seed, BW_LAT, batch=batch, queue=num_pods,
+               device=device)
+
+    def _workload(cfg):
+        return generate_workload(
+            WorkloadSpec(num_pods=num_pods, seed=seed + 5,
+                         services=8, peer_fraction=0.3),
+            scheduler_name=cfg.scheduler_name)
+
+    with contextlib.ExitStack() as stops:
+        # Leg A: auditor off.
+        loop_a, cfg_a = _stopped(stops, _make_loop(
+            num_nodes, seed, BW_LAT, batch=batch, queue=num_pods,
+            device=device))
+        cycles_a = _drain_timed(loop_a, _workload(cfg_a))
+        bindings_a = _placements_sorted(loop_a)
+
+        # Leg B: identical seeds, one audit per cycle.
+        loop_b, cfg_b = _stopped(stops, _make_loop(
+            num_nodes, seed, BW_LAT, batch=batch, queue=num_pods,
+            device=device))
+        auditor = IntegrityAuditor(loop_b.encoder, loop_b)
+        loop_b.integrity = auditor
+        # One audit outside the measured window pays its first-use
+        # costs; its sample is discarded.
+        auditor.audit_once()
+        auditor.audit_ms.clear()
+        cycles_b = _drain_timed(loop_b, _workload(cfg_b), auditor=auditor)
+        bindings_b = _placements_sorted(loop_b)
+
+        bit_identical = bindings_a == bindings_b
+        audit_ms = list(auditor.audit_ms)
+        p50_cycle = float(np.percentile(cycles_b, 50)) if cycles_b else 0.0
+        p50_audit = float(np.median(audit_ms)) if audit_ms else 0.0
+        # The auditor is a background daemon at ``interval_s`` cadence
+        # (serve.py --audit-interval), not a per-cycle stage: overhead
+        # on serving is the fraction of wall time the audit takes at
+        # that cadence; the per-cycle ratio is the stress number.
+        interval_s = IntegrityAuditor(loop_b.encoder).interval_s
+        overhead = p50_audit / (interval_s * 1e3)
+        per_cycle = (p50_audit / p50_cycle) if p50_cycle else 0.0
+
+        # Fault matrix on the already-audited loop: every runtime class
+        # detected within one audit, repaired back to digest equality.
+        matrix = run_state_fault_matrix(loop_b.encoder, auditor,
+                                        seed=seed + 6)
+    all_detected = all(r["detected"] for r in matrix.values())
+    unrepaired = sum(1 for r in matrix.values() if not r["repaired"])
+
+    doc = {
+        "metric": "state_integrity",
+        "value": round(float(overhead), 6),
+        "unit": "audit_fraction_of_serving_at_default_cadence",
+        "seed": seed,
+        "detail": {
+            "num_nodes": num_nodes,
+            "num_pods": num_pods,
+            "batch": batch,
+            "audit_enabled": True,
+            "audits": auditor.audits_total,
+            "audit_ms_p50": p50_audit,
+            "audit_ms_p99": (float(np.percentile(audit_ms, 99))
+                             if audit_ms else 0.0),
+            "cycle_ms_p50_unaudited": (
+                float(np.percentile(cycles_a, 50)) if cycles_a
+                else 0.0),
+            "cycle_ms_p50": p50_cycle,
+            "audit_interval_s": float(interval_s),
+            "overhead_fraction": float(overhead),
+            "audit_per_cycle_fraction": float(per_cycle),
+            "overhead_under_5pct": bool(overhead < 0.05),
+            "clean_run_bit_identical": bool(bit_identical),
+            "bindings": len(bindings_b),
+            "fault_matrix": {
+                k: {kk: vv for kk, vv in r.items()
+                    if kk != "descriptor"}
+                for k, r in matrix.items()},
+            "all_faults_detected": bool(all_detected),
+            "unrepaired_drift": int(unrepaired),
+            "bench_env": bench_env(),
+        },
+    }
+    artifacts: list[str] = []
+    write_artifact(out_dir, "integrity.json", doc, artifacts)
+    return SuiteResult("integrity", doc, artifacts)
+
+
+def _round_pow2(n: int, floor: int = 8) -> int:
+    """The least ``floor * 2**k`` >= ``n`` (the JAX observer's harvest
+    pad; here only the quality leg's warm-up sizes)."""
+    out = floor
+    while out < n:
+        out *= 2
+    return out
+
+
+def run_quality_config(out_dir: str | None = None,
+                       num_nodes: int = 512,
+                       num_pods: int = 512, batch: int = 32,
+                       seed: int = 0,
+                       drift_sigma: float = 0.3,
+                       device="cuda") -> SuiteResult:
+    """Outcome-observability leg on ``device``: what does watching
+    placement quality cost, and what does it measure?
+
+    Three proofs in one artifact:
+
+    - **overhead** — the same workload drains twice from identical
+      seeds, observation off then on (``note_commit`` riding every
+      commit, one ``harvest`` per wave); ``overhead_fraction`` is the
+      serving-cycle p50 inflation, bar < 2%.  Harvest cost (a
+      maintain-cadence job) is reported separately.
+    - **bit-identity** — both drains must produce the same pod->node
+      bindings: observation must not move a single placement.
+    - **calibration under drift** — a third drained wave commits
+      against the pre-drift matrices, then the staging network is
+      perturbed (symmetric lognormal noise, ``drift_sigma``) before
+      its harvest: the regret and bw-residual distributions must wake
+      up (nonzero).
+    """
+    from kubernetesnetawarescheduler_tpu_torch.bench.envinfo import (
+        bench_env,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.obs.quality import (
+        QualityObserver,
+        _Pending,
+    )
+
+    def _drain_timed(loop, pods, observer=None, harvest_ms=None):
+        # Batch-sized arrival waves; one harvest per wave keeps the
+        # pending set wave-sized and samples its cost densely.
+        cycle_ms = []
+
+        def _tick():
+            t0 = time.perf_counter()
+            loop.run_once()
+            cycle_ms.append((time.perf_counter() - t0) * 1e3)
+            if observer is not None:
+                t1 = time.perf_counter()
+                observer.harvest(loop.encoder)
+                harvest_ms.append((time.perf_counter() - t1) * 1e3)
+
+        for start in range(0, len(pods), batch):
+            loop.client.add_pods(pods[start:start + batch])
+            _tick()
+        while len(loop.queue) or loop._pipe_inflight is not None:
+            _tick()
+        loop.flush_binds()
+        loop.stop_bind_worker()
+        return cycle_ms
+
+    _warm_like(num_nodes, seed, BW_LAT, batch=batch, queue=num_pods,
+               device=device)
+
+    def _workload(cfg):
+        return generate_workload(
+            WorkloadSpec(num_pods=num_pods, seed=seed + 5,
+                         services=8, peer_fraction=0.3),
+            scheduler_name=cfg.scheduler_name)
+
+    with contextlib.ExitStack() as stops:
+        # Leg A: observation off.
+        loop_a, cfg_a = _stopped(stops, _make_loop(
+            num_nodes, seed, BW_LAT, batch=batch, queue=num_pods,
+            device=device))
+        cycles_a = _drain_timed(loop_a, _workload(cfg_a))
+        bindings_a = _placements_sorted(loop_a)
+
+        # Leg B: identical seeds, observer attached directly (the same
+        # cfg as leg A).
+        loop_b, cfg_b = _stopped(stops, _make_loop(
+            num_nodes, seed, BW_LAT, batch=batch, queue=num_pods,
+            device=device))
+        observer = QualityObserver(cfg_b)
+        loop_b.quality = observer
+        # Warm harvests of synthetic pendings at every power-of-two size
+        # up to the batch's (the JAX leg's warm-up sizes), outside the
+        # measured window.
+        warm = QualityObserver(cfg_b)
+        size = 8
+        while True:
+            for i in range(size):
+                uid = f"warm-{size}-{i}"
+                warm._pending[uid] = _Pending(
+                    uid=uid, node="warm", node_idx=0, cycle_id=0,
+                    t_commit=0.0, peer_idx=(0,), peer_traffic=(1.0,),
+                    pred_lat_ms=(0.1,), pred_bw_bps=(1e9,),
+                    score_pred=None)
+            warm.harvest(loop_b.encoder)
+            if size >= _round_pow2(batch):
+                break
+            size *= 2
+        harvest_ms: list[float] = []
+        cycles_b = _drain_timed(loop_b, _workload(cfg_b),
+                                observer=observer, harvest_ms=harvest_ms)
+        bindings_b = _placements_sorted(loop_b)
+        bit_identical = bindings_a == bindings_b
+        clean = observer.summary()
+
+        p50_a = float(np.percentile(cycles_a, 50)) if cycles_a else 0.0
+        p50_b = float(np.percentile(cycles_b, 50)) if cycles_b else 0.0
+        overhead = max(0.0, p50_b / p50_a - 1.0) if p50_a else 0.0
+        p50_harvest = float(np.median(harvest_ms)) if harvest_ms else 0.0
+
+        # Leg C (drift): commit a fresh wave against today's matrices,
+        # then perturb the staging network before its harvest.
+        drift_pods = generate_workload(
+            WorkloadSpec(num_pods=min(num_pods, 256), seed=seed + 11,
+                         services=8, peer_fraction=0.6),
+            scheduler_name=cfg_b.scheduler_name)
+        loop_b.client.add_pods(drift_pods)
+        loop_b.run_until_drained()
+        lat0, bw0 = _host_network(loop_b)
+        rng = np.random.default_rng(seed + 12)
+        noise = rng.lognormal(mean=0.0, sigma=drift_sigma,
+                              size=lat0.shape)
+        noise = (noise + noise.T) / 2.0     # links drift symmetrically
+        loop_b.encoder.set_network(lat0 * noise, bw0 / noise)
+        observer.harvest(loop_b.encoder)
+        drifted = observer.summary()
+
+    regret_p99 = float(drifted["regret_p99"])
+    cal_samples = int(drifted["calibration_samples"])
+    doc = {
+        "metric": "placement_quality",
+        "value": round(float(overhead), 6),
+        "unit": "observation_overhead_fraction_of_cycle_p50",
+        "seed": seed,
+        "detail": {
+            "num_nodes": num_nodes,
+            "num_pods": num_pods,
+            "batch": batch,
+            "observation_enabled": True,
+            "cycle_ms_p50_off": p50_a,
+            "cycle_ms_p50_on": p50_b,
+            "overhead_fraction": float(overhead),
+            "overhead_under_2pct": bool(overhead < 0.02),
+            "bit_identical": bool(bit_identical),
+            "bindings": len(bindings_b),
+            "harvest_ms_p50": p50_harvest,
+            "harvest_ms_p99": (float(np.percentile(harvest_ms, 99))
+                               if harvest_ms else 0.0),
+            "harvests": len(harvest_ms),
+            "commits_noted": int(drifted["noted_total"]),
+            "no_peer_skipped": int(drifted["no_peer_total"]),
+            "outcomes": int(drifted["harvested_total"]),
+            "calibration_samples": cal_samples,
+            # Clean-leg distributions: regret here is the placement's
+            # real suboptimality, not prediction error.
+            "regret_p50_clean": float(clean["regret_p50"]),
+            "regret_p99_clean": float(clean["regret_p99"]),
+            "bw_residual_p99_clean":
+                float(clean["bw_residual_log1p_p99"]),
+            # Post-drift distributions: the join must wake up.
+            "drift_sigma": float(drift_sigma),
+            "regret_p50": float(drifted["regret_p50"]),
+            "regret_p99": regret_p99,
+            "bw_residual_p50":
+                float(drifted["bw_residual_log1p_p50"]),
+            "bw_residual_p99":
+                float(drifted["bw_residual_log1p_p99"]),
+            "drift_detected": bool(
+                drifted["bw_residual_log1p_p99"]
+                > clean["bw_residual_log1p_p99"]),
+            "ring_depth": int(drifted["ring_depth"]),
+            "bench_env": bench_env(),
+        },
+    }
+    artifacts: list[str] = []
+    write_artifact(out_dir, "quality.json", doc, artifacts)
+    return SuiteResult("quality", doc, artifacts)
+
+
+def run_rebalance_config(out_dir: str | None = None,
+                         num_nodes: int = 2048,
+                         num_pods: int = 512, batch: int = 64,
+                         seed: int = 0,
+                         drift_nodes: int = 64,
+                         drift_factor: float = 50.0,
+                         rounds: int = 8, device="cuda") -> SuiteResult:
+    """Continuous-rebalancing leg on ``device``: when links degrade
+    under a placed workload, how much of the lost realized bandwidth
+    does the budgeted descheduler claw back, and at what disruption?
+
+    Four placements of one workload, all measured on the same
+    ground-truth drifted matrices (traffic-weighted realized peer
+    bandwidth over the final pod->node map):
+
+    - **no_rebalance** — drains against the clean network, then the
+      links under the busiest ``drift_nodes`` nodes degrade
+      (``lat * drift_factor``, ``bw / drift_factor``) and nothing acts;
+    - **no_drift control** — identical drain with the rebalancer
+      attached at default hysteresis and ticked repeatedly: the
+      placements must stay identical and the move count ~0;
+    - **rebalance** — same degradation, the link-event feed replayed
+      into ``note_link_event`` and the rebalancer ticked under an
+      explicit eviction budget; evicted pods re-place through the
+      normal pipeline;
+    - **oracle** — a fresh loop schedules the workload with full
+      knowledge of the drifted network (not a strict upper bound:
+      ``recovered_frac`` can exceed 1).
+
+    Headline: ``recovered_frac = (rebalance - no_rebalance) /
+    (oracle - no_rebalance)``, bar >= 0.6, with
+    ``evictions_per_pod_hour`` beside it and ``half_moved_gangs == 0``.
+    The hysteresis reads ``time.monotonic``: the control's ticks come
+    seconds after its drain, well inside the 60 s minimum age.
+    """
+    from kubernetesnetawarescheduler_tpu_torch.bench.envinfo import (
+        bench_env,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.rebalance import (
+        Rebalancer,
+    )
+
+    rb_knobs = dict(
+        enable_rebalance=True,
+        rebalance_interval_s=1e-4,      # the leg ticks explicitly
+        rebalance_max_moves_per_cycle=64,
+        rebalance_evictions_per_hour=256.0,
+        rebalance_move_timeout_s=120.0,
+        # min_gain / min_age / cooldown stay at their defaults: the
+        # no-drift control proves the hysteresis holds, the drift leg
+        # moves on link-event triggers (which bypass those bars).
+    )
+
+    def _mk():
+        return _stopped(stops, _make_loop(
+            num_nodes, seed, BW_LAT, batch=batch, queue=num_pods,
+            device=device))
+
+    def _attach(loop, cfg):
+        # The rebalancer gets its own cfg copy; the loop's stays as the
+        # other legs'.
+        rb_cfg = dataclasses.replace(cfg, **rb_knobs)
+        rb = Rebalancer(rb_cfg, loop.encoder, loop.client)
+        loop.rebalance = rb
+        return rb, rb_cfg
+
+    def _workload(cfg):
+        return generate_workload(
+            WorkloadSpec(num_pods=num_pods, seed=seed + 5,
+                         services=8, peer_fraction=0.6),
+            scheduler_name=cfg.scheduler_name)
+
+    _warm_like(num_nodes, seed, BW_LAT, batch=batch, queue=num_pods,
+               device=device)
+
+    with contextlib.ExitStack() as stops:
+        # ---- leg A: no rebalance ------------------------------------
+        loop_a, cfg_a = _mk()
+        pods = _workload(cfg_a)
+        _drain_waves(loop_a, pods, batch)
+        placed_a = _last_placements(loop_a)
+        enc_a = loop_a.encoder
+        lat0, bw0 = _host_network(loop_a)
+
+        # Ground-truth drift: degrade every link touching the busiest
+        # drift_nodes nodes of leg A's placement.
+        by_node: dict[str, int] = {}
+        for node in placed_a.values():
+            by_node[node] = by_node.get(node, 0) + 1
+        hot = sorted(by_node, key=lambda n: (-by_node[n], n))[:drift_nodes]
+        lat_d, bw_d = _degrade(lat0, bw0, [enc_a.node_slot(n) for n in hot],
+                               drift_factor)
+        loopback = float(bw0.max())
+        bw_a = _realized_bw(pods, placed_a, enc_a, bw_d, loopback)
+        loop_a.stop_bind_worker()
+
+        # ---- leg B: no-drift control (hysteresis must hold) ---------
+        loop_b, cfg_b = _mk()
+        rb_b, _ = _attach(loop_b, cfg_b)
+        _drain_waves(loop_b, _workload(cfg_b), batch)
+        for _ in range(3):
+            rb_b._last_tick = 0.0
+            rb_b.tick(loop_b)
+            loop_b.run_until_drained()
+            loop_b.flush_binds()
+        placed_b = _last_placements(loop_b)
+        no_drift_moves = rb_b.moves_total
+        bit_identical = placed_a == placed_b
+        loop_b.stop_bind_worker()
+
+        # ---- leg C: drift + rebalance -------------------------------
+        loop_c, cfg_c = _mk()
+        rb_c, rb_cfg_c = _attach(loop_c, cfg_c)
+        _drain_waves(loop_c, _workload(cfg_c), batch)
+        enc_c = loop_c.encoder
+        # The links degrade: staging learns the drifted truth ...
+        enc_c.set_network(lat_d, bw_d)
+        scan_ms: list[float] = []
+        for _ in range(rounds):
+            # ... and the link-event feed marks the hot nodes each
+            # cycle the streak holds.
+            for n in hot:
+                rb_c.note_link_event(n, "", "degraded", streak=1)
+            rb_c._last_tick = 0.0
+            t0 = time.perf_counter()
+            moved = rb_c.tick(loop_c)
+            scan_ms.append((time.perf_counter() - t0) * 1e3)
+            loop_c.run_until_drained()
+            loop_c.flush_binds()
+            if moved == 0 and not rb_c._inflight:
+                break
+        rb_c._last_tick = 0.0
+        rb_c.tick(loop_c)           # settle the final wave
+        placed_c = _last_placements(loop_c)
+        bw_c = _realized_bw(pods, placed_c, enc_c, bw_d, loopback)
+        rb_summary = rb_c.summary()
+        evictions_per_pod_hour = rb_c.disruption_per_pod_hour(num_pods)
+        budget_per_pod_hour = (rb_cfg_c.rebalance_evictions_per_hour
+                               / max(1, num_pods))
+        loop_c.stop_bind_worker()
+
+        # ---- oracle: full re-place under the drifted truth ----------
+        loop_o, cfg_o = _mk()
+        loop_o.encoder.set_network(lat_d, bw_d)
+        _drain_waves(loop_o, _workload(cfg_o), batch)
+        bw_o = _realized_bw(pods, _last_placements(loop_o), loop_o.encoder,
+                            bw_d, loopback)
+
+    oracle_gain = bw_o - bw_a
+    recovered = ((bw_c - bw_a) / oracle_gain
+                 if oracle_gain > 0 else 1.0)
+
+    doc = {
+        "metric": "rebalance_recovery",
+        "value": round(float(recovered), 6),
+        "unit": "fraction_of_oracle_bandwidth_gain_recovered",
+        "seed": seed,
+        "detail": {
+            "num_nodes": num_nodes,
+            "num_pods": num_pods,
+            "batch": batch,
+            "drift_nodes": drift_nodes,
+            "drift_factor": float(drift_factor),
+            "rebalance_enabled": True,
+            "recovered_frac": float(recovered),
+            "no_rebalance_bw": float(bw_a),
+            "rebalance_bw": float(bw_c),
+            "oracle_bw": float(bw_o),
+            "oracle_gain": float(oracle_gain),
+            "moves": int(rb_summary["moves_total"]),
+            "moves_completed": int(rb_summary["moves_completed"]),
+            "moves_reverted": int(rb_summary["moves_reverted"]),
+            "pods_evicted": int(rb_summary["pods_evicted_total"]),
+            "half_moved_gangs": int(rb_summary["half_moved_gangs"]),
+            "evictions_per_pod_hour": float(evictions_per_pod_hour),
+            "budget_per_pod_hour": float(budget_per_pod_hour),
+            "no_drift_moves": int(no_drift_moves),
+            "no_drift_bit_identical": bool(bit_identical),
+            "skipped_gain": int(rb_summary["skipped_gain"]),
+            "skipped_age": int(rb_summary["skipped_age"]),
+            "skipped_cooldown": int(rb_summary["skipped_cooldown"]),
+            "skipped_budget": int(rb_summary["skipped_budget"]),
+            "skipped_disruption":
+                int(rb_summary["skipped_disruption"]),
+            "triggers_link": int(rb_summary["triggers_link"]),
+            "scan_ms_p50": (float(np.percentile(scan_ms, 50))
+                            if scan_ms else 0.0),
+            "scan_ms_max": (float(max(scan_ms)) if scan_ms else 0.0),
+            "bench_env": bench_env(),
+        },
+    }
+    artifacts: list[str] = []
+    write_artifact(out_dir, "rebalance.json", doc, artifacts)
+    return SuiteResult("rebalance", doc, artifacts)
+
+
+def run_reshape_config(out_dir: str | None = None,
+                       num_nodes: int = 64,
+                       num_gangs: int = 10, gang_size: int = 8,
+                       filler_pods: int = 48, batch: int = 96,
+                       seed: int = 0, zones: int = 4,
+                       outage_zone: int = 0,
+                       drift_factor: float = 40.0,
+                       rounds: int = 12, device="cuda") -> SuiteResult:
+    """Elastic gang reshaping leg on ``device``: a zonal outage strands
+    placed gangs behind catastrophically degraded links — how much of
+    the lost realized bandwidth does shape-aware degrade-and-recover
+    claw back, at what disruption cost, with zero half-shaped gangs?
+
+    Every gang declares the elastic family ``"S,S/2:0.5"`` (full shape
+    preferred, half shape at half desirability).  The outage: the
+    zone's nodes are cordoned (re-added ``unschedulable``; bound pods
+    keep their usage) and every link touching them degrades
+    (``lat * drift_factor``, ``bw / drift_factor``).  Four placements
+    of one workload (ring-traffic gangs plus plain filler pods), all
+    measured on the same post-outage ground truth:
+
+    - **no_reshape control** — drains against the clean network, then
+      the outage lands and nothing acts;
+    - **no-outage control** — reshaping enabled, network healthy, the
+      rebalancer ticked repeatedly: placements must stay identical to
+      the control and the reshape count 0;
+    - **reshape treatment** — same outage; the link-event feed marks
+      the zone's nodes hot and the reshape pass evicts degraded gangs
+      as units and re-places each at its best feasible shape;
+    - **oracle** — a fresh shape-aware loop schedules the workload
+      with full knowledge of the degraded network.
+
+    Headline: ``recovered_frac = (treatment - control) / (oracle -
+    control)``, bar > 0.5, with ``half_shaped_gangs == 0`` and
+    ``evictions_per_pod_hour`` within budget.
+    """
+    from kubernetesnetawarescheduler_tpu_torch.bench.envinfo import (
+        bench_env,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.gang import (
+        parse_gang_shapes,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.rebalance import (
+        Rebalancer,
+    )
+
+    num_pods = num_gangs * gang_size + filler_pods
+    queue = max(300, 2 * num_pods)
+    shapes = parse_gang_shapes(
+        f"{gang_size},{max(1, gang_size // 2)}:0.5")
+
+    def _mk(reshape: bool):
+        cfg = SchedulerConfig(
+            max_nodes=_round_up(num_nodes, 128), max_pods=batch,
+            max_peers=4, weights=BW_LAT, queue_capacity=queue,
+            enable_gang_reshaping=reshape,
+        )
+        cluster, lat, bw = build_fake_cluster(
+            ClusterSpec(num_nodes=num_nodes, seed=seed, zones=zones))
+        loop = SchedulerLoop(cluster, cfg, method="parallel",
+                             device=device)
+        stops.callback(loop.stop_bind_worker)
+        loop.encoder.set_network(lat, bw)
+        feed_metrics(cluster, loop.encoder,
+                     np.random.default_rng(seed + 1))
+        return loop, cfg, cluster
+
+    def _attach(loop, cfg, reshape: bool):
+        # Move scan off in every leg: this leg isolates the reshape
+        # contribution.
+        rb_cfg = dataclasses.replace(
+            cfg,
+            enable_rebalance=True,
+            rebalance_interval_s=1e-4,      # the leg ticks explicitly
+            rebalance_max_moves_per_cycle=0,
+            rebalance_evictions_per_hour=256.0,
+            rebalance_move_timeout_s=120.0,
+            enable_gang_reshaping=reshape,
+            reshape_max_per_cycle=4,
+        )
+        rb = Rebalancer(rb_cfg, loop.encoder, loop.client)
+        loop.rebalance = rb
+        return rb, rb_cfg
+
+    def _workload(cfg) -> list[Pod]:
+        pods: list[Pod] = []
+        for g in range(num_gangs):
+            group = f"rg{g:03d}"
+            for m in range(gang_size):
+                peers = {f"{group}-w{(m + 1) % gang_size:02d}": 10.0}
+                pods.append(Pod(
+                    name=f"{group}-w{m:02d}",
+                    scheduler_name=cfg.scheduler_name,
+                    requests={"cpu": 4.0, "mem": 8.0, "net_bw": 1.0},
+                    peers=peers, pod_group=group,
+                    gang_min_member=gang_size, priority=5.0,
+                    # Self-anti-affinity: one worker per host (a ring
+                    # collapsed onto one node is all loopback and blind
+                    # to any outage).
+                    group=group, anti_groups=frozenset({group}),
+                    gang_shapes=shapes))
+        filler = generate_workload(
+            WorkloadSpec(num_pods=filler_pods, seed=seed + 5,
+                         services=6, peer_fraction=0.0,
+                         cpu_range=(1.0, 4.0), mem_range=(2.0, 8.0)),
+            scheduler_name=cfg.scheduler_name)
+        return pods + list(filler)
+
+    zone_nodes = [f"node-{i:04d}" for i in range(num_nodes)
+                  if i % zones == outage_zone % max(1, zones)]
+
+    def _cordon(cluster):
+        # The zone goes NotReady: the informer upserts each node with
+        # unschedulable set (bound pods keep their usage).
+        for node in cluster.list_nodes():
+            if node.name in zone_nodes:
+                cluster.add_node(
+                    dataclasses.replace(node, unschedulable=True))
+
+    _warm_like(num_nodes, seed, BW_LAT, batch=batch, queue=queue,
+               device=device)
+
+    with contextlib.ExitStack() as stops:
+        # ---- leg A: outage, no reshape ------------------------------
+        loop_a, cfg_a, cl_a = _mk(reshape=False)
+        pods = _workload(cfg_a)
+        _drain_waves(loop_a, pods, batch)
+        placed_a = _last_placements(loop_a)
+        enc_a = loop_a.encoder
+        lat0, bw0 = _host_network(loop_a)
+        lat_d, bw_d = _degrade(lat0, bw0,
+                               [enc_a.node_slot(n) for n in zone_nodes],
+                               drift_factor)
+        loopback = float(bw0.max())
+        _cordon(cl_a)           # the control sees the outage too,
+        bw_a = _realized_bw(pods, placed_a, enc_a, bw_d, loopback)
+        loop_a.stop_bind_worker()   # it just cannot act on it
+
+        # ---- leg B: no-outage control (reshape pass must sleep) -----
+        loop_b, cfg_b, _ = _mk(reshape=True)
+        rb_b, _ = _attach(loop_b, cfg_b, reshape=True)
+        _drain_waves(loop_b, _workload(cfg_b), batch)
+        for _ in range(3):
+            rb_b._last_tick = 0.0
+            rb_b.tick(loop_b)
+            loop_b.run_until_drained()
+            loop_b.flush_binds()
+        placed_b = _last_placements(loop_b)
+        no_outage_reshapes = rb_b.reshapes_total
+        no_outage_identical = placed_a == placed_b
+        loop_b.stop_bind_worker()
+
+        # ---- leg C: outage + reshape --------------------------------
+        loop_c, cfg_c, cl_c = _mk(reshape=True)
+        rb_c, rb_cfg_c = _attach(loop_c, cfg_c, reshape=True)
+        _drain_waves(loop_c, _workload(cfg_c), batch)
+        enc_c = loop_c.encoder
+        _cordon(cl_c)
+        enc_c.set_network(lat_d, bw_d)
+        scan_ms: list[float] = []
+        for _ in range(rounds):
+            for n in zone_nodes:
+                rb_c.note_link_event(n, "", "degraded", streak=1)
+            rb_c._last_tick = 0.0
+            t0 = time.perf_counter()
+            moved = rb_c.tick(loop_c)
+            scan_ms.append((time.perf_counter() - t0) * 1e3)
+            loop_c.run_until_drained()
+            loop_c.flush_binds()
+            if (moved == 0 and not rb_c._inflight
+                    and not rb_c._inflight_reshapes):
+                break
+        rb_c._last_tick = 0.0
+        rb_c.tick(loop_c)           # settle the final wave
+        placed_c = _last_placements(loop_c)
+        bw_c = _realized_bw(pods, placed_c, enc_c, bw_d, loopback)
+        rb_summary = rb_c.summary()
+        resh = rb_summary.get("reshape", {})
+        evictions_per_pod_hour = rb_c.disruption_per_pod_hour(num_pods)
+        budget_per_pod_hour = (rb_cfg_c.rebalance_evictions_per_hour
+                               / max(1, num_pods))
+        loop_c.stop_bind_worker()
+
+        # ---- oracle: fresh shape-aware schedule under the outage ----
+        loop_o, cfg_o, cl_o = _mk(reshape=True)
+        _cordon(cl_o)
+        loop_o.encoder.set_network(lat_d, bw_d)
+        _drain_waves(loop_o, _workload(cfg_o), batch)
+        bw_o = _realized_bw(pods, _last_placements(loop_o), loop_o.encoder,
+                            bw_d, loopback)
+
+    oracle_gain = bw_o - bw_a
+    recovered = ((bw_c - bw_a) / oracle_gain
+                 if oracle_gain > 0 else 1.0)
+
+    doc = {
+        "metric": "reshape_recovery",
+        "value": round(float(recovered), 6),
+        "unit": "fraction_of_oracle_bandwidth_gain_recovered",
+        "seed": seed,
+        "detail": {
+            "num_nodes": num_nodes,
+            "num_gangs": num_gangs,
+            "gang_size": gang_size,
+            "filler_pods": filler_pods,
+            "zones": zones,
+            "outage_zone": int(outage_zone),
+            "zone_nodes": len(zone_nodes),
+            "drift_factor": float(drift_factor),
+            "recovered_frac": float(recovered),
+            "no_reshape_bw": float(bw_a),
+            "reshape_bw": float(bw_c),
+            "oracle_bw": float(bw_o),
+            "oracle_gain": float(oracle_gain),
+            "reshape": {
+                "enabled": True,
+                "reshapes_total": int(resh.get("reshapes_total", 0)),
+                "reshapes_completed":
+                    int(resh.get("reshapes_completed", 0)),
+                "reshapes_reverted":
+                    int(resh.get("reshapes_reverted", 0)),
+                "half_shaped_gangs":
+                    int(resh.get("half_shaped_gangs", 0)),
+                "shrinks": int(resh.get("shrinks", 0)),
+                "regrows": int(resh.get("regrows", 0)),
+                "retiles": int(resh.get("retiles", 0)),
+                "skipped_gain": int(resh.get("skipped_gain", 0)),
+                "skipped_budget": int(resh.get("skipped_budget", 0)),
+                "recovered_frac": float(recovered),
+                "evictions_per_pod_hour":
+                    float(evictions_per_pod_hour),
+                "budget_per_pod_hour": float(budget_per_pod_hour),
+                "no_outage_reshapes": int(no_outage_reshapes),
+                "no_outage_identical": bool(no_outage_identical),
+            },
+            "pods_evicted": int(rb_summary["pods_evicted_total"]),
+            "half_moved_gangs": int(rb_summary["half_moved_gangs"]),
+            "evictions_per_pod_hour": float(evictions_per_pod_hour),
+            "budget_per_pod_hour": float(budget_per_pod_hour),
+            "scan_ms_p50": (float(np.percentile(scan_ms, 50))
+                            if scan_ms else 0.0),
+            "scan_ms_max": (float(max(scan_ms)) if scan_ms else 0.0),
+            "bench_env": bench_env(),
+        },
+    }
+    artifacts: list[str] = []
+    write_artifact(out_dir, "reshape.json", doc, artifacts)
+    return SuiteResult("reshape", doc, artifacts)
+
+
 def scenario_spec(num_nodes: int = 256, duration_s: float = 2900.0,
                   base_rate: float = 360.0, seed: int = 0,
                   gang_fraction: float = 0.0005):
@@ -1688,10 +2712,6 @@ def run_policy_config(out_dir: str | None = None,
             loop.stop_bind_worker()
         return cycle_ms
 
-    def _placements(loop):
-        return sorted((b.namespace, b.pod_name, b.node_name)
-                      for b in loop.client.bindings)
-
     # A throwaway drain of the same config pays the one-time costs
     # (allocator, first launches) outside leg A.
     wloop = _build(_cfg())
@@ -1708,7 +2728,7 @@ def run_policy_config(out_dir: str | None = None,
     loop_a = _build(cfg_a)
     cycles_a = _drain_timed(loop_a, _workload(cfg_a, num_pods,
                                               seed + 5))
-    bindings_a = _placements(loop_a)
+    bindings_a = _placements_sorted(loop_a)
 
     # Leg B: identical seeds, policy + dataset + observer attached
     # directly (the same cfg).
@@ -1722,7 +2742,7 @@ def run_policy_config(out_dir: str | None = None,
     cycles_b = _drain_timed(loop_b, _workload(cfg_b, num_pods,
                                               seed + 5), shadow=True,
                             shadow_ms=shadow_ms)
-    bindings_b = _placements(loop_b)
+    bindings_b = _placements_sorted(loop_b)
     bit_identical = bindings_a == bindings_b
 
     p50_a = float(np.percentile(cycles_a, 50)) if cycles_a else 0.0
@@ -1837,17 +2857,18 @@ CONFIGS: dict[str, Callable[..., SuiteResult]] = {
     "binpack": run_binpack_config,
     "sidecar": run_sidecar_config,
     "gang": run_gang_config,
+    "topology": run_topology_config,
+    "integrity": run_integrity_config,
+    "quality": run_quality_config,
+    "rebalance": run_rebalance_config,
+    "reshape": run_reshape_config,
     "scenario": run_scenario_config,
     "policy": run_policy_config,
 }
 
 #: The JAX suite's other legs, each with the ROADMAP Queue A item that
 #: ports it.
-UNPORTED: dict[str, int] = {
-    **{name: 14 for name in (
-        "topology", "integrity", "quality", "rebalance", "reshape")},
-    "fleet": 13,
-}
+UNPORTED: dict[str, int] = {"fleet": 13}
 
 #: Every leg name, in the JAX suite's order (``--config all``).
 ALL = ("density", "custom_network", "affinity", "soft_affinity", "spread",
@@ -1868,6 +2889,14 @@ SMALL = {
     "sidecar": dict(num_nodes=128, num_apps=48, batch=32),
     "gang": dict(num_nodes=128, num_gangs=6, member_counts=(4, 8),
                  filler_pods=32, batch=32, overhead_pods=64),
+    "topology": dict(num_nodes=128, cycles=40, probe_budget=32,
+                     num_gangs=4),
+    "integrity": dict(num_nodes=64, num_pods=96, batch=32),
+    "quality": dict(num_nodes=64, num_pods=96, batch=32),
+    "rebalance": dict(num_nodes=64, num_pods=96, batch=32,
+                      drift_nodes=8, rounds=4),
+    "reshape": dict(num_nodes=32, num_gangs=4, gang_size=4,
+                    filler_pods=16, batch=32, rounds=6),
     "scenario": dict(num_nodes=64, duration_s=30.0, base_rate=30.0,
                      batch=32, gang_fraction=0.01,
                      oracle_sample=64),

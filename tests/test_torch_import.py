@@ -71,6 +71,8 @@ _MODULES = {
     # The scenario engine and the bench suite's frame and legs.
     "scenario", "scenario.generate", "scenario.replay", "scenario.scorecard",
     "bench.suite", "bench.envinfo", "bench.artifact",
+    # The native shim's load harness.
+    "bench.native_load",
 }
 
 

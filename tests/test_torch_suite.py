@@ -107,7 +107,7 @@ def test_config_all_is_refused(monkeypatch, tmp_path):
     for name in tsuite.CONFIGS:
         monkeypatch.setitem(tsuite.CONFIGS, name,
                             lambda **kw: ran.append(kw))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         tsuite.main(["--config", "all", "--device", "cpu",
                      "--out", str(tmp_path)])
     with pytest.raises(ValueError, match="unknown suite leg"):
