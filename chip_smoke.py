@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's density replay, serving seam, scheduling
 loop, Score/Filter webhook, device-replay feeds, robustness layers,
-learning layers, scenario engine and bench suite on one NVIDIA GPU and
-check them.
+learning layers, scenario engine, bench suite and fleet on one NVIDIA
+GPU and check them.
 
 Run from the repository root:
 
@@ -223,6 +223,27 @@ csrc`` and prints one JSON object per phase:
                 launch per real batch with one compaction each, one launch
                 held against its plain version) and as built (bf16),
                 reported in pods/s.
+
+13. ``fleet``   fleet-of-clusters serving: the bench suite's fleet leg at
+                its default shape (8 tenants of 48 nodes, 256 pods each,
+                batch 16, the transfer leg on), which must keep every
+                tenant's placements identical to solo serving, promote
+                the warm-started tenant with fewer examples than the cold
+                one and pass ``tools/bench_check.py``'s Rule 15 (its
+                speedup reported); a width drive of ``FLEET_TENANTS``
+                tenants of 5,120 nodes (bucket 8,192), batch 128, as one
+                ``fleet_fused_step`` chain against per-tenant
+                ``fused_schedule_step`` chains under ``"xla"`` and
+                ``"pallas"`` (bf16): every lane's assignment, rounds and
+                committed planes identical to its solo chain, one lane
+                launch of the static kernel per fleet cycle, both rates
+                and ``host_flag`` syncs per cycle reported; the same
+                tenants' backlogs through the ``FleetServer`` and through
+                solo loops (identical placements, one lane launch per
+                dispatch); and one captured lane launch held against the
+                solo kernel on each lane (bit for bit) and its plain
+                version (mask identical, raw within rtol=atol=1e-4), timed
+                against K solo launches, one ``torch.bmm`` and its bound.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -502,7 +523,7 @@ def phase_device() -> dict:
     spills = {}
     for kname in ("static_scores_kernel", "masked_scores_kernel",
                   "winner_scores_kernel", "peer_flags_kernel",
-                  "peer_scan_kernel"):
+                  "peer_scan_kernel", "static_scores_lanes_kernel"):
         hits = [v for f, v in ptxas_spills(log).items() if kname in f]
         spills[kname] = hits[0] if hits else None
     info = {"phase": "device", "ok": True, "nvidia_smi": smi,
@@ -4097,6 +4118,442 @@ def phase_suite():
     emit(info)
     return info
 
+# Phase ``fleet``: fleet-of-clusters serving.  (a) the suite's fleet leg
+# at its default shape; (b) a width drive at the serving width: the
+# device-state A/B of ``FLEET_TENANTS`` tenants of ``FLEET_NODES`` nodes
+# (bucket 8,192) over ``FLEET_CYCLES`` fused cycles of ``FLEET_BATCH``
+# under both backends, then the FleetServer facade against solo loops
+# for ``FLEET_FACADE_TENANTS`` of them; (c) one lane launch of (b) held
+# against the solo kernel per lane and against its plain version, and
+# timed.
+FLEET_TENANTS = 8
+FLEET_NODES = 5120
+FLEET_BATCH = 128
+FLEET_PEERS = 4
+FLEET_CYCLES = 8
+FLEET_FACADE_TENANTS = 4
+FLEET_FACADE_PODS = 512
+FLEET_CAPTURE_AT = 2
+# The planes a fused step commits; a lane's must equal its solo chain's.
+COMMITTED = ("used", "group_bits", "resident_anti", "gz_counts", "az_anti")
+
+
+class LanesCapture:
+    """Keeps the ``at``-th call of the lane static kernel's wrapper made
+    while ``on``, between :meth:`install` and :meth:`restore`."""
+
+    def __init__(self, at: int = 1) -> None:
+        from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+
+        self.at, self.calls, self.on, self.args = at, 0, False, None
+        self._module = tiled_score
+        self._real = tiled_score.static_tile_scores_lanes
+
+    def _call(self, pack, groups, pods, use_bfloat16, transposed=False,
+              peers=None):
+        if self.on:
+            self.calls += 1
+            if self.calls == self.at:
+                self.args = (pack, groups.clone(), pods, use_bfloat16)
+        return self._real(pack, groups, pods, use_bfloat16,
+                          transposed=transposed, peers=peers)
+
+    def install(self) -> None:
+        self._module.static_tile_scores_lanes = self._call
+
+    def restore(self) -> None:
+        self._module.static_tile_scores_lanes = self._real
+        self.on = False
+
+
+def load_bench_check():
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "bench_check.py"
+    spec = importlib.util.spec_from_file_location("bench_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lane_launch_check(args, mem_bw: float, f32_peak: float, check) -> dict:
+    """(c): the captured lane launch against the solo kernel on each
+    lane (bit for bit) and against its plain version (mask identical,
+    raw within ``TOL``); its time against K solo launches, the plain
+    version, one batched library product and the bound of the bytes
+    and operations this launch's lanes need."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core.state import index_tree
+
+    pack, groups, pp, bf16 = args
+    k_lanes, p, n = pp.t.shape
+    lanes = [(index_tree(pack, k), groups[k], index_tree(pp, k))
+             for k in range(k_lanes)]
+    err = 0.0
+    with uncounted():
+        raw, ok = K.static_tile_scores_lanes(pack, groups, pp, bf16)
+        _, counts = K.peer_columns_lanes(pp.t)
+        for k, (pk, g, pd) in enumerate(lanes):
+            raw_s, ok_s = K.static_tile_scores(pk, g, pd, bf16)
+            raw_p, ok_p = K.static_tile_scores_plain(pk, g, pd, bf16)
+            check(torch.equal(bits(raw[k]), bits(raw_s))
+                  and torch.equal(ok[k], ok_s),
+                  f"lane launch: lane {k} differs from the solo kernel on "
+                  f"{int((bits(raw[k]) != bits(raw_s)).sum())} raw entries")
+            check(torch.equal(ok[k], ok_p),
+                  f"lane launch: lane {k} mask differs from plain on "
+                  f"{int((ok[k] != ok_p).sum())} entries")
+            check(bool(ok_p.any()), f"lane launch: lane {k} has no "
+                  "feasible entry")
+            if bool(ok_p.any()):
+                e = float((raw[k][ok_p] - raw_p[ok_p]).abs().max())
+                check(torch.allclose(raw[k][ok_p], raw_p[ok_p], rtol=TOL,
+                                     atol=TOL),
+                      f"lane launch: lane {k} raw differs from plain by {e}")
+                err = max(err, e)
+        torch.cuda.synchronize()
+        counts = [int(c) for c in counts.cpu()]
+        c_t = torch.stack([K.desirability_plain(pk).T.contiguous()
+                           for pk, _, _ in lanes])
+        t_l = pp.t
+        if bf16:
+            t_l, c_t = t_l.to(torch.bfloat16), c_t.to(torch.bfloat16)
+        lane_ms = time_ms(lambda: K.static_tile_scores_lanes(
+            pack, groups, pp, bf16, transposed=True))
+        solo_ms = time_ms(lambda: [K.static_tile_scores(
+            pk, g, pd, bf16, transposed=True) for pk, g, pd in lanes])
+        plain_ms = time_ms(lambda: K.static_tile_scores_lanes_plain(
+            pack, groups, pp, bf16))
+        lib_ms = time_ms(lambda: torch.bmm(t_l, c_t))
+    nb = ops = 0.0
+    for (pk, g, pd), count in zip(lanes, counts):
+        # Per lane, as phase ``kernels`` counts one launch: T once, the
+        # bw/lat (and validk, cols) entries of its peer columns, the node
+        # and pod planes, each output once; FLOPs 2·nnz(T)·N.
+        nb += (nbytes(pd.t) + (2 * n + 2) * count * 4 + 4
+               + nbytes(pd.pod_valid, pd.tol, pd.sel, pd.soft_sel,
+                        pd.soft_grp, pd.soft_sel_w, pd.soft_grp_w)
+               + nbytes(pk.params, pk.base, pk.node_valid, pk.taint,
+                        pk.label, g) + p * n * (4 + 1))
+        ops += 2.0 * int((pd.t != 0).sum()) * n
+    t_bytes, t_ops = nb / mem_bw * 1e3, ops / f32_peak * 1e3
+    return {"lanes": k_lanes, "p": p, "n": n, "use_bfloat16": bf16,
+            "peer_counts": counts, "max_abs_err": err, "ms": lane_ms,
+            "k_solo_ms": solo_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library": "torch.bmm(T, C^T)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nb, "ops": ops, "l2": "flushed"}
+
+
+def phase_fleet(mem_bw: float, f32_peak: float):
+    import os
+    import shutil
+    import tempfile
+    import zlib
+
+    from kubernetesnetawarescheduler_tpu_torch.bench import suite
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        WorkloadSpec,
+        build_fake_cluster,
+        feed_metrics,
+        generate_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+    from kubernetesnetawarescheduler_tpu_torch.core.assign import (
+        fused_schedule_step,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.core.state import (
+        host_flag,
+        stack_trees,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.fleet import (
+        FleetServer,
+        fleet_fused_step,
+        node_bucket,
+        stack_statics,
+    )
+
+    t_phase = time.perf_counter()
+    errors: list[str] = []
+    card = nvidia_smi()
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+
+    def counts() -> dict:
+        return {n: fn.launches for n, fn in K.KERNELS.items()}
+
+    # (a) The suite's fleet leg at its default shape (the JAX leg's bars:
+    # isolation at any size, warm before cold; Rule 15 on the artifact).
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="fleet_leg_")
+    try:
+        res = suite.run_fleet_config(out_dir=out_dir, device="cuda")
+        doc = json.loads(Path(res.artifacts[0]).read_text())
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    fl = doc["detail"]["fleet"]
+    fails = load_bench_check().check_doc("fleet.json", doc)
+    rule15 = [f for f in fails if "fleet" in f]
+    check(fl["isolation_bit_identical"] is True,
+          "fleet leg: a tenant's placements differ from solo serving: "
+          + str({n: b["bit_identical_to_solo"]
+                 for n, b in fl["tenants"].items()}))
+    check(fl["transfer"].get("warm_lt_cold") is True,
+          "fleet leg: the warm-started tenant did not promote with fewer "
+          "examples than the cold one: "
+          + str({k: v for k, v in fl["transfer"].items()
+                 if k.startswith("examples")}))
+    check(not rule15, f"fleet leg: bench_check Rule 15: {rule15}")
+    leg = {"speedup": fl["speedup"], "speedup_over_4x": fl["speedup_over_4x"],
+           "aggregate_pods_per_sec": fl["aggregate_pods_per_sec"],
+           "single_tenant_pods_per_sec": fl["single_tenant_pods_per_sec"],
+           "facade": fl["facade"], "device_chain": fl["device_chain"],
+           "transfer": {k: v for k, v in fl["transfer"].items()
+                        if not k.endswith("evals") and k != "registry"},
+           "isolation_bit_identical": fl["isolation_bit_identical"],
+           "bench_check_failures": fails,
+           "seconds": time.perf_counter() - t0}
+
+    # (b) The width drive: each tenant's stream encoded against its own
+    # fresh encoder, peers pinned to nodes by a hash of their names so
+    # every batch carries traffic.
+    t0 = time.perf_counter()
+    bucket = node_bucket(FLEET_NODES, 64)
+    cfg_p = SchedulerConfig(max_nodes=bucket, max_pods=FLEET_BATCH,
+                            max_peers=FLEET_PEERS, score_backend="pallas",
+                            fleet_bucket_min=64,
+                            queue_capacity=max(300, FLEET_FACADE_PODS))
+
+    def tenant(k: int):
+        cluster, lat, bw = build_fake_cluster(
+            ClusterSpec(num_nodes=FLEET_NODES, seed=SEED + 300 + k))
+        loop = SchedulerLoop(cluster, cfg_p, method="parallel",
+                             burst_batches=1, device="cuda")
+        loop.encoder.set_network(lat, bw)
+        feed_metrics(cluster, loop.encoder,
+                     np.random.default_rng(SEED + 350 + k))
+        return cluster, loop
+
+    def workload(k: int, n: int, scheduler_name: str):
+        return generate_workload(
+            WorkloadSpec(num_pods=n, seed=SEED + 400 + k, services=8,
+                         peer_fraction=0.5), scheduler_name=scheduler_name)
+
+    lanes = []
+    for k in range(FLEET_TENANTS):
+        cluster, loop = tenant(k)
+        names = [nd.name for nd in cluster.list_nodes()]
+
+        def node_of(name, names=names):
+            return names[zlib.crc32(name.encode()) % len(names)]
+
+        pods = workload(k, FLEET_CYCLES * FLEET_BATCH, cfg_p.scheduler_name)
+        batches = [loop.encoder.encode_pods(
+            pods[i:i + FLEET_BATCH], node_of=node_of, lenient=True)
+            for i in range(0, len(pods), FLEET_BATCH)]
+        lanes.append((loop.encoder.snapshot(), batches))
+        loop.stop_bind_worker()
+        del loop, cluster
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    cap = LanesCapture(FLEET_CAPTURE_AT)
+    launches = {n: 0 for n in K.KERNELS}
+    width = {}
+    for label, cfg in (("xla", dataclasses.replace(cfg_p,
+                                                   score_backend="xla")),
+                       ("pallas", cfg_p)):
+        kernel = cfg.score_backend == "pallas"
+        statics = [tiled_score.compute_assign_static(st, cfg)
+                   for st, _ in lanes]
+        # Solo chains: one fused step per batch per tenant (the first
+        # call warms the path outside the wall).
+        fused_schedule_step(lanes[0][0], lanes[0][1][0], cfg, statics[0])
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        s0 = host_flag.syncs
+        t1 = time.perf_counter()
+        solo = []
+        for (st, batches), static in zip(lanes, statics):
+            s, asg, rounds = st, [], []
+            for b in batches:
+                s, a, r = fused_schedule_step(s, b, cfg, static)
+                asg.append(a)
+                rounds.append(r)
+            solo.append((s, asg, rounds))
+        torch.cuda.synchronize()
+        solo_wall = time.perf_counter() - t1
+        solo_syncs = host_flag.syncs - s0
+        solo_counts = counts()
+        # Fleet chain: the K batches of each cycle stacked outside the
+        # wall, as the suite leg stacks them.
+        states = stack_trees([st for st, _ in lanes])
+        stacked = [stack_trees([b[c] for _, b in lanes])
+                   for c in range(FLEET_CYCLES)]
+        sstat = stack_statics(statics)
+        fleet_fused_step(states, stacked[0], sstat, cfg)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        cap.on = kernel
+        cap.install()
+        s0 = host_flag.syncs
+        t1 = time.perf_counter()
+        try:
+            fasg, frounds = [], []
+            for c in range(FLEET_CYCLES):
+                states, a, r = fleet_fused_step(states, stacked[c], sstat,
+                                                cfg)
+                fasg.append(a)
+                frounds.append(r)
+            torch.cuda.synchronize()
+        finally:
+            cap.restore()
+        fleet_wall = time.perf_counter() - t1
+        fleet_syncs = host_flag.syncs - s0
+        fleet_counts = counts()
+        for n in launches:
+            launches[n] += fleet_counts[n]
+        differ = []
+        for k, (s, asg, rounds) in enumerate(solo):
+            for c in range(FLEET_CYCLES):
+                if not (torch.equal(fasg[c][k], asg[c])
+                        and int(frounds[c][k]) == rounds[c]):
+                    differ.append(f"lane {k} cycle {c}")
+            for f in COMMITTED:
+                if not torch.equal(getattr(states, f)[k], getattr(s, f)):
+                    differ.append(f"lane {k} plane {f}")
+        check(not differ, f"width drive {label}: fleet differs from the "
+              f"solo chains at {differ[:8]}")
+        if kernel:
+            check(fleet_counts["static_scores_lanes_kernel"] == FLEET_CYCLES,
+                  f"width drive: {fleet_counts['static_scores_lanes_kernel']}"
+                  f" lane launches for {FLEET_CYCLES} fleet cycles")
+            check(solo_counts["static_scores_kernel"]
+                  == FLEET_TENANTS * FLEET_CYCLES,
+                  f"width drive: {solo_counts['static_scores_kernel']} solo "
+                  f"static launches for {FLEET_TENANTS * FLEET_CYCLES} steps")
+        else:
+            check(fleet_counts["static_scores_lanes_kernel"] == 0,
+                  "width drive xla: the dense path launched the lane kernel")
+        pods = FLEET_TENANTS * FLEET_CYCLES * FLEET_BATCH
+        placed = sum(int((a >= 0).sum()) for a in fasg)
+        rounds_np = torch.stack(frounds).cpu().numpy()
+        width[label] = {
+            "fleet_pods_per_s": pods / fleet_wall,
+            "solo_pods_per_s": pods / solo_wall,
+            "fleet_wall_s": fleet_wall, "solo_wall_s": solo_wall,
+            "fleet_syncs_per_cycle": fleet_syncs / FLEET_CYCLES,
+            "solo_syncs_per_cycle": solo_syncs / FLEET_CYCLES,
+            "placed": placed, "pods": pods,
+            "rounds_max_per_cycle": rounds_np.max(axis=1).tolist(),
+            "rounds_sum_per_cycle": rounds_np.sum(axis=1).tolist(),
+            "fleet_launches": fleet_counts, "solo_launches": solo_counts,
+            "identical": not differ}
+        del states, stacked, sstat, statics, solo, fasg
+    kernel_check = {}
+    if cap.args is None:
+        check(False, "width drive: no lane launch was captured")
+    else:
+        kernel_check = lane_launch_check(cap.args, mem_bw, f32_peak, check)
+        cap.args = None
+    del lanes
+    torch.cuda.empty_cache()
+    width_s = time.perf_counter() - t0
+
+    # (b) Facade A/B: FLEET_FACADE_TENANTS tenants drain FLEET_FACADE_PODS
+    # pods each through solo loops and through one FleetServer.
+    t0 = time.perf_counter()
+    solo_place = []
+    solo_walls = []
+    for k in range(FLEET_FACADE_TENANTS):
+        cluster, loop = tenant(k)
+        pods = workload(k, FLEET_FACADE_PODS, cfg_p.scheduler_name)
+        try:
+            t1 = time.perf_counter()
+            for i in range(0, len(pods), FLEET_BATCH):
+                loop.client.add_pods(pods[i:i + FLEET_BATCH])
+                loop.run_once()
+            while len(loop.queue):
+                loop.run_once()
+            torch.cuda.synchronize()
+            solo_walls.append(time.perf_counter() - t1)
+        finally:
+            loop.stop_bind_worker()
+        solo_place.append(sorted((b.pod_name, b.node_name)
+                                 for b in cluster.bindings))
+        del loop, cluster
+    fleet = FleetServer(device="cuda")
+    ften = []
+    try:
+        for k in range(FLEET_FACADE_TENANTS):
+            cluster, lat, bw = build_fake_cluster(
+                ClusterSpec(num_nodes=FLEET_NODES, seed=SEED + 300 + k))
+            t = fleet.add_tenant(f"tenant-{k}", cluster, cfg_p,
+                                 n_nodes=FLEET_NODES, burst_batches=1)
+            t.loop.encoder.set_network(lat, bw)
+            feed_metrics(cluster, t.loop.encoder,
+                         np.random.default_rng(SEED + 350 + k))
+            ften.append((t, cluster, workload(k, FLEET_FACADE_PODS,
+                                              cfg_p.scheduler_name)))
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(0, FLEET_FACADE_PODS, FLEET_BATCH):
+            for t, _, pods in ften:
+                t.loop.client.add_pods(pods[i:i + FLEET_BATCH])
+            while any(len(t.loop.queue) for t, _, _ in ften):
+                fleet.step()
+        torch.cuda.synchronize()
+        facade_wall = time.perf_counter() - t1
+        facade_counts = counts()
+        summary = fleet.summary()
+    finally:
+        fleet.close()
+    for n in launches:
+        launches[n] += facade_counts[n]
+    fleet_place = [sorted((b.pod_name, b.node_name) for b in c.bindings)
+                   for _, c, _ in ften]
+    same = [f == s for f, s in zip(fleet_place, solo_place)]
+    check(all(same), f"facade: placements differ from solo loops for "
+          f"tenants {[k for k, x in enumerate(same) if not x]}")
+    check(facade_counts["static_scores_lanes_kernel"]
+          == summary["dispatches_total"],
+          f"facade: {facade_counts['static_scores_lanes_kernel']} lane "
+          f"launches for {summary['dispatches_total']} dispatches")
+    bound = sum(len(p) for p in fleet_place)
+    facade = {"tenants": FLEET_FACADE_TENANTS,
+              "pods_per_tenant": FLEET_FACADE_PODS, "bound": bound,
+              "identical": all(same),
+              "fleet_pods_per_s": bound / facade_wall,
+              "solo_pods_per_s": bound / sum(solo_walls),
+              "fleet_wall_s": facade_wall, "solo_wall_s": sum(solo_walls),
+              "dispatches_total": summary["dispatches_total"],
+              "dispatch_lanes_total": summary["dispatch_lanes_total"],
+              "launches": facade_counts,
+              "seconds": time.perf_counter() - t0}
+    del ften, fleet
+    info = {"phase": "fleet", "card": card, "leg": leg,
+            "width": {"tenants": FLEET_TENANTS, "nodes": FLEET_NODES,
+                      "bucket_nodes": bucket, "batch": FLEET_BATCH,
+                      "cycles": FLEET_CYCLES, "setup_s": setup_s,
+                      "seconds": width_s, **width},
+            "facade": facade, "lane_launch": kernel_check,
+            "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+    if errors:
+        emit({**info, "ok": False, "errors": errors[:20]})
+        fail("fleet", f"{len(errors)} failed checks")
+    info["ok"] = True
+    emit(info)
+    return info
+
 
 def check_leg(name: str, m: dict, artifacts: list, check) -> None:
     """The bars the JAX package holds its own legs to (its
@@ -4259,6 +4716,7 @@ def main() -> int:
     learn_res = run_phase("learn", phase_learn)
     scenario_res = run_phase("scenario", phase_scenario)
     suite_res = run_phase("suite", phase_suite)
+    fleet_res = run_phase("fleet", phase_fleet, mem_bw, f32_peak)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -4290,9 +4748,10 @@ def main() -> int:
                "robust": robust_res["launches"],
                "learn": learn_res["launches"],
                "scenario": scenario_res["launches"],
-               "suite": suite_res["launches"]}
+               "suite": suite_res["launches"],
+               "fleet": fleet_res["launches"]}
     rows = []
-    for kname in K.KERNELS:
+    for kname in kres[prec]:
         r = kres[prec][kname]
         rows.append({
             "name": kname, "route": "cuda",
@@ -4305,6 +4764,23 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "l2": "flushed"})
+    # The static kernel over a lane axis: the fleet's one launch per
+    # bucket cycle under "pallas" (JAX vmaps _static_pallas_call), timed
+    # on the width drive's captured launch.
+    lane = fleet_res["lane_launch"]
+    rows.append({
+        "name": "static_scores_lanes_kernel", "route": "cuda",
+        "source": "kubernetesnetawarescheduler_tpu_torch/csrc/"
+                  "tiled_score.cu",
+        "replaces": replaces["static_scores_kernel"],
+        "launches": by_path["fleet"]["static_scores_lanes_kernel"],
+        "launches_by_path": {p: c["static_scores_lanes_kernel"]
+                             for p, c in by_path.items()},
+        "max_abs_err": lane["max_abs_err"], "ms": lane["ms"],
+        "plain_ms": lane["plain_ms"], "bound_ms": lane["bound_ms"],
+        "bound_by": lane["bound_by"], "library_ms": lane["library_ms"],
+        "k_solo_ms": lane["k_solo_ms"], "lanes": lane["lanes"],
+        "use_bfloat16": lane["use_bfloat16"], "l2": "flushed"})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -426,9 +426,8 @@ def _round_pow2(n: int) -> int:
     return size
 
 
-# /debug pages of layers the port does not have (the fleet, ROADMAP
-# Queue A item 13), and /debug/rebalance and /debug/policy of a loop
-# without those layers: the JAX package's answers with them off.
+# /debug pages of a loop without their layer (no fleet, rebalancer or
+# policy attached): the JAX package's answers with the layer off.
 _LAYER_OFF = {
     "/debug/policy": {"enabled": False},
     "/debug/fleet": {"enabled": False},
@@ -541,6 +540,15 @@ class ExtenderHandlers:
                 out["eval_trace"] = getattr(self._loop,
                                             "policy_eval_trace", None)
                 return self._json(out)
+        if path == "/debug/fleet":
+            # The fleet view (fleet/server.py): the padding bucket this
+            # tenant's loop shares and with whom, dispatch volume,
+            # per-tenant queue depth and SLO state, the transfer
+            # registry's donors.  The FleetServer sets ``loop.fleet`` at
+            # add_tenant time; a solo loop falls through to enabled=false.
+            fleet = getattr(self._loop, "fleet", None)
+            if fleet is not None:
+                return self._json(fleet.summary())
         if path in _LAYER_OFF:
             return self._json(_LAYER_OFF[path])
         raise ValueError(f"unknown op {path!r}")

@@ -3,7 +3,7 @@
 The PyTorch package's copy of the JAX package's ``bench/suite.py``: its
 frame (:class:`SuiteResult`, :class:`UsageSampler`, the artifact
 emitters, the loop scaffolding, :data:`SMALL`, :func:`run_suite`,
-:func:`main`) and sixteen of its legs, each taking ``device`` (default
+:func:`main`) and all seventeen of its legs, each taking ``device`` (default
 ``"cuda"``) and stopping every loop it builds before it returns:
 
 - the five ``BASELINE.json`` configurations: ``density`` (the
@@ -34,9 +34,14 @@ emitters, the loop scaffolding, :data:`SMALL`, :func:`run_suite`,
   cost and the promotion gate: a seeded loser refused by the records
   leg, a seeded winner promoted by the scenario replay leg.
 
-The one other leg of the JAX suite, ``fleet``, is refused by name
-before any leg runs, with the ROADMAP item that ports it; ``--config
-all`` is refused the same way rather than running a subset.
+- ``fleet`` — :func:`run_fleet_config`, fleet-of-clusters serving:
+  the FleetServer facade against solo loops (placements identical), the
+  stacked device state's ``fleet_fused_step`` chain against solo
+  ``fused_schedule_step`` chains, and policy transfer (warm against
+  cold examples-to-promotion through each tenant's own gate).
+
+An unknown leg name is refused before any leg runs; ``--config all``
+runs all seventeen legs in the JAX suite's order.
 
     python -m kubernetesnetawarescheduler_tpu_torch.bench.suite \\
         --config sidecar [--small] [--device cpu] [--out DIR]
@@ -2847,6 +2852,465 @@ def run_policy_config(out_dir: str | None = None,
     return SuiteResult("policy", doc, artifacts)
 
 
+def _sync(device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so a
+    wall read after it covers the work."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_fleet_config(out_dir: str | None = None,
+                     tenants: int = 8,
+                     num_nodes: int = 48,
+                     pods_per_tenant: int = 256,
+                     batch: int = 16,
+                     seed: int = 0,
+                     duration_s: float = 20.0,
+                     base_rate: float = 20.0,
+                     oracle_sample: int = 128,
+                     gate_every: int = 64,
+                     gate_cap: int = 640,
+                     recipient_offset: int = 5,
+                     transfer_leg: bool = True,
+                     device="cuda") -> SuiteResult:
+    """Fleet-of-clusters leg on ``device``: many logical clusters in one
+    lane-batched dispatch, with cross-cluster policy transfer.
+
+    Three legs in one artifact (the JAX leg's):
+
+    - **serving isolation (facade A/B)** — K tenants drain identical
+      workloads twice, once through K solo SchedulerLoops and once
+      through the FleetServer (the same loop code per tenant, one
+      lane-batched dispatch per bucket cycle).  Every tenant's
+      placements must be identical across the two runs; per-tenant
+      score p99 and the SLO snapshot come from this leg.
+    - **device-state A/B** — the same K pod streams, pre-encoded, drive
+      the stacked state directly: one ``fleet_fused_step`` chain (the
+      batches stacked along the lane axis outside the wall) against each
+      tenant's own solo ``fused_schedule_step`` chain.  The headline
+      ``aggregate_pods_per_sec`` is the fleet chain's rate over all K
+      tenants, held against ``single_tenant_pods_per_sec``, the facade
+      leg's solo loops (encode + dispatch + bind each cycle); the JAX
+      bar is >= 4x.
+    - **transfer (warm vs cold examples-to-promotion)** — a donor
+      policy cold-trains on a seeded decision stream until its candidate
+      wins its OWN counterfactual-replay gate on its own seeded trace,
+      then registers in the TransferRegistry; a recipient runs the same
+      protocol twice from identical seeds, cold and warm-started from
+      the registry's closest donor.  The warm leg still has to win the
+      recipient's own gate; transfer buys fewer training examples.
+    """
+    import tempfile
+
+    from kubernetesnetawarescheduler_tpu_torch.bench.envinfo import (
+        bench_env,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.assign import (
+        fused_schedule_step,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.state import (
+        stack_trees,
+        tree_map,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.fleet import (
+        FleetServer,
+        TransferRegistry,
+        fleet_fused_step,
+        node_bucket,
+        stack_statics,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.policy.model import (
+        NUM_TERMS,
+        ScoringPolicy,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.policy.replay_eval import (
+        evaluate_candidate,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.scenario.generate import (
+        ScenarioSpec,
+        generate_trace,
+    )
+
+    bucket = node_bucket(num_nodes, 64)
+    # Per-tenant SLO targets are sized to the SHARED dispatch wall
+    # (every lane in a bucket pays the whole bucket's call), as the JAX
+    # leg sizes them.
+    cfg = SchedulerConfig(
+        max_nodes=bucket, max_pods=batch, max_peers=4,
+        enable_explain=False, enable_slo=True,
+        slo_eval_interval_s=0.05, slo_score_p99_ms=10.0,
+        fleet_bucket_min=bucket,
+        queue_capacity=max(300, pods_per_tenant))
+
+    def _tenant_cluster(k):
+        return build_fake_cluster(
+            ClusterSpec(num_nodes=num_nodes, seed=seed + 10 + k))
+
+    def _attach(loop, k, lat, bw):
+        loop.encoder.set_network(lat, bw)
+        feed_metrics(loop.client, loop.encoder,
+                     np.random.default_rng(seed + 100 + k))
+
+    def _workload(k):
+        return generate_workload(
+            WorkloadSpec(num_pods=pods_per_tenant,
+                         seed=seed + 1000 + k, services=4,
+                         peer_fraction=0.5),
+            scheduler_name=cfg.scheduler_name)
+
+    def _drive_solo(loop, pods):
+        t0 = time.perf_counter()
+        for start in range(0, len(pods), batch):
+            loop.client.add_pods(pods[start:start + batch])
+            loop.run_once()
+        while len(loop.queue):
+            loop.run_once()
+        return time.perf_counter() - t0
+
+    def _copy(tree):
+        return tree_map(torch.clone, tree)
+
+    stops = contextlib.ExitStack()
+    with stops:
+        # -- leg 1: facade A/B (isolation + per-tenant SLO) -----------
+
+        # Warm the solo path outside any timed drain.
+        wcl, wlat, wbw = _tenant_cluster(99)
+        wloop = SchedulerLoop(wcl, cfg, method="parallel",
+                              burst_batches=1, device=device)
+        stops.callback(wloop.stop_bind_worker)
+        _attach(wloop, 99, wlat, wbw)
+        wloop.client.add_pods(_workload(99)[:2 * batch])
+        wloop.run_until_drained()
+
+        solo_walls, solo_placements = [], []
+        for k in range(tenants):
+            cluster, lat, bw = _tenant_cluster(k)
+            loop = SchedulerLoop(cluster, cfg, method="parallel",
+                                 burst_batches=1, device=device)
+            stops.callback(loop.stop_bind_worker)
+            _attach(loop, k, lat, bw)
+            solo_walls.append(_drive_solo(loop, _workload(k)))
+            solo_placements.append(_placements_sorted(loop))
+
+        # Warm the fleet path (same lane capacity, throwaway tenants).
+        wfleet = FleetServer(device=device)
+        stops.callback(wfleet.close)
+        for k in range(tenants):
+            cluster, lat, bw = _tenant_cluster(200 + k)
+            t = wfleet.add_tenant(f"warm-{k}", cluster, cfg,
+                                  n_nodes=num_nodes, burst_batches=1)
+            _attach(t.loop, 200 + k, lat, bw)
+            t.loop.client.add_pods(_workload(200 + k)[:batch])
+        wfleet.step()
+
+        fleet = FleetServer(device=device)
+        stops.callback(fleet.close)
+        ften = []
+        for k in range(tenants):
+            cluster, lat, bw = _tenant_cluster(k)
+            t = fleet.add_tenant(f"tenant-{k:02d}", cluster, cfg,
+                                 n_nodes=num_nodes, burst_batches=1)
+            _attach(t.loop, k, lat, bw)
+            ften.append((t, _workload(k)))
+        t0 = time.perf_counter()
+        start = 0
+        while True:
+            moved = False
+            for t, pods in ften:
+                chunk = pods[start:start + batch]
+                if chunk:
+                    t.loop.client.add_pods(chunk)
+                    moved = True
+            start += batch
+            if not moved and not any(len(t.loop.queue) for t, _ in ften):
+                break
+            while any(len(t.loop.queue) for t, _ in ften):
+                fleet.step()
+        fleet_wall = time.perf_counter() - t0
+
+        per_tenant = {}
+        identical_flags = []
+        for k, (t, _pods) in enumerate(ften):
+            loop = t.loop
+            same = _placements_sorted(loop) == solo_placements[k]
+            identical_flags.append(same)
+            timer = loop.timer
+            per_tenant[t.name] = {
+                "bucket_nodes": t.bucket_nodes,
+                "placements": len(loop.client.bindings),
+                "bit_identical_to_solo": bool(same),
+                "score_p99_ms": (
+                    float(timer.percentile("score_assign", 99) * 1e3)
+                    if timer.count("score_assign") else 0.0),
+                "slo": (loop.slo.snapshot()
+                        if loop.slo is not None else {}),
+            }
+        isolation = all(identical_flags) and len(identical_flags) > 0
+
+        solo_rates = [pods_per_tenant / w for w in solo_walls if w > 0]
+        single_rate = float(np.mean(solo_rates)) if solo_rates else 0.0
+        facade_agg = (tenants * pods_per_tenant / fleet_wall
+                      if fleet_wall > 0 else 0.0)
+        fleet_summary = fleet.summary()
+
+        # -- leg 2: device-state A/B --------------------------------
+
+        # Pre-encode each tenant's stream against a FRESH encoder (the
+        # admission work both chains share), then race the chains.
+        chains = []
+        for k in range(tenants):
+            cluster, lat, bw = _tenant_cluster(k)
+            loop = SchedulerLoop(cluster, cfg, method="parallel",
+                                 burst_batches=1, device=device)
+            stops.callback(loop.stop_bind_worker)
+            _attach(loop, k, lat, bw)
+            pods = _workload(k)
+            batches = [
+                loop.encoder.encode_pods(pods[i:i + batch],
+                                         node_of=lambda *_: None,
+                                         lenient=True)
+                for i in range(0, len(pods), batch)]
+            state, version = loop.encoder.snapshot_versioned()
+            static = loop._static_for(state, version)
+            chains.append((state, static, batches))
+        n_cycles = min(len(c[2]) for c in chains)
+
+        # Solo chains: one dispatch per batch per tenant (warm, then
+        # time).
+        st0, static0, b0 = chains[0]
+        fused_schedule_step(_copy(st0), b0[0], cfg, static0)
+        _sync(device)
+        t0 = time.perf_counter()
+        for state, static, batches in chains:
+            s = _copy(state)
+            for b in batches[:n_cycles]:
+                s, a, _r = fused_schedule_step(s, b, cfg, static)
+        _sync(device)
+        solo_chain_wall = time.perf_counter() - t0
+        solo_chain_rate = (tenants * n_cycles * batch / solo_chain_wall
+                           if solo_chain_wall > 0 else 0.0)
+
+        # Fleet chain: one lane-batched dispatch per cycle.  Each
+        # cycle's K batches are stacked OUTSIDE the wall, symmetric with
+        # the solo chains' pre-encoded batches.
+        statics = stack_statics([c[1] for c in chains])
+        stacked = [stack_trees([chains[k][2][c] for k in range(tenants)])
+                   for c in range(n_cycles)]
+        states = stack_trees([_copy(c[0]) for c in chains])
+        fleet_fused_step(states, stacked[0], statics, cfg)
+        _sync(device)
+        t0 = time.perf_counter()
+        for c in range(n_cycles):
+            states, a, _r = fleet_fused_step(states, stacked[c], statics,
+                                             cfg)
+        _sync(device)
+        fleet_chain_wall = time.perf_counter() - t0
+    aggregate_rate = (tenants * n_cycles * batch / fleet_chain_wall
+                      if fleet_chain_wall > 0 else 0.0)
+    speedup = (aggregate_rate / single_rate if single_rate else 0.0)
+
+    # -- leg 3: transfer (warm vs cold examples-to-promotion) ---------
+
+    # Nearly net-blind serving weights: the learned net multiplier is
+    # what the gate has to promote.
+    tweights = ScoreWeights(
+        cpu=0.5, mem=0.5, net_tx=0.0, net_rx=0.0, bandwidth=1.0,
+        disk=0.0, peer_bw=0.15, peer_lat=0.1, balance=0.5,
+        soft_affinity=1.0, spread=0.5)
+    tcfg = SchedulerConfig(
+        max_nodes=128, max_pods=32, max_peers=4, weights=tweights,
+        policy_min_examples=32, enable_explain=True)
+
+    def _scenario(scn_seed, n_nodes):
+        return ScenarioSpec(
+            seed=scn_seed, duration_s=duration_s,
+            base_rate=base_rate, diurnal_amplitude=0.3, day_s=30.0,
+            gang_fraction=0.0, longrun_fraction=0.003,
+            serving_lifetime_s=12.0, batch_lifetime_s=6.0,
+            gang_lifetime_s=10.0, lifetime_floor_s=2.0,
+            peer_fraction=0.85, max_peers=3, services=8,
+            netbw_range=(0.2, 1.5),
+            link_burst_rate_per_s=0.02, link_burst_duration_s=10.0,
+            node_churn_rate_per_s=0.0, node_down_duration_s=20.0,
+            state_fault_rate_per_s=0.0, chaos_seed=scn_seed + 17,
+            cluster=ClusterSpec(
+                num_nodes=n_nodes, seed=scn_seed,
+                node_classes=(
+                    NodeClassSpec("std", 0.4),
+                    NodeClassSpec("edge", 0.6, lat_scale=6.0,
+                                  bw_scale=0.15))))
+
+    # Seeded decision stream with a net-dominant hindsight optimum.
+    oracle_terms = np.array([1.0, 4.0, 1.0, 1.0, 1.0], np.float64)
+
+    def _stream(policy, rng, n):
+        k_pad = policy.k_pad
+        comps = rng.normal(0.5, 1.0, size=(n, k_pad, NUM_TERMS)
+                           ).astype(np.float32)
+        feas = np.ones((n, k_pad), np.float32)
+        cls = np.zeros((n, k_pad), np.int32)
+        tgt = np.argmax(comps @ oracle_terms, axis=1).astype(np.int32)
+        policy.add_examples(comps, feas, tgt, cls)
+
+    def _examples_to_promotion(policy, rng, trace_path, rkw):
+        evals = []
+        while True:
+            cand = policy.to_score_weights(tcfg.weights)
+            decision = evaluate_candidate(
+                tcfg, cand, tcfg.weights, [], trace_path=trace_path,
+                margin=0.02, k_pad=policy.k_pad, replay_kwargs=rkw)
+            evals.append({
+                "examples": int(policy.examples_total),
+                "promote": bool(decision.promote),
+                "incumbent_ratio": float(decision.incumbent_ratio),
+                "candidate_ratio": float(decision.candidate_ratio),
+                "reason": decision.reason,
+            })
+            if decision.promote:
+                return int(policy.examples_total), decision, evals
+            if policy.examples_total >= gate_cap:
+                return None, decision, evals
+            _stream(policy, rng, gate_every)
+            policy.train(16)
+
+    if not transfer_leg:
+        # The JAX leg's structural smoke skips it (full-shape only).
+        transfer_block = {"skipped":
+                          "transfer leg is full-shape-only"}
+    else:
+        tmp = tempfile.mkdtemp(prefix="fleet_transfer_")
+        donor_trace = os.path.join(tmp, "donor.jsonl.gz")
+        recip_trace = os.path.join(tmp, "recipient.jsonl.gz")
+        generate_trace(_scenario(seed, 96), donor_trace)
+        # The recipient is a DIFFERENT seeded tenant of the same
+        # scenario family; ``recipient_offset`` pins which sibling (the
+        # JAX leg's choice).
+        generate_trace(_scenario(seed + recipient_offset, 96),
+                       recip_trace)
+        rkw = dict(batch=32, oracle_sample=oracle_sample,
+                   rebalance=False, state_faults=False, device=device)
+        registry = TransferRegistry()
+        try:
+            # Donor: cold-train to promotion on ITS OWN gate, then
+            # register as a transfer donor.
+            donor = ScoringPolicy(tcfg, seed=seed + 1, device=device)
+            e_donor, d_donor, donor_evals = _examples_to_promotion(
+                donor, np.random.default_rng(seed + 11), donor_trace,
+                rkw)
+            if d_donor.promote:
+                donor.note_promotion(d_donor.to_dict(),
+                                     d_donor.candidate_weights)
+            donor_features = {"nodes": 96.0, "zones": 2.0,
+                              "lat_mean": 2.0, "bw_mean": 1.0}
+            registry.register("donor", donor_features, donor)
+
+            # Recipient, cold leg: identical seeds, no transfer.
+            cold = ScoringPolicy(tcfg, seed=seed + 2, device=device)
+            e_cold, _d_cold, cold_evals = _examples_to_promotion(
+                cold, np.random.default_rng(seed + 12), recip_trace, rkw)
+
+            # Recipient, warm leg: identical seeds, warm-started from
+            # the registry's closest donor; still has to win its OWN
+            # gate.
+            warm = ScoringPolicy(tcfg, seed=seed + 2, device=device)
+            recip_features = {"nodes": 96.0, "zones": 2.0,
+                              "lat_mean": 2.1, "bw_mean": 0.9}
+            donor_rec = registry.warm_start(warm, recip_features)
+            e_warm, _d_warm, warm_evals = _examples_to_promotion(
+                warm, np.random.default_rng(seed + 12), recip_trace, rkw)
+        finally:
+            for p in (donor_trace, recip_trace):
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass
+            try:
+                os.rmdir(tmp)
+            except OSError:
+                pass
+
+        warm_lt_cold = (e_warm is not None and e_cold is not None
+                        and e_warm < e_cold)
+        transfer_block = {
+            "examples_to_promotion_donor": e_donor,
+            "examples_to_promotion_cold": e_cold,
+            "examples_to_promotion_warm": e_warm,
+            "warm_lt_cold": bool(warm_lt_cold),
+            "donor_used": (donor_rec.to_dict()
+                           if donor_rec is not None
+                           else None),
+            "donor_evals": donor_evals,
+            "cold_evals": cold_evals,
+            "warm_evals": warm_evals,
+            "registry": registry.summary(),
+        }
+
+    doc = {
+        "metric": "fleet_consolidation",
+        "value": round(float(speedup), 3),
+        "unit": "x_single_tenant_rate",
+        "seed": seed,
+        "detail": {
+            "tenants": tenants,
+            "num_nodes_per_tenant": num_nodes,
+            "bucket_nodes": bucket,
+            "pods_per_tenant": pods_per_tenant,
+            "batch": batch,
+            "total_pods": tenants * n_cycles * batch,
+            "fleet": {
+                "isolation_bit_identical": bool(isolation),
+                "tenants": per_tenant,
+                "aggregate_pods_per_sec": round(aggregate_rate, 1),
+                "single_tenant_pods_per_sec": round(single_rate, 1),
+                "speedup": round(float(speedup), 3),
+                "speedup_over_4x": bool(speedup >= 4.0),
+                "methodology": {
+                    "single_tenant_rate":
+                        "one per-cluster SchedulerLoop serving its "
+                        "own workload: host encode + device dispatch "
+                        "+ bind every cycle (the deployment the "
+                        "fleet consolidates)",
+                    "aggregate_rate":
+                        "the stacked device state: K tenants' "
+                        "pre-encoded streams through one lane-batched "
+                        "fused score->resolve->commit chain, states "
+                        "device-resident; batches are stacked along "
+                        "the lane axis outside the wall, symmetric "
+                        "with the solo chains' pre-encoded batches",
+                },
+                "facade": {
+                    "aggregate_pods_per_sec": round(facade_agg, 1),
+                    "solo_aggregate_pods_per_sec": round(
+                        tenants * pods_per_tenant / sum(solo_walls)
+                        if sum(solo_walls) > 0 else 0.0, 1),
+                    "speedup_vs_solo": round(
+                        facade_agg * sum(solo_walls)
+                        / (tenants * pods_per_tenant), 3)
+                        if sum(solo_walls) > 0 else 0.0,
+                    "wall_s": round(fleet_wall, 3),
+                    "dispatches_total": int(
+                        fleet_summary["dispatches_total"]),
+                    "dispatch_lanes_total": int(
+                        fleet_summary["dispatch_lanes_total"]),
+                },
+                "device_chain": {
+                    "solo_wall_s": round(solo_chain_wall, 3),
+                    "fleet_wall_s": round(fleet_chain_wall, 3),
+                    "solo_chain_pods_per_sec": round(
+                        solo_chain_rate, 1),
+                    "cycles_per_tenant": int(n_cycles),
+                },
+                "transfer": transfer_block,
+            },
+            "bench_env": bench_env(),
+        },
+    }
+    artifacts: list[str] = []
+    write_artifact(out_dir, "fleet.json", doc, artifacts)
+    return SuiteResult("fleet", doc, artifacts)
+
+
 CONFIGS: dict[str, Callable[..., SuiteResult]] = {
     "density": run_density_config,
     "custom_network": run_custom_network_config,
@@ -2864,17 +3328,11 @@ CONFIGS: dict[str, Callable[..., SuiteResult]] = {
     "reshape": run_reshape_config,
     "scenario": run_scenario_config,
     "policy": run_policy_config,
+    "fleet": run_fleet_config,
 }
 
-#: The JAX suite's other legs, each with the ROADMAP Queue A item that
-#: ports it.
-UNPORTED: dict[str, int] = {"fleet": 13}
-
 #: Every leg name, in the JAX suite's order (``--config all``).
-ALL = ("density", "custom_network", "affinity", "soft_affinity", "spread",
-       "zone_affinity", "binpack", "sidecar", "gang", "topology",
-       "integrity", "quality", "rebalance", "reshape", "scenario",
-       "policy", "fleet")
+ALL = tuple(CONFIGS)
 
 # Reduced shapes for smoke runs / CPU CI (the JAX suite's).
 SMALL = {
@@ -2903,17 +3361,16 @@ SMALL = {
     "policy": dict(num_nodes=64, num_pods=96, batch=32,
                    duration_s=20.0, base_rate=20.0,
                    oracle_sample=64),
+    # Structural smoke only (the JAX suite's: isolation at any size; the
+    # 4x and warm-vs-cold bars are full-shape only).
+    "fleet": dict(tenants=4, num_nodes=24, pods_per_tenant=32,
+                  batch=8, transfer_leg=False),
 }
 
 
 def _check_names(names: Sequence[str]) -> None:
-    """Refuse the first leg the port does not run, before any runs."""
+    """Refuse an unknown leg name before any leg runs."""
     for name in names:
-        if name in UNPORTED:
-            raise NotImplementedError(
-                f"suite leg {name!r} is not ported yet (ROADMAP Queue A "
-                f"item {UNPORTED[name]}); the port runs "
-                f"{', '.join(CONFIGS)}")
         if name not in CONFIGS:
             raise ValueError(f"unknown suite leg {name!r}")
 
@@ -2938,9 +3395,7 @@ def main(argv: Sequence[str] | None = None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="all",
-                    help=f"one of {', '.join(ALL)} or 'all' (the port "
-                         f"runs {', '.join(CONFIGS)}; the others are "
-                         "refused with their ROADMAP item)")
+                    help=f"one of {', '.join(ALL)} or 'all'")
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--small", action="store_true",
                     help="reduced shapes for smoke runs")

@@ -24,6 +24,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
 from kubernetesnetawarescheduler_tpu_torch.core import score as score_lib
@@ -42,7 +43,9 @@ from kubernetesnetawarescheduler_tpu_torch.core.state import (
     add_zone_counts,
     bit_planes,
     commit_assignments,
+    exact_matmul,
     host_flag,
+    index_tree,
     planes_to_words,
     scatter_add_rows,
     scatter_or_onehot,
@@ -532,6 +535,341 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
     if with_stats:
         return assignment, rounds
     return assignment
+
+
+# ---------------------------------------------------------------------------
+# The conflict loop over a lane axis (the fleet's one dispatch).
+# ---------------------------------------------------------------------------
+
+
+def _tree_fields(tree) -> dict:
+    return {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+
+
+def _set_rows_f(x: torch.Tensor, rows: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """:func:`_set_rows` without the in-place write (``vmap`` batches an
+    out-of-place ``index_put``)."""
+    n = x.shape[0]
+    return torch.cat([x, x[:1]]).index_put((rows.long(),), vals)[:n]
+
+
+def _static_parts_lanes(states: ClusterState, pods: PodBatch,
+                        cfg: SchedulerConfig, statics):
+    """Node-major ``(raw f32[K, N, P], static_ok bool[K, N, P])``: one
+    lane launch of the static kernel under ``"pallas"``; under
+    ``"xla"`` the solo :func:`_static_parts` once per lane (once per
+    cycle, never per round)."""
+    if cfg.score_backend == "pallas":
+        return tiled_score.static_scores_tiled_lanes(states, pods, cfg,
+                                                     statics,
+                                                     transposed=True)
+    parts = [_static_parts(index_tree(states, k), index_tree(pods, k), cfg,
+                           None if statics is None
+                           else index_tree(statics, k), transposed=True)
+             for k in range(pods.req.shape[0])]
+    return (torch.stack([raw for raw, _ in parts]),
+            torch.stack([ok for _, ok in parts]))
+
+
+def _lane_scatter_add(base: torch.Tensor, idx: torch.Tensor,
+                      vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`~.state.scatter_add_rows` over a lane axis, with one
+    ``[N, P] x [P, R]`` product per lane, the solo path's own call: a
+    batched product may sum three or more pods on one node in another
+    order, and ``used`` must keep the solo bits."""
+    n = base.shape[1]
+    onehot = (mask[..., None] & (
+        idx[..., None] == torch.arange(n, device=idx.device))).to(
+            torch.float32)
+    add = torch.where(mask[..., None], vals, torch.zeros_like(vals))
+    return base + torch.stack([exact_matmul(onehot[k].T, add[k])
+                               for k in range(base.shape[0])])
+
+
+def assign_parallel_lanes(states: ClusterState, pods: PodBatch,
+                          cfg: SchedulerConfig, statics=None):
+    """:func:`assign_parallel` over a leading lane axis: ``states`` and
+    ``pods`` are :func:`~.state.stack_trees` results (``[K, ...]`` per
+    leaf), ``statics`` the stacked per-lane backend prep (or None).
+    Returns ``(assignment i32[K, P], rounds i32[K])``; lane ``k`` equals
+    ``assign_parallel`` on lane ``k`` alone, bit for bit, and depends on
+    no other lane.
+
+    This is what ``jax.vmap`` makes of the JAX loop.  The rounds run on
+    the host with ONE :func:`~.state.host_flag` per round for all K
+    lanes (a solo loop pays one per round per tenant, plus its gates);
+    each lane's ``cont`` and round count stay on the device, and a
+    finished lane's carry is frozen with ``torch.where`` until the last
+    lane stops.  The two host gates of the solo loop become per-lane
+    selects: the zone overlay (computed for every lane once any lane has
+    zone work) and the second-chance pass (computed every round, taken
+    only by a lane without zone work whose pass A left a feasible pod
+    unplaced).  A round is three ``torch.func.vmap`` bodies around the
+    two usage updates, which run per lane (:func:`_lane_scatter_add`)."""
+    k_lanes, p = pods.req.shape[:2]
+    n = states.metrics.shape[1]
+    if (n + 1) * p > _INT32_MAX:
+        raise ValueError(
+            f"max_nodes*max_pods={n}*{p} overflows the int32 "
+            "winner-selection key; reduce the batch or node padding")
+    dev = states.metrics.device
+    rawT, static_okT = _static_parts_lanes(states, pods, cfg, statics)
+    w_bal = float(np.float32(cfg.weights.balance))
+    row_ids = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    idx = torch.arange(p, dtype=torch.int32, device=dev)
+
+    def unpack(c):
+        return ClusterState(**c["st"]), PodBatch(**c["pd"])
+
+    def consts(c):
+        state, lp = unpack(c)
+        order = torch.argsort(-lp.priority, stable=True)
+        rank = torch.zeros((p,), dtype=torch.int32, device=dev).scatter(
+            0, order, idx)
+        zpc = (
+            (((lp.zanti_bits[:, None, :] & lp.group_bit[None, :, :]) != 0)
+             .any(dim=-1)
+             | ((lp.group_bit[:, None, :] & lp.zanti_bits[None, :, :]) != 0)
+             .any(dim=-1))
+            & (rank[:, None] < rank[None, :]))
+        zwork = (score_lib.spread_active(lp).any()
+                 | (lp.zaff_bits != 0).any() | (lp.zanti_bits != 0).any()
+                 | (state.az_anti != 0).any())
+        return {"rank": rank, "gbp": bit_planes(lp.group_bit, torch.int32),
+                "abp": bit_planes(lp.anti_bits, torch.int32), "zpc": zpc,
+                "zwork": zwork}
+
+    def argmax2(s_m):
+        best = s_m.amax(dim=0)
+        choice = torch.where(s_m == best[None, :], row_ids, n).amin(dim=0)
+        second = torch.where(row_ids == choice[None, :], NEG_INF,
+                             s_m).amax(dim=0)
+        return choice.to(torch.int32), best, second
+
+    def core_scores_t(c, used, group_bits, resident_anti, assignment):
+        state, lp = unpack(c)
+        cap = state.cap
+        free = cap - used
+        fits = (lp.req[None, :, :] <= free[:, None, :] + _EPS).all(dim=-1)
+        aff_req = lp.affinity_bits[None, :, :]
+        affinity = ((group_bits[:, None, :] & aff_req)
+                    == aff_req).all(dim=-1)
+        anti = ((group_bits[:, None, :] & lp.anti_bits[None, :, :])
+                == 0).all(dim=-1)
+        sym = ((resident_anti[:, None, :] & lp.group_bit[None, :, :])
+               == 0).all(dim=-1)
+        bal = ((used[:, None, :] + lp.req[None, :, :])
+               / cap.clamp_min(_EPS)[:, None, :]).amax(dim=-1)
+        ok = (c["okT"] & fits & affinity & anti & sym
+              & (assignment == UNASSIGNED)[None, :])
+        return torch.where(ok, c["rawT"] - w_bal * bal, NEG_INF)
+
+    def overlay(c, sT, gz, az):
+        state, lp = unpack(c)
+        spread_pen, spread_ok = score_lib.spread_terms_ungated(
+            state, lp, cfg, gz, static_ok=c["okT"].T)
+        zone_ok = score_lib.zone_affinity_ungated(state, lp, gz, az)
+        ov = torch.where((spread_ok & zone_ok).T, sT - spread_pen.T,
+                         NEG_INF)
+        return torch.where(c["zwork"], ov, sT)
+
+    def accept(c, second_best, choice_x, feas_x, used):
+        state, lp = unpack(c)
+        rank, cap = c["rank"], state.cap
+        key = torch.where(feas_x, choice_x * p + rank, n * p + rank)
+        perm = torch.argsort(key)
+        group_id = key[perm] // p
+        first = _segment_starts(group_id)
+        req_sorted = lp.req[perm]
+        csum = _assoc_cumsum0(req_sorted)
+        base = torch.where(first[:, None], csum - req_sorted, -float("inf"))
+        seg_csum = csum - _cummax0(base)
+        node_sorted = group_id.clamp(0, n - 1).long()
+        fits_cum = (seg_csum <= (cap - used)[node_sorted] + _EPS).all(dim=-1)
+        bal_after = ((used[node_sorted] + seg_csum)
+                     / cap.clamp_min(_EPS)[node_sorted]).amax(dim=-1)
+        raw_sel = c["rawT"].gather(
+            0, choice_x.clamp(0, n - 1).long()[None, :])[0]
+        adj_sorted = raw_sel[perm] - w_bal * bal_after
+        stays_best = adj_sorted >= second_best[perm] - 1e-6
+        seg2 = (group_id * 2)[:, None]
+        gbp, abp = c["gbp"][perm], c["abp"][perm]
+        incl_gb = _cummax0(seg2 + gbp) - seg2
+        incl_ab = _cummax0(seg2 + abp) - seg2
+        zero_row = torch.zeros_like(gbp[:1])
+        excl_gb = torch.where(first[:, None], 0,
+                              torch.cat([zero_row, incl_gb[:-1]])) >= 1
+        excl_ab = torch.where(first[:, None], 0,
+                              torch.cat([zero_row, incl_ab[:-1]])) >= 1
+        pair_ok = (~(excl_ab & (gbp >= 1)).any(dim=1)
+                   & ~(excl_gb & (abp >= 1)).any(dim=1))
+        good = fits_cum & pair_ok & stays_best
+        seg_start = _cummax0(torch.where(first, idx, -1))
+        last_bad = _cummax0(torch.where(~good, idx, -1))
+        prefix_ok = last_bad < seg_start
+        return torch.zeros((p,), dtype=torch.bool, device=dev).scatter(
+            0, perm, (first | prefix_ok) & (group_id < n))
+
+    def seg_or_updates(c, choice_x, winner_x, group_bits, resident_anti):
+        key = torch.where(winner_x, choice_x * p + c["rank"],
+                          n * p + c["rank"])
+        perm = torch.argsort(key)
+        group_id = key[perm] // p
+        first = _segment_starts(group_id)
+        node_sorted = group_id.clamp(0, n - 1)
+        seg2 = (group_id * 2)[:, None]
+        win_sorted = winner_x[perm].to(torch.int32)[:, None]
+        or_gb = (_cummax0(seg2 + c["gbp"][perm] * win_sorted) - seg2) >= 1
+        or_ab = (_cummax0(seg2 + c["abp"][perm] * win_sorted) - seg2) >= 1
+        last_of_seg = torch.cat([first[1:], torch.ones(
+            (1,), dtype=torch.bool, device=dev)])
+        seg_cols = torch.where(last_of_seg & (group_id < n), node_sorted, n)
+        safe = seg_cols.clamp(0, n - 1).long()
+        new_group = _set_rows_f(group_bits, seg_cols,
+                                group_bits[safe] | planes_to_words(or_gb))
+        new_anti = _set_rows_f(resident_anti, seg_cols,
+                               resident_anti[safe] | planes_to_words(or_ab))
+        return new_group, new_anti
+
+    def row_patch(c, sT, wnodes, used_x, group_x, anti_x, assignment_x):
+        state, lp = unpack(c)
+        cc = wnodes.clamp(0, n - 1).long()
+        sub_used = used_x[cc]
+        sub_cap = state.cap[cc]
+        fits2 = (lp.req[None, :, :] <= (sub_cap - sub_used)[:, None, :]
+                 + _EPS).all(dim=-1)
+        gb = group_x[cc]
+        ra = anti_x[cc]
+        aff_req2 = lp.affinity_bits[None, :, :]
+        affinity2 = ((gb[:, None, :] & aff_req2) == aff_req2).all(dim=-1)
+        aok = ((gb[:, None, :] & lp.anti_bits[None, :, :])
+               == 0).all(dim=-1)
+        sym2 = ((ra[:, None, :] & lp.group_bit[None, :, :])
+                == 0).all(dim=-1)
+        bal = ((sub_used[:, None, :] + lp.req[None, :, :])
+               / sub_cap.clamp_min(_EPS)[:, None, :]).amax(dim=-1)
+        ok = (c["okT"][cc] & fits2 & affinity2 & aok & sym2
+              & (assignment_x == UNASSIGNED)[None, :]
+              & (wnodes < n)[:, None])
+        sub = torch.where(ok, c["rawT"][cc] - w_bal * bal, NEG_INF)
+        return _set_rows_f(sT, wnodes, sub), sub
+
+    def init(c):
+        state, lp = unpack(c)
+        assignment = torch.full_like(lp.group_idx, UNASSIGNED)
+        sT = core_scores_t(c, state.used, state.group_bits,
+                           state.resident_anti, assignment)
+        return ((sT, state.used, state.group_bits, state.resident_anti,
+                 state.gz_counts, state.az_anti, assignment),
+                (sT > NEG_HALF).any())
+
+    def round_a(c, carry, zone_any):
+        """Argmax, accept, and the round's spread and zone-anti caps."""
+        state, lp = unpack(c)
+        sT, used, _, _, gz, az, assignment = carry
+        s_ov = overlay(c, sT, gz, az) if zone_any else sT
+        alive = (assignment == UNASSIGNED) & lp.pod_valid
+        s_m = torch.where(alive[None, :], s_ov, NEG_INF)
+        choice, val, second_best = argmax2(s_m)
+        feasible = val > NEG_HALF
+        winner = accept(c, second_best, choice, feasible, used)
+        rank = c["rank"]
+        zone_of = state.node_zone[choice.clamp(0, n - 1).long()]
+        s_active = (winner & score_lib.spread_active(lp) & (zone_of >= 0))
+        zdim = state.gz_counts.shape[1]
+        gzmax = state.gz_counts.shape[0] * zdim
+        gz_id = torch.where(s_active, lp.group_idx * zdim + zone_of,
+                            gzmax + rank)
+        key2 = gz_id * p + rank
+        perm2 = torch.argsort(key2)
+        first2 = _segment_starts(key2[perm2] // p)
+        keep = torch.zeros((p,), dtype=torch.bool, device=dev).scatter(
+            0, perm2, first2)
+        winner = winner & keep
+        zsame = (winner[:, None] & winner[None, :]
+                 & (zone_of[:, None] == zone_of[None, :])
+                 & (zone_of >= 0)[:, None])
+        winner = winner & ~(zsame & c["zpc"]).any(dim=0)
+        return choice, feasible, winner, alive
+
+    def round_b(c, carry, choice, feasible, winner, alive, used_a):
+        """Pass A's updates and the second-chance proposal."""
+        sT, used, group_bits, resident_anti, _, _, assignment = carry
+        assignment_a = torch.where(winner, choice, assignment)
+        group_a, anti_a = seg_or_updates(c, choice, winner, group_bits,
+                                         resident_anti)
+        wnodes_a = torch.where(winner, choice, n)
+        s_patched, sub_a = row_patch(c, sT, wnodes_a, used_a, group_a,
+                                     anti_a, assignment_a)
+        va_new = sub_a.amax(dim=0)
+        s_b = _set_rows_f(sT, wnodes_a, torch.full_like(sub_a, NEG_INF))
+        s_bm = torch.where((alive & ~winner)[None, :], s_b, NEG_INF)
+        choice_b, val_b, sb2 = argmax2(s_bm)
+        feas_b = (val_b > NEG_HALF) & (val_b >= va_new - 1e-6)
+        take_b = ~c["zwork"] & (~winner & feasible).any()
+        winner_b = accept(c, torch.maximum(sb2, va_new), choice_b, feas_b,
+                          used) & take_b
+        return (assignment_a, group_a, anti_a, s_patched, choice_b,
+                winner_b, take_b)
+
+    def round_c(c, carry, cont, choice, winner, used_a, b, used_b):
+        """Pass B's updates, the per-lane second-chance select, the zone
+        planes, the next ``cont``; a finished lane keeps its carry."""
+        state, lp = unpack(c)
+        _, _, _, _, gz, az, assignment = carry
+        (assignment_a, group_a, anti_a, s_patched, choice_b, winner_b,
+         take_b) = b
+        winner_mb = winner | winner_b
+        choice_mb = torch.where(winner_b, choice_b, choice)
+        assignment_b = torch.where(winner_mb, choice_mb, assignment)
+        group_b, anti_b = seg_or_updates(c, choice_b, winner_b, group_a,
+                                         anti_a)
+        wnodes_b = torch.where(winner_b, choice_b, n)
+        sT_b, _ = row_patch(c, s_patched, wnodes_b, used_b, group_b,
+                            anti_b, assignment_b)
+
+        def pick(on_b, on_a):
+            return torch.where(take_b, on_b, on_a)
+
+        winner_m = pick(winner_mb, winner)
+        choice_m = pick(choice_mb, choice)
+        new_assignment = pick(assignment_b, assignment_a)
+        new_sT = pick(sT_b, s_patched)
+        new_used = pick(used_b, used_a)
+        new_group, new_anti = pick(group_b, group_a), pick(anti_b, anti_a)
+        new_gz = add_zone_counts(gz, state.node_zone, lp.group_bit,
+                                 choice_m, winner_m)
+        zone_of_m = state.node_zone[choice_m.clamp(0, n - 1).long()]
+        zmax = az.shape[0]
+        zhot = (winner_m & (zone_of_m >= 0))[:, None] & (
+            zone_of_m.clamp(0, zmax - 1)[:, None]
+            == torch.arange(zmax, device=dev)[None, :])
+        new_az = az | scatter_or_onehot(zhot, lp.zanti_bits)
+        alive2 = (new_assignment == UNASSIGNED) & lp.pod_valid
+        cont_new = winner_m.any() & (torch.where(
+            alive2[None, :], new_sT, NEG_INF) > NEG_HALF).any()
+        new = (new_sT, new_used, new_group, new_anti, new_gz, new_az,
+               new_assignment)
+        return (tuple(torch.where(cont, x, x0) for x, x0 in zip(new, carry)),
+                cont & cont_new)
+
+    c = {"st": _tree_fields(states), "pd": _tree_fields(pods),
+         "rawT": rawT, "okT": static_okT}
+    c.update(vmap(consts)(c))
+    zone_any = host_flag(c["zwork"].any())
+    carry, cont = vmap(init)(c)
+    rounds = torch.zeros((k_lanes,), dtype=torch.int32, device=dev)
+    while host_flag(cont.any()):
+        choice, feasible, winner, alive = vmap(
+            round_a, in_dims=(0, 0, None))(c, carry, zone_any)
+        used_a = _lane_scatter_add(carry[1], choice, pods.req, winner)
+        b = vmap(round_b)(c, carry, choice, feasible, winner, alive, used_a)
+        used_b = _lane_scatter_add(used_a, b[4], pods.req, b[5])
+        rounds = rounds + cont.to(torch.int32)
+        carry, cont = vmap(round_c)(c, carry, cont, choice, winner, used_a,
+                                    b, used_b)
+    return torch.where(pods.pod_valid, carry[6], UNASSIGNED), rounds
 
 
 def schedule_batch(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,

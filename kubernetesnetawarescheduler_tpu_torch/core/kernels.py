@@ -21,6 +21,13 @@ Pallas kernels share ``_net_accum``:
   best goes into one ``atomicMax`` on a packed 64-bit key (ordered score
   bits high, inverted node index low).  It writes 8 bytes per pod and
   never the P×N plane.
+- :func:`static_tile_scores_lanes` is ``_static_kernel`` over a lane
+  axis, as the JAX fleet's ``vmap`` of ``_static_pallas_call`` adds a
+  grid dimension: every input stacked ``[K, ...]`` (one tenant per
+  lane), the compaction per lane, then one launch of
+  ``static_scores_lanes_kernel`` with the lane on ``blockIdx.z``, which
+  runs the solo kernel's tile body on its lane's slices (each lane has
+  the solo launch's bits).
 
 What bounds them on an H100: ``T`` holds at most ``max_peers`` non-zeros
 per pod (192 of 5,120 columns in a 128-pod stream batch), so the function
@@ -82,7 +89,10 @@ import torch
 from kubernetesnetawarescheduler_tpu_torch.core.score import (
     winner_from_scores,
 )
-from kubernetesnetawarescheduler_tpu_torch.core.state import exact_matmul
+from kubernetesnetawarescheduler_tpu_torch.core.state import (
+    exact_matmul,
+    index_tree,
+)
 
 NEG_INF = -1e30
 
@@ -184,6 +194,11 @@ def build_library() -> ctypes.CDLL:
     lib.tiled_static_scores.argtypes = (
         [ptr] * 20 + [ptr, ptr, i64, i64] + [i32] * 6 + [ptr])
     lib.tiled_static_scores.restype = i32
+    lib.tiled_peer_columns_lanes.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.tiled_peer_columns_lanes.restype = i32
+    lib.tiled_static_scores_lanes.argtypes = (
+        [ptr] * 20 + [ptr, ptr, i64, i64] + [i32] * 7 + [ptr])
+    lib.tiled_static_scores_lanes.restype = i32
     lib.tiled_masked_scores.argtypes = (
         [ptr] * 27 + [ptr] + [i32] * 7 + [ptr])
     lib.tiled_masked_scores.restype = i32
@@ -213,38 +228,54 @@ def _check(x: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str,
 
 
 def _shapes(pack: StaticPack, pods: PodPack):
-    n_out, n_k = pack.bw.shape
-    p, r = pods.req.shape
-    mw = pods.tol.shape[1]
-    t_soft = pods.soft_sel_w.shape[1]
+    n_out, n_k = pack.bw.shape[-2:]
+    p, r = pods.req.shape[-2:]
+    mw = pods.tol.shape[-1]
+    t_soft = pods.soft_sel_w.shape[-1]
     return p, n_out, n_k, r, mw, t_soft
 
 
-def _net_args(pack: StaticPack, pods: PodPack, dev: torch.device) -> list:
+def _net_args(pack: StaticPack, pods: PodPack, dev: torch.device,
+              lead: tuple = ()) -> list:
+    """The input pointers every score kernel takes; ``lead`` is the
+    leading lane axis ``(K,)`` of a lane launch."""
     p, n_out, n_k, _, mw, _ = _shapes(pack, pods)
     f32, i32 = torch.float32, torch.int32
     return [
-        _check(pods.t, f32, (p, n_k), "t", dev),
-        _check(pack.bw, f32, (n_out, n_k), "bw", dev),
-        _check(pack.lat, f32, (n_out, n_k), "lat", dev),
-        _check(pack.validk, f32, (n_k,), "validk", dev),
-        _check(pack.params, f32, (8,), "params", dev),
-        _check(pack.base, f32, (n_out,), "base", dev),
-        _check(pack.node_valid, f32, (n_out,), "node_valid", dev),
-        _check(pack.taint, i32, (n_out, mw), "taint", dev),
-        _check(pack.label, i32, (n_out, mw), "label", dev),
+        _check(pods.t, f32, lead + (p, n_k), "t", dev),
+        _check(pack.bw, f32, lead + (n_out, n_k), "bw", dev),
+        _check(pack.lat, f32, lead + (n_out, n_k), "lat", dev),
+        _check(pack.validk, f32, lead + (n_k,), "validk", dev),
+        _check(pack.params, f32, lead + (8,), "params", dev),
+        _check(pack.base, f32, lead + (n_out,), "base", dev),
+        _check(pack.node_valid, f32, lead + (n_out,), "node_valid", dev),
+        _check(pack.taint, i32, lead + (n_out, mw), "taint", dev),
+        _check(pack.label, i32, lead + (n_out, mw), "label", dev),
     ]
 
 
-def _soft_args(pods: PodPack, dev: torch.device) -> list:
-    p, t_soft, mw = pods.soft_sel.shape
+def _soft_args(pods: PodPack, dev: torch.device, lead: tuple = ()) -> list:
+    p, t_soft, mw = pods.soft_sel.shape[-3:]
     f32, i32 = torch.float32, torch.int32
     return [
-        _check(pods.soft_sel, i32, (p, t_soft, mw), "soft_sel", dev),
-        _check(pods.soft_grp, i32, (p, t_soft, mw), "soft_grp", dev),
-        _check(pods.soft_sel_w, f32, (p, t_soft), "soft_sel_w", dev),
-        _check(pods.soft_grp_w, f32, (p, t_soft), "soft_grp_w", dev),
+        _check(pods.soft_sel, i32, lead + (p, t_soft, mw), "soft_sel", dev),
+        _check(pods.soft_grp, i32, lead + (p, t_soft, mw), "soft_grp", dev),
+        _check(pods.soft_sel_w, f32, lead + (p, t_soft), "soft_sel_w", dev),
+        _check(pods.soft_grp_w, f32, lead + (p, t_soft), "soft_grp_w", dev),
     ]
+
+
+def _static_args(pack: StaticPack, groups: torch.Tensor, pods: PodPack,
+                 dev: torch.device, lead: tuple = ()) -> list:
+    """The 17 input pointers of the static kernel (solo or lanes)."""
+    p, n_out, _, _, mw, _ = _shapes(pack, pods)
+    f32, i32 = torch.float32, torch.int32
+    return _net_args(pack, pods, dev, lead) + [
+        _check(groups, i32, lead + (n_out, mw), "groups", dev),
+        _check(pods.pod_valid, f32, lead + (p,), "pod_valid", dev),
+        _check(pods.tol, i32, lead + (p, mw), "tol", dev),
+        _check(pods.sel, i32, lead + (p, mw), "sel", dev),
+    ] + _soft_args(pods, dev, lead)
 
 
 def _masked_args(pack: StaticPack, used: torch.Tensor, cap: torch.Tensor,
@@ -347,6 +378,18 @@ def static_tile_scores_plain(pack: StaticPack, groups: torch.Tensor,
     soft = soft_bonus_plain(pack.label, groups, pods)
     raw = acc + pack.base[None, :] + pack.params[6] * soft
     return raw, ok
+
+
+def static_tile_scores_lanes_plain(pack: StaticPack, groups: torch.Tensor,
+                                   pods: PodPack, use_bfloat16: bool):
+    """Plain version of :func:`static_tile_scores_lanes`:
+    :func:`static_tile_scores_plain` on each lane, stacked, ``(raw
+    f32[K, P, N], ok bool[K, P, N])``."""
+    outs = [static_tile_scores_plain(index_tree(pack, k), groups[k],
+                                     index_tree(pods, k), use_bfloat16)
+            for k in range(groups.shape[0])]
+    return (torch.stack([raw for raw, _ in outs]),
+            torch.stack([ok for _, ok in outs]))
 
 
 def masked_tile_scores_plain(pack: StaticPack, used: torch.Tensor,
@@ -464,13 +507,8 @@ def static_tile_scores(pack: StaticPack, groups: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     p, n_out, n_k, _, mw, t_soft = _shapes(pack, pods)
-    f32, i32 = torch.float32, torch.int32
-    args = _net_args(pack, pods, dev) + [
-        _check(groups, i32, (n_out, mw), "groups", dev),
-        _check(pods.pod_valid, f32, (p,), "pod_valid", dev),
-        _check(pods.tol, i32, (p, mw), "tol", dev),
-        _check(pods.sel, i32, (p, mw), "sel", dev),
-    ] + _soft_args(pods, dev)
+    f32 = torch.float32
+    args = _static_args(pack, groups, pods, dev)
     bufs = _peer_buffers(peers, pods, dev)
     args += [b.data_ptr() for b in bufs]
     shape = (n_out, p) if transposed else (p, n_out)
@@ -489,6 +527,84 @@ def static_tile_scores(pack: StaticPack, groups: torch.Tensor,
 
 
 static_tile_scores.launches = 0
+
+
+def peer_columns_lanes(t: torch.Tensor):
+    """:func:`peer_columns` per lane of a stacked ``t f32[K, P, n_k]``:
+    ``(cols i32[K, n_k], count i32[K])``.  CPU tensors take
+    :func:`peer_columns_plain` per lane; CUDA tensors launch the two
+    compaction kernels once each over all lanes (counted as part of the
+    :func:`static_tile_scores_lanes` launch that needs them)."""
+    dev = t.device
+    if dev.type == "cpu":
+        outs = [peer_columns_plain(t[k]) for k in range(t.shape[0])]
+        return (torch.stack([c for c, _ in outs]),
+                torch.cat([n for _, n in outs]))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k_lanes, p, n_k = t.shape
+    ptr = _check(t, torch.float32, (k_lanes, p, n_k), "t", dev)
+    flags = torch.empty((k_lanes, n_k), dtype=torch.int32, device=dev)
+    cols = torch.empty((k_lanes, n_k), dtype=torch.int32, device=dev)
+    count = torch.empty((k_lanes,), dtype=torch.int32, device=dev)
+    lib = build_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tiled_peer_columns_lanes(
+            ptr, flags.data_ptr(), cols.data_ptr(), count.data_ptr(), p, n_k,
+            k_lanes, stream)
+    _raise_on(err, "peer_columns (lanes)")
+    return cols, count
+
+
+def static_tile_scores_lanes(pack: StaticPack, groups: torch.Tensor,
+                             pods: PodPack, use_bfloat16: bool,
+                             transposed: bool = False, peers=None):
+    """:func:`static_tile_scores` over a leading lane axis: every field
+    of ``pack`` and ``pods`` and ``groups`` is stacked ``[K, ...]`` (one
+    tenant per lane, :func:`~.state.stack_trees`), and the result is
+    ``(raw f32[K, P, N], ok bool[K, P, N])`` or node-major ``[K, N, P]``
+    with ``transposed``.  Lane ``k`` equals :func:`static_tile_scores` on
+    lane ``k``'s inputs bit for bit.
+
+    CPU tensors take :func:`static_tile_scores_lanes_plain`; CUDA tensors
+    launch the compaction per lane (:func:`peer_columns_lanes`, unless
+    ``peers=(cols i32[K, n_k], count i32[K])`` is given), then
+    ``static_scores_lanes_kernel`` once, the lane on ``blockIdx.z``."""
+    dev = pack.bw.device
+    if dev.type == "cpu":
+        raw, ok = static_tile_scores_lanes_plain(pack, groups, pods,
+                                                 use_bfloat16)
+        return ((raw.transpose(1, 2), ok.transpose(1, 2)) if transposed
+                else (raw, ok))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k_lanes = pack.bw.shape[0]
+    lead = (k_lanes,)
+    p, n_out, n_k, _, mw, t_soft = _shapes(pack, pods)
+    args = _static_args(pack, groups, pods, dev, lead)
+    cols, count = peer_columns_lanes(pods.t) if peers is None else peers
+    _check(cols, torch.int32, (k_lanes, n_k), "peer cols", dev)
+    _check(count, torch.int32, (k_lanes,), "peer count", dev)
+    tk = torch.empty((k_lanes, n_k, (p + 3) // 4 * 4), dtype=torch.float32,
+                     device=dev)
+    args += [cols.data_ptr(), count.data_ptr(), tk.data_ptr()]
+    shape = (k_lanes, n_out, p) if transposed else (k_lanes, p, n_out)
+    raw = torch.empty(shape, dtype=torch.float32, device=dev)
+    ok = torch.empty(shape, dtype=torch.bool, device=dev)
+    sp, sn = (1, p) if transposed else (n_out, 1)
+    lib = build_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tiled_static_scores_lanes(
+            *args, raw.data_ptr(), ok.data_ptr(), sp, sn, p, n_out, n_k,
+            mw, t_soft, int(use_bfloat16), k_lanes, stream)
+    _raise_on(err, "static_scores_lanes_kernel")
+    _count_launch(static_tile_scores_lanes)
+    return raw, ok
+
+
+static_tile_scores_lanes.launches = 0
 
 
 def masked_tile_scores(pack: StaticPack, used: torch.Tensor,
@@ -573,4 +689,5 @@ KERNELS = {
     "masked_scores_kernel": masked_tile_scores,
     "winner_scores_kernel": winner_tile_scores,
     "peer_columns": peer_columns,
+    "static_scores_lanes_kernel": static_tile_scores_lanes,
 }

@@ -402,13 +402,24 @@ def spread_terms(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
     to each pod's eligible domains (``nodeAffinityPolicy: Honor``).
     Skipped when no pod is spread-active."""
     gz = state.gz_counts if gz_counts is None else gz_counts
-    g, z = gz.shape
     n = state.num_nodes
     p = pods.num_pods
-    active = spread_active(pods)
-    if not host_flag(active.any()):
+    if not host_flag(spread_active(pods).any()):
         return (torch.zeros((p, n), dtype=torch.float32, device=gz.device),
                 torch.ones((p, n), dtype=torch.bool, device=gz.device))
+    return spread_terms_ungated(state, pods, cfg, gz, static_ok, wvec)
+
+
+def spread_terms_ungated(state: ClusterState, pods: PodBatch,
+                         cfg: SchedulerConfig, gz: torch.Tensor,
+                         static_ok: torch.Tensor | None = None,
+                         wvec: torch.Tensor | None = None):
+    """:func:`spread_terms` without its host gate: with no spread-active
+    pod it returns the gate's zero penalty and all-true mask itself.
+    With ``static_ok`` given it makes no host sync and no in-place
+    write, so it runs under ``torch.func.vmap`` (the fleet's lanes)."""
+    g, z = gz.shape
+    active = spread_active(pods)
     cpz = gz[pods.group_idx.clamp(0, g - 1).long()]          # [P, Z]
     has_zone = state.node_zone >= 0
     cnt = cpz[:, state.node_zone.clamp(0, z - 1).long()]     # [P, N]
@@ -495,6 +506,14 @@ def zone_affinity_ok(state: ClusterState, pods: PodBatch,
             | (az != 0).any())
     if not host_flag(pred):
         return torch.ones((p, n), dtype=torch.bool, device=gz.device)
+    return zone_affinity_ungated(state, pods, gz, az)
+
+
+def zone_affinity_ungated(state: ClusterState, pods: PodBatch,
+                          gz: torch.Tensor, az: torch.Tensor) -> torch.Tensor:
+    """:func:`zone_affinity_ok` without its host gate (all-true when no
+    pod has a zone term and no zone-anti resident exists, as the gate
+    returns); no host sync, so it runs under ``torch.func.vmap``."""
     zmax = az.shape[0]
     zwords = planes_to_words((gz > 0).T)                     # i32[Z, W]
     has_zone = state.node_zone >= 0

@@ -441,3 +441,72 @@ def pad_axis(x: torch.Tensor, size: int, axis: int = 0,
     shape[axis] = size - cur
     pad = torch.full(shape, fill, dtype=x.dtype, device=x.device)
     return torch.cat([x, pad], dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# Fleet batching: a leading lane (cluster) axis over whole-state trees.
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn, *trees):
+    """Apply ``fn`` leaf by leaf over trees of one structure: tensor
+    dataclasses (:class:`ClusterState`, :class:`PodBatch`, the kernels'
+    packs), tuples and lists; any other value is a leaf."""
+    t0 = trees[0]
+    if dataclasses.is_dataclass(t0) and not isinstance(t0, type):
+        return dataclasses.replace(t0, **{
+            f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(t0)})
+    if isinstance(t0, (tuple, list)):
+        if any(len(t) != len(t0) for t in trees):
+            raise ValueError("trees differ in structure")
+        out = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(t0)(*out) if hasattr(t0, "_fields") else type(t0)(out)
+    return fn(*trees)
+
+
+def _stack_leaf(*leaves) -> torch.Tensor:
+    ts = [x if isinstance(x, torch.Tensor) else torch.tensor(x)
+          for x in leaves]
+    t0 = ts[0]
+    for t in ts[1:]:
+        if t.shape != t0.shape or t.dtype != t0.dtype \
+                or t.device != t0.device:
+            raise ValueError(
+                f"cannot stack a {tuple(t.shape)} {t.dtype} leaf on "
+                f"{t.device} with a {tuple(t0.shape)} {t0.dtype} leaf on "
+                f"{t0.device}: lanes must share one padding bucket")
+    return torch.stack(ts)
+
+
+def stack_trees(trees):
+    """Stack same-shape trees along a NEW leading lane axis: every plane
+    (and every :class:`PodBatch` column) of tenant ``k`` lands at
+    ``out.<leaf>[k]``, the batched state the lane-batched conflict loop
+    runs over.  Every leaf must share shape, dtype and device across
+    the trees (one padding bucket); a mismatch raises.  Python scalars
+    become 0-d tensors first, so every leaf gains the axis."""
+    if not trees:
+        raise ValueError("stack_trees needs at least one tree")
+    return tree_map(_stack_leaf, *trees)
+
+
+def index_tree(tree, k: int):
+    """Tenant ``k``'s row of a :func:`stack_trees` result: views, no
+    copy."""
+    return tree_map(lambda a: a[k], tree)
+
+
+def set_tree_row(tree, k: int, row):
+    """Write ``row`` into tenant ``k``'s row of a :func:`stack_trees`
+    result, in place (the per-tenant refresh between fleet cycles), and
+    return the tree."""
+    def put(a, r):
+        if tuple(r.shape) != tuple(a.shape[1:]) or r.dtype != a.dtype:
+            raise ValueError(
+                f"row leaf {tuple(r.shape)} {r.dtype} does not fit lane "
+                f"leaf {tuple(a.shape[1:])} {a.dtype}")
+        a[k].copy_(r)
+
+    tree_map(put, tree, row)
+    return tree

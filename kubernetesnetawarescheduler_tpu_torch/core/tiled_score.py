@@ -30,6 +30,7 @@ from kubernetesnetawarescheduler_tpu_torch.core.kernels import (
     StaticPack,
     masked_tile_scores,
     static_tile_scores,
+    static_tile_scores_lanes,
     winner_tile_scores,
 )
 from kubernetesnetawarescheduler_tpu_torch.core.score import NEG_INF, _EPS
@@ -37,6 +38,8 @@ from kubernetesnetawarescheduler_tpu_torch.core.state import (
     ClusterState,
     PodBatch,
     host_flag,
+    index_tree,
+    stack_trees,
 )
 
 
@@ -125,6 +128,37 @@ def static_scores_tiled(state: ClusterState, pods: PodBatch,
                                            transposed=transposed)
     ok = ok & score_lib.ns_affinity_ok(state, pods, transposed=transposed)
     return raw, ok
+
+
+def static_scores_tiled_lanes(states: ClusterState, pods: PodBatch,
+                              cfg: SchedulerConfig,
+                              statics: StaticPack | None = None,
+                              transposed: bool = False):
+    """:func:`static_scores_tiled` over a leading lane axis (``states``,
+    ``pods`` and ``statics`` stacked ``[K, ...]``): ONE lane launch of
+    the static kernel for every lane (JAX vmaps ``_static_pallas_call``,
+    which adds a grid dimension), then each lane's soft zone term and
+    nodeAffinity mask, self-gated as on the solo path.  Returns ``(raw
+    f32[K, P, N], static_ok bool[K, P, N])``, node-major ``[K, N, P]``
+    with ``transposed``; lane ``k`` equals :func:`static_scores_tiled`
+    on lane ``k`` bit for bit."""
+    k_lanes = pods.req.shape[0]
+    n = states.metrics.shape[1]
+    lanes = [(index_tree(states, k), index_tree(pods, k))
+             for k in range(k_lanes)]
+    if statics is None:
+        statics = stack_trees([static_replay_pack(st, cfg)
+                               for st, _ in lanes])
+    raw, ok = static_tile_scores_lanes(
+        statics, states.group_bits.contiguous(),
+        stack_trees([pack_pods(pd, n) for _, pd in lanes]),
+        cfg.use_bfloat16, transposed=transposed)
+    raws = [raw[k] + score_lib.soft_zone_scores(st, pd, cfg,
+                                                transposed=transposed)
+            for k, (st, pd) in enumerate(lanes)]
+    oks = [ok[k] & score_lib.ns_affinity_ok(st, pd, transposed=transposed)
+           for k, (st, pd) in enumerate(lanes)]
+    return torch.stack(raws), torch.stack(oks)
 
 
 def _masked_kernel_args(state: ClusterState, pods: PodBatch,

@@ -17,6 +17,10 @@
 //                         per pod to (best, lowest node index) across
 //                         node tiles; writes 8 bytes per pod, never the
 //                         P x N plane.
+//   static_scores_lanes_kernel  the static kernel over a lane axis (the
+//                         fleet's tenants, vmapped in JAX): blockIdx.z is
+//                         the lane, each lane's slices of the stacked
+//                         inputs go through the solo tile body.
 //
 // C[n, k] = wbw·bw[n, k]·inv_bw − wlat·lat[n, k]·inv_lat is formed per
 // tile in shared memory from the raw bw/lat matrices (C never exists in
@@ -365,10 +369,12 @@ __device__ float soft_bonus(const int* label_n, const int* group_n,
   return soft;
 }
 
-__global__ void __launch_bounds__(kQThreads, 3)
-static_scores_kernel(NetIn in, PeersIn pr, NodeIn nd, PodIn pd, float* raw,
-                     uint8_t* ok, long long sp, long long sn, int mw,
-                     int t_soft) {
+// One 128 x 16 tile of the static kernel's function (the body of
+// static_scores_kernel and, per lane, of static_scores_lanes_kernel).
+__device__ __forceinline__ void static_scores_tile(
+    const NetIn& in, const PeersIn& pr, const NodeIn& nd, const PodIn& pd,
+    float* raw, uint8_t* ok, long long sp, long long sn, int mw,
+    int t_soft) {
   __shared__ PeerSmem sm;
   const int n0 = blockIdx.x * kQN;
   const int p0 = blockIdx.y * kQP;
@@ -404,6 +410,52 @@ static_scores_kernel(NetIn in, PeersIn pr, NodeIn nd, PodIn pd, float* raw,
   }
   __syncthreads();
   store_tile(sm.out, raw, ok, sp, sn, p0, n0, in.p, in.n_out);
+}
+
+__global__ void __launch_bounds__(kQThreads, 3)
+static_scores_kernel(NetIn in, PeersIn pr, NodeIn nd, PodIn pd, float* raw,
+                     uint8_t* ok, long long sp, long long sn, int mw,
+                     int t_soft) {
+  static_scores_tile(in, pr, nd, pd, raw, ok, sp, sn, mw, t_soft);
+}
+
+// The static kernel over a lane axis (the fleet's tenants): lane
+// blockIdx.z reads and writes its own slice of every stacked input and
+// output ([K, ...], each lane contiguous), and runs the solo tile body
+// on it unchanged, so each lane has the bits of a solo launch on that
+// lane's inputs.
+__global__ void __launch_bounds__(kQThreads, 3)
+static_scores_lanes_kernel(NetIn in, PeersIn pr, NodeIn nd, PodIn pd,
+                           float* raw, uint8_t* ok, long long sp,
+                           long long sn, int mw, int t_soft) {
+  const size_t z = blockIdx.z;
+  const size_t p = in.p, n = in.n_out, k = in.n_k;
+  NetIn li = in;
+  li.t += z * p * k;
+  li.bw += z * n * k;
+  li.lat += z * n * k;
+  li.validk += z * k;
+  li.params += z * 8;
+  PeersIn lp = pr;
+  lp.cols += z * k;
+  lp.count += z;
+  lp.tk += z * k * pr.p_pad;
+  NodeIn ln = nd;
+  ln.base += z * n;
+  ln.valid += z * n;
+  ln.taint += z * n * mw;
+  ln.label += z * n * mw;
+  ln.groups += z * n * mw;
+  PodIn lq = pd;
+  lq.valid += z * p;
+  lq.tol += z * p * mw;
+  lq.sel += z * p * mw;
+  lq.soft_sel += z * p * t_soft * mw;
+  lq.soft_grp += z * p * t_soft * mw;
+  lq.soft_sel_w += z * p * t_soft;
+  lq.soft_grp_w += z * p * t_soft;
+  static_scores_tile(li, lp, ln, lq, raw + z * p * n, ok + z * p * n, sp,
+                     sn, mw, t_soft);
 }
 
 // The masked epilogue of one (pod p, node n) pair, shared by the masked
@@ -560,7 +612,7 @@ dim3 peer_grid_for(int p, int n_out) {
 }
 
 // tk[j, :] = T[:, cols[j]] for j < count, bf16-rounded when use_bf16 is
-// set, zero for p <= q < p_pad: the traffic of the batch's peer columns,
+// set, zero for p <= q < p_pad (lane blockIdx.y of stacked inputs): the traffic of the batch's peer columns,
 // peer-major, so the score kernels copy whole rows instead of gathering
 // the same scattered entries once per node tile.  A block takes 32
 // columns and transposes them through shared memory in 32-pod pieces;
@@ -572,6 +624,11 @@ __global__ void __launch_bounds__(kTrafficThreads)
 peer_traffic_kernel(const float* t, const int* cols, const int* count,
                     float* tk, int p, int p_pad, int n_k, int use_bf16) {
   __shared__ float tile[kQK][kQK + 1];
+  const size_t z = blockIdx.y;  // lane: each lane's slice of t/cols/tk
+  t += z * p * n_k;
+  cols += z * n_k;
+  count += z;
+  tk += z * n_k * p_pad;
   const int j0 = blockIdx.x * kQK;
   const int cnt = *count;
   if (j0 >= cnt) return;
@@ -599,7 +656,7 @@ peer_traffic_kernel(const float* t, const int* cols, const int* count,
   }
 }
 
-// flags[k] = any_p T[p, k] != 0.  A block of 1,024 threads takes 32
+// flags[k] = any_p T[p, k] != 0 (lane blockIdx.y).  A block of 1,024 threads takes 32
 // columns; its 32 warps read 32 rows at a time, each warp one 128-byte
 // run along k.
 constexpr int kFlagThreads = 1024;
@@ -609,6 +666,8 @@ constexpr int kFlagRows = kFlagThreads / kFlagCols;
 __global__ void __launch_bounds__(kFlagThreads)
 peer_flags_kernel(const float* t, int* flags, int p, int n_k) {
   __shared__ int hit[kFlagRows][kFlagCols + 1];
+  t += (size_t)blockIdx.y * p * n_k;  // lane
+  flags += (size_t)blockIdx.y * n_k;
   const int c = threadIdx.x % kFlagCols;
   const int g = threadIdx.x / kFlagCols;
   const int k = blockIdx.x * kFlagCols + c;
@@ -626,7 +685,7 @@ peer_flags_kernel(const float* t, int* flags, int p, int n_k) {
   }
 }
 
-// One block: an ascending exclusive scan of the flags.  Each thread
+// One block per lane: an ascending exclusive scan of the flags.  Each thread
 // takes kScanPer consecutive columns (8,192 per pass: one pass up to
 // n_k = 8,192), a shuffle scan within each warp and one over the 32 warp
 // totals place them.  Writes cols[0:count] = the flagged columns,
@@ -638,6 +697,9 @@ __global__ void __launch_bounds__(kScanThreads)
 peer_scan_kernel(const int* flags, int* cols, int* count, int n_k) {
   __shared__ int warp_off[kScanThreads / 32];
   __shared__ int total;
+  flags += (size_t)blockIdx.x * n_k;  // one block per lane
+  cols += (size_t)blockIdx.x * n_k;
+  count += blockIdx.x;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   int base = 0;
@@ -684,9 +746,10 @@ int pad4(int p) { return (p + 3) / 4 * 4; }
 // Fill the caller's scratch tk [n_k, pad4(p)] from T and the peer
 // columns (rows past count are left as they are; nothing reads them).
 int launch_peer_traffic(const NetIn& in, const PeersIn& pr, float* tk,
-                        void* stream) {
+                        void* stream, int lanes = 1) {
   if (in.n_k <= 0) return 0;
-  peer_traffic_kernel<<<(in.n_k + kQK - 1) / kQK, kTrafficThreads, 0,
+  peer_traffic_kernel<<<dim3((in.n_k + kQK - 1) / kQK, lanes),
+                        kTrafficThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       in.t, pr.cols, pr.count, tk, in.p, pr.p_pad, in.n_k, in.use_bf16);
   return static_cast<int>(cudaGetLastError());
@@ -697,17 +760,26 @@ int launch_peer_traffic(const NetIn& in, const PeersIn& pr, float* tk,
 // The batch's peer columns of T [p, n_k]: cols [n_k] (ascending, -1 past
 // count) and count [1], through the caller's int scratch flags [n_k].
 // Two launches on the caller's stream; nothing reaches the host.
-extern "C" int tiled_peer_columns(const float* t, int* flags, int* cols,
-                                  int* count, int p, int n_k, void* stream) {
+// The same per lane of a stacked T [lanes, p, n_k]: cols [lanes, n_k],
+// count [lanes], flags [lanes, n_k].
+extern "C" int tiled_peer_columns_lanes(const float* t, int* flags,
+                                        int* cols, int* count, int p,
+                                        int n_k, int lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_k <= 0)
-    return static_cast<int>(cudaMemsetAsync(count, 0, sizeof(int), s));
-  peer_flags_kernel<<<(n_k + kFlagCols - 1) / kFlagCols, kFlagThreads, 0,
-                      s>>>(t, flags, p, n_k);
+    return static_cast<int>(
+        cudaMemsetAsync(count, 0, sizeof(int) * lanes, s));
+  peer_flags_kernel<<<dim3((n_k + kFlagCols - 1) / kFlagCols, lanes),
+                      kFlagThreads, 0, s>>>(t, flags, p, n_k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  peer_scan_kernel<<<1, kScanThreads, 0, s>>>(flags, cols, count, n_k);
+  peer_scan_kernel<<<lanes, kScanThreads, 0, s>>>(flags, cols, count, n_k);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tiled_peer_columns(const float* t, int* flags, int* cols,
+                                  int* count, int p, int n_k, void* stream) {
+  return tiled_peer_columns_lanes(t, flags, cols, count, p, n_k, 1, stream);
 }
 
 extern "C" int tiled_static_scores(
@@ -730,6 +802,39 @@ extern "C" int tiled_static_scores(
            soft_sel, soft_grp, soft_sel_w, soft_grp_w};
   static_scores_kernel<<<peer_grid_for(p, n_out), kQThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
+      in, pr, nd, pd, raw, ok, out_sp, out_sn, mw, t_soft);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tiled_static_scores over `lanes` stacked lanes: every pointer is the
+// start of a [lanes, ...] stack whose lanes are contiguous (cols, count
+// and tk per lane too); raw/ok are [lanes, p, n_out] or, with
+// out_sp = 1, [lanes, n_out, p].  Two launches: the lanes' traffic
+// copies and the lanes' tiles, blockIdx.z the lane.
+extern "C" int tiled_static_scores_lanes(
+    const float* t, const float* bw, const float* lat, const float* validk,
+    const float* params, const float* base, const float* node_valid,
+    const int* taint, const int* label, const int* groups,
+    const float* pod_valid, const int* tol, const int* sel,
+    const int* soft_sel, const int* soft_grp, const float* soft_sel_w,
+    const float* soft_grp_w, const int* cols, const int* count, float* tk,
+    float* raw, uint8_t* ok, long long out_sp, long long out_sn, int p,
+    int n_out, int n_k, int mw, int t_soft, int use_bf16, int lanes,
+    void* stream) {
+  if (p <= 0 || n_out <= 0 || lanes <= 0)
+    return static_cast<int>(cudaGetLastError());
+  NetIn in{t, bw, lat, validk, params, p, n_out, n_k, use_bf16};
+  PeersIn pr{cols, count, tk, pad4(p)};
+  const int err = launch_peer_traffic(in, pr, tk, stream, lanes);
+  if (err != 0) return err;
+  NodeIn nd{base, node_valid, taint, label, groups, nullptr, nullptr,
+            nullptr};
+  PodIn pd{pod_valid, nullptr, tol, sel, nullptr, nullptr, nullptr,
+           soft_sel, soft_grp, soft_sel_w, soft_grp_w};
+  dim3 grid = peer_grid_for(p, n_out);
+  grid.z = lanes;
+  static_scores_lanes_kernel<<<grid, kQThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       in, pr, nd, pd, raw, ok, out_sp, out_sn, mw, t_soft);
   return static_cast<int>(cudaGetLastError());
 }

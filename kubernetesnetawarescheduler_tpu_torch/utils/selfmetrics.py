@@ -3,10 +3,9 @@
 The PyTorch package's copy of the JAX package's ``utils/selfmetrics.py``.
 The integrity auditor, state chaos, rebalancer, topology model,
 placement quality, SLO and learned-policy families render when those
-layers are attached, with the JAX names, labels, HELP and TYPE.  The
-fleet's families (``render_fleet_metrics``) need ``fleet/`` (ROADMAP
-Queue A item 13) and are absent, as the JAX package renders a solo
-loop.
+layers are attached, and a FleetServer's families through
+:func:`render_fleet_metrics`, with the JAX names, labels, HELP and
+TYPE.
 
 The reference *consumes* Prometheus (node_exporter scrapes,
 scheduler.go:275-279) but exposes nothing about itself — its only
@@ -734,3 +733,80 @@ def render_metrics(loop) -> str:
 
     return "\n".join(lines) + "\n"
 
+
+def render_fleet_metrics(fleet) -> str:
+    """Exposition-format body for a
+    :class:`~kubernetesnetawarescheduler_tpu_torch.fleet.server.FleetServer`
+    — the consolidation-level view the per-tenant ``render_metrics``
+    bodies cannot see: how many tenants share each padding bucket,
+    batched-dispatch volume (lanes per dispatch is the consolidation
+    ratio, live), per-tenant queue depth under a shared device
+    program (the noisy-neighbor first read), and transfer-registry
+    size."""
+    s = fleet.summary()
+    lines: list[str] = []
+    _register = FamilyRegistry().register
+
+    def counter(name: str, value: float, help_: str) -> None:
+        _register(name)
+        lines.append(f"# HELP {name} {help_}")
+        lines.append(f"# TYPE {name} counter")
+        lines.append(f"{name} {_fmt(value)}")
+
+    counter("netaware_fleet_cycles_total", float(s["cycles_total"]),
+            "Batched serving cycles across all buckets")
+    counter("netaware_fleet_dispatches_total",
+            float(s["dispatches_total"]),
+            "Vmapped device dispatches (one per bucket cycle with "
+            "work)")
+    counter("netaware_fleet_dispatch_lanes_total",
+            float(s["dispatch_lanes_total"]),
+            "Tenant lanes carried by those dispatches (lanes/"
+            "dispatch = live consolidation ratio)")
+    counter("netaware_fleet_transfers_total",
+            float(s["transfer"]["transfers_total"]),
+            "Policies warm-started from the transfer registry")
+
+    _register("netaware_fleet_tenants")
+    lines.append("# HELP netaware_fleet_tenants Tenants packed into "
+                 "each node-count padding bucket")
+    lines.append("# TYPE netaware_fleet_tenants gauge")
+    for nodes, blk in sorted(s["buckets"].items()):
+        lines.append(f'netaware_fleet_tenants{{bucket_nodes='
+                     f'"{nodes}"}} {_fmt(float(len(blk["tenants"])))}')
+
+    _register("netaware_fleet_bucket_capacity")
+    lines.append("# HELP netaware_fleet_bucket_capacity Padded lane "
+                 "count of each bucket's batched dispatch")
+    lines.append("# TYPE netaware_fleet_bucket_capacity gauge")
+    for nodes, blk in sorted(s["buckets"].items()):
+        lines.append(f'netaware_fleet_bucket_capacity{{bucket_nodes='
+                     f'"{nodes}"}} {_fmt(float(blk["capacity"]))}')
+
+    _register("netaware_fleet_tenant_queue_depth")
+    lines.append("# HELP netaware_fleet_tenant_queue_depth Pending "
+                 "pods per tenant (a deep queue behind a shared "
+                 "dispatch is the noisy-neighbor signature)")
+    lines.append("# TYPE netaware_fleet_tenant_queue_depth gauge")
+    for name, blk in sorted(s["tenants"].items()):
+        lines.append(f'netaware_fleet_tenant_queue_depth{{tenant='
+                     f'"{name}"}} {_fmt(float(blk["queue_depth"]))}')
+
+    _register("netaware_fleet_tenant_scheduled_total")
+    lines.append("# HELP netaware_fleet_tenant_scheduled_total Pods "
+                 "scheduled per tenant since onboarding")
+    lines.append("# TYPE netaware_fleet_tenant_scheduled_total "
+                 "counter")
+    for name, blk in sorted(s["tenants"].items()):
+        lines.append(
+            f'netaware_fleet_tenant_scheduled_total{{tenant='
+            f'"{name}"}} {_fmt(float(blk["scheduled"]))}')
+
+    _register("netaware_fleet_registry_donors")
+    lines.append("# HELP netaware_fleet_registry_donors Promoted "
+                 "donor policies resident in the transfer registry")
+    lines.append("# TYPE netaware_fleet_registry_donors gauge")
+    lines.append(f"netaware_fleet_registry_donors "
+                 f"{_fmt(float(len(s['transfer']['donors'])))}")
+
+    return "\n".join(lines) + "\n"

@@ -796,3 +796,75 @@ def test_quality_harvest_on_card_equals_cpu(cuda):
     for d, c in zip(dev[:-1], cpu[:-1]):
         assert torch.allclose(d.cpu(), c, rtol=1e-5, atol=1e-6)
     assert torch.equal(dev[-1].cpu(), cpu[-1])
+
+
+def _lanes(dev, seeds=(0, 1, 2)):
+    """Stacked lanes of :func:`_inputs` (one shape, different seeds)."""
+    from kubernetesnetawarescheduler_tpu_torch.core.state import stack_trees
+
+    lanes = [_inputs(dev, seed=s) for s in seeds]
+    return (lanes, stack_trees([pk for _, _, pk, _ in lanes]),
+            torch.stack([st.group_bits for _, st, _, _ in lanes]),
+            stack_trees([pp for _, _, _, pp in lanes]))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_static_lanes_kernel_matches_solo_kernel_per_lane(cuda, bf16):
+    """The lane launch gives each lane the solo launch's bits, and its
+    plain version's mask and scores within the static bar."""
+    lanes, pack, groups, pods = _lanes(cuda)
+    kernels.reset_launch_counts()
+    raw, ok = kernels.static_tile_scores_lanes(pack, groups, pods, bf16)
+    raw_t, ok_t = kernels.static_tile_scores_lanes(pack, groups, pods, bf16,
+                                                   transposed=True)
+    assert kernels.static_tile_scores_lanes.launches == 2
+    raw_p, ok_p = kernels.static_tile_scores_lanes_plain(pack, groups, pods,
+                                                         bf16)
+    for k, (_, st, pk, pp) in enumerate(lanes):
+        raw_s, ok_s = kernels.static_tile_scores(pk, st.group_bits, pp, bf16)
+        torch.cuda.synchronize()
+        assert torch.equal(raw[k].view(torch.int32), raw_s.view(torch.int32))
+        assert torch.equal(ok[k], ok_s)
+        assert torch.equal(raw_t[k], raw[k].T) and torch.equal(ok_t[k],
+                                                               ok[k].T)
+        assert torch.equal(ok[k], ok_p[k])
+        assert torch.allclose(raw[k], raw_p[k], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_lanes_assign_and_commit_match_solo_on_card(cuda, backend):
+    """On the card each lane of the lane-batched loop and of the fleet's
+    fused step equals the solo loop and the solo fused step: the
+    assignment, the rounds and every committed plane (``used`` bit for
+    bit: the usage update runs the solo product per lane)."""
+    from kubernetesnetawarescheduler_tpu_torch.core.assign import (
+        assign_parallel,
+        fused_schedule_step,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.state import stack_trees
+    from kubernetesnetawarescheduler_tpu_torch.fleet import fleet_fused_step
+
+    lanes = []
+    for seed in (0, 1, 2, 3):
+        cfg = SchedulerConfig(max_nodes=320, max_pods=100, max_peers=4,
+                              score_backend=backend)
+        state, stream = synthetic_density(300, 400, cfg, seed=seed,
+                                          device=cuda)
+        rng = np.random.default_rng(seed)
+        node_of = torch.from_numpy(
+            rng.integers(0, 300, stream.num_pods).astype(np.int32)).to(cuda)
+        # Tight capacity: contended nodes and several rounds.
+        state = state.replace(cap=state.cap * 0.05)
+        lanes.append((state, batch_from_stream(stream.slice(0, 100),
+                                               node_of)))
+    states = stack_trees([s for s, _ in lanes])
+    pods = stack_trees([b for _, b in lanes])
+    new, asg, rounds = fleet_fused_step(states, pods, None, cfg)
+    for k, (s, b) in enumerate(lanes):
+        a, r = assign_parallel(s, b, cfg, with_stats=True)
+        s_new, _, _ = fused_schedule_step(s, b, cfg)
+        assert torch.equal(asg[k], a) and int(rounds[k]) == r
+        for f in ("used", "group_bits", "resident_anti", "gz_counts",
+                  "az_anti"):
+            assert torch.equal(getattr(new, f)[k], getattr(s_new, f)), f
+    assert len(set(rounds.tolist())) >= 1 and int(rounds.max()) > 1

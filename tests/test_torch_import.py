@@ -73,6 +73,8 @@ _MODULES = {
     "bench.suite", "bench.envinfo", "bench.artifact",
     # The native shim's load harness.
     "bench.native_load",
+    # Fleet-of-clusters serving.
+    "fleet", "fleet.batch", "fleet.server", "fleet.transfer",
 }
 
 

@@ -8,10 +8,11 @@ included), the disabled policy is bit-identical, the seeded loser is
 refused by the records leg and the seeded winner promoted by the replay
 leg.  Every ported leg keeps the JAX leg's defaults and ``SMALL`` shape
 (the nine BASELINE and audit legs are held against the JAX legs in
-``test_torch_suite_baseline.py`` and ``test_torch_suite_audits.py``).
-Every leg the port does not run yet is refused by name, with its
-ROADMAP item, before any leg runs; ``--config all`` is refused the same
-way.  ``bench_env`` and ``write_artifact`` keep the JAX helpers' shape.
+``test_torch_suite_baseline.py`` and ``test_torch_suite_audits.py``, the
+layer legs in ``test_torch_suite_layers.py``, the fleet leg in
+``test_torch_fleet.py``).  ``--config all`` runs every leg in the JAX
+suite's order, and an unknown leg is refused before any leg runs.
+``bench_env`` and ``write_artifact`` keep the JAX helpers' shape.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def test_policy_leg_small(small_run):
 def test_legs_keep_the_jax_suites_shapes():
     assert tsuite.SMALL == {k: jsuite.SMALL[k] for k in tsuite.CONFIGS}
     assert tsuite.ALL == tuple(jsuite.CONFIGS)
-    assert set(tsuite.UNPORTED) | set(tsuite.CONFIGS) == set(jsuite.CONFIGS)
+    assert set(tsuite.CONFIGS) == set(jsuite.CONFIGS)
     assert tsuite.BW_LAT.__dict__ == jsuite.BW_LAT.__dict__
     assert tsuite.LATENCY_ONLY.__dict__ == jsuite.LATENCY_ONLY.__dict__
     for name, leg in tsuite.CONFIGS.items():
@@ -90,28 +91,24 @@ def test_legs_keep_the_jax_suites_shapes():
         assert leg.__defaults__[-1] == "cuda", name
 
 
-@pytest.mark.parametrize("name", sorted(tsuite.UNPORTED))
-def test_unported_leg_is_refused_before_any_leg_runs(name, monkeypatch):
+def test_config_all_runs_every_leg_in_the_jax_order(monkeypatch, tmp_path):
+    ran = []
+    for name in tsuite.CONFIGS:
+        def fake(out_dir=None, device="cuda", _name=name, **kw):
+            ran.append((_name, device))
+            return tsuite.SuiteResult(_name, {"metric": _name}, [])
+        monkeypatch.setitem(tsuite.CONFIGS, name, fake)
+    tsuite.main(["--config", "all", "--device", "cpu",
+                 "--out", str(tmp_path)])
+    assert ran == [(name, "cpu") for name in jsuite.CONFIGS]
+
+
+def test_unknown_leg_is_refused_before_any_leg_runs(monkeypatch):
     ran = []
     monkeypatch.setitem(tsuite.CONFIGS, "scenario",
                         lambda **kw: ran.append(kw))
-    item = 13 if name == "fleet" else 14
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}"):
-        tsuite.run_suite(["scenario", name], device="cpu")
-    assert ran == []
-
-
-def test_config_all_is_refused(monkeypatch, tmp_path):
-    ran = []
-    for name in tsuite.CONFIGS:
-        monkeypatch.setitem(tsuite.CONFIGS, name,
-                            lambda **kw: ran.append(kw))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsuite.main(["--config", "all", "--device", "cpu",
-                     "--out", str(tmp_path)])
     with pytest.raises(ValueError, match="unknown suite leg"):
-        tsuite.run_suite(["no_such_leg"], device="cpu")
+        tsuite.run_suite(["scenario", "no_such_leg"], device="cpu")
     assert ran == []
 
 
