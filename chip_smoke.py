@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's density replay, serving seam, scheduling
 loop, Score/Filter webhook, device-replay feeds, robustness layers,
-learning layers, scenario engine, bench suite and fleet on one NVIDIA
-GPU and check them.
+learning layers, scenario engine, bench suite, fleet and mesh-sharded
+scheduling on one NVIDIA GPU and check them.
 
 Run from the repository root:
 
@@ -96,7 +96,7 @@ csrc`` and prints one JSON object per phase:
                 ``# TYPE``) over its socket; ``drain_daemon(512, 1024)``
                 against the fake API server, every pod bound exactly
                 once; ``run_qps`` under both backends (32 sequential
-                requests, then 128 clients × 2,048 requests); the native
+                requests, then 128 clients × 1,024 requests); the native
                 shim's load harness (``run_native_load``: 128 keep-alive
                 clients × 16 requests through the shim, then a daemon
                 process SIGKILLed under the same load) as built, which
@@ -119,7 +119,7 @@ csrc`` and prints one JSON object per phase:
                 (8,192 pods, no churn): ``mode="host"``, ``"device"`` and
                 ``"pipeline"`` with encode overlap on and off must bind
                 alike (the dense backend's pipeline drain is reported);
-                ``measure_multicycle_latency(5120, 128, k=8, reps=10)`` and
+                ``measure_multicycle_latency(5120, 128, k=8, reps=5)`` and
                 ``multicycle_identity_check()``, which must be identical;
                 and the ``loop`` phase's backlog over the serial, burst,
                 pipelined and multicycle paths plus a gang backlog with
@@ -244,6 +244,32 @@ csrc`` and prints one JSON object per phase:
                 solo kernel on each lane (bit for bit) and its plain
                 version (mask identical, raw within rtol=atol=1e-4), timed
                 against K solo launches, one ``torch.bmm`` and its bound.
+14. ``parallel`` mesh-sharded scheduling (``parallel/``), every mesh drive
+                in child processes of this script (this process holds no
+                process group; a child that fails or outlives its limit
+                fails the phase): (a) a one-rank NCCL group's 1x1 mesh:
+                ``sharded_replay_stream`` at 5,120 nodes, 4,096 pods,
+                batch 128 under ``"pallas"`` (bf16) and ``"xla"``, whose
+                assignments must equal the unsharded ``replay_stream``'s
+                with one static launch per batch;
+                ``run_density(5120, 4096, mode="device", mesh=...)``; and
+                ``serve.py --mesh --once`` against a 5,120-node fake API
+                server, binding as the plain daemon.  (b) Four gloo ranks
+                sharing the card, meshes 2x2 and 1x4: the replay at 5,120
+                nodes, 1,024 pods under ``"pallas"`` at f32 and bf16 and
+                under ``"xla"`` (``bench/mesh_replay.run``), every rank's assignments equal to the
+                unsharded replay's, its ``lat``/``bw`` ``[N/tp, N]``, one
+                static launch and one compaction per batch at its own row
+                offset, and its first launch at each precision equal to its
+                plain version and to the solo launch's rows bit for bit; ``max_memory_allocated`` per
+                rank reported.  (c) ``--multihost``'s bootstrap over a TCP
+                store on 127.0.0.1, gloo, two ranks on the card: the
+                controller's bindings over 4 cycles of 128 at 5,120 nodes
+                equal the unsharded loop's, the follower joins each step
+                and ``OP_STOP`` releases it.  The row-shard launch (tp 4,
+                rows 1,280-2,559) is timed against its plain version, a
+                library product and its bound.  Fails if the card's
+                compute mode forbids several processes.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  A failed check fails its phase; every
@@ -279,7 +305,7 @@ WEBHOOK_MAX_PODS, WEBHOOK_PEERS = 256, 8
 WEBHOOK_P = (8, 16, 32, 64, 128, 256)
 WEBHOOK_SETUP_PODS, WEBHOOK_REQUESTS = 512, 64
 WEBHOOK_CANDS = (1, 16, 512, NODES)
-QPS_SEQ, QPS_CLIENTS, QPS_REQUESTS = 32, 128, 2048
+QPS_SEQ, QPS_CLIENTS, QPS_REQUESTS = 32, 128, 1024
 DRAIN_NODES, DRAIN_PODS = 512, 1024
 # The native shim under load (bench/native_load.py's defaults: 5,120 nodes,
 # max_pods 256, 128 clients of 16 requests, the backend killed mid-flight),
@@ -458,6 +484,13 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -1166,7 +1199,7 @@ def phase_serve():
         "snapshot_delta_bytes_total": enc.snapshot_delta_bytes_total,
         "launches": launches, "ns_batch_joins_active": joins,
     }
-    lat_res = measure_device_latency(NODES, BATCH, reps=10)
+    lat_res = measure_device_latency(NODES, BATCH, reps=5)
     info["device_latency"] = {
         k: lat_res[k] for k in ("p50_ms", "p99_ms", "max_ms", "reps",
                                 "scan_k", "static_prep_ms", "p99_source",
@@ -1915,7 +1948,7 @@ def phase_webhook():
 FEED_CHUNK_BATCHES, FEED_CHURN_LINKS = 16, 4
 FEED_CAPTURE_AT = 200          # the measured drain's launch held vs plain
 IDENTITY_PODS = 8192
-MULTICYCLE_K, MULTICYCLE_REPS = 8, 10
+MULTICYCLE_K, MULTICYCLE_REPS = 8, 5
 
 
 class _FeedSampler:
@@ -2797,7 +2830,7 @@ def phase_robust():
 # of host (the planner's selection over 13.1 M pairs, then the refit),
 # so the depth is cut to 32 (phase `suite` runs the leg itself at its own
 # 1,024 nodes) to keep the whole script inside its limit on a slow host.
-LEARN_CYCLES, LEARN_BUDGET, LEARN_STEPS = 32, 64, 36
+LEARN_CYCLES, LEARN_BUDGET, LEARN_STEPS = 16, 64, 36
 LEARN_GANGS, LEARN_MEMBERS = 16, 8
 # The topology leg's score weights (the JAX suite's BW_LAT).
 BW_LAT = dict(cpu=0.5, mem=0.5, net_tx=0.0, net_rx=0.0, bandwidth=1.0,
@@ -3308,14 +3341,14 @@ def phase_learn():
 # The scenario engine.  The campaign is the JAX suite's scenario leg at
 # its own shape (256 nodes in three classes, base rate 360, batch 256,
 # every knob on) with its virtual duration cut from 2,900 s to
-# SCENARIO_DURATION_S (≈36 k pods, so that the whole script stays
+# SCENARIO_DURATION_S (≈18 k pods, so that the whole script stays
 # inside its 1,200 s limit on a slow host); the fault drive is JAX
 # tests/test_scenario.py's state-fault replay; the width drive streams a
 # knobs-off trace of the campaign's spec at the serving width, its rate
 # ×20 to hold the leg's occupancy, through the loop under both backends;
 # the policy gate is the suite's policy leg at its defaults, then the
 # daemon replaying that leg's trace.
-SCENARIO_DURATION_S = 100.0
+SCENARIO_DURATION_S = 50.0
 FAULT_DURATION_S, FAULT_RATE = 60.0, 25.0
 WIDTH_RATE, WIDTH_DURATION_S, WIDTH_BATCH = 7200.0, 2.0, 256
 WIDTH_CAPTURE_AT = 20
@@ -4676,11 +4709,632 @@ def check_leg(name: str, m: dict, artifacts: list, check) -> None:
                   f"{r['no_outage_reshapes']} gangs")
 
 
+# ---------------------------------------------------------------------------
+# Phase parallel: mesh-sharded scheduling and multi-process serving.
+# ---------------------------------------------------------------------------
+
+PAR_NODES = 5120
+PAR_SOLO_PODS = 4096          # (a): the 1x1 NCCL mesh's replay and density
+PAR_MESH_PODS = 1024          # (b): four ranks on the one card
+PAR_MESHES = ((2, 2), (1, 4))
+PAR_B_BACKENDS = (("pallas", False), ("pallas", True), ("xla", True))
+PAR_SERVE_PODS = 512          # (a): serve.py --mesh against a fake API
+PAR_CYCLES = 4                # (c): the controller/follower pair's cycles
+PAR_TIMEOUT_S = {"a": 420, "b": 420, "c": 300}
+PAR_SHARD_TP, PAR_SHARD_INDEX = 4, 1   # the timed row-shard launch
+PAR_DEVICE, PAR_SOLO_BACKEND = "cuda", "nccl"
+
+
+def _par_cfg(backend: str = "xla", bf16: bool = True):
+    from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+
+    return SchedulerConfig(max_nodes=PAR_NODES, max_pods=BATCH,
+                           max_peers=PEERS, score_backend=backend,
+                           use_bfloat16=bf16)
+
+
+def _moved(obj, dev):
+    """A dataclass of tensors with every tensor moved to ``dev``."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+class _RowShardSpy:
+    """Watches the static kernel's shard launches (``rows`` rows of
+    ``bw``/``lat``; the solo replay's whole-state launches pass by):
+    their row offsets, and the first one's arguments at each precision,
+    copied to the host so that no capture holds device memory while the
+    drives' peaks are measured."""
+
+    def __init__(self, rows: int) -> None:
+        from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+
+        self._module, self._real = tiled_score, tiled_score.static_tile_scores
+        self.rows, self.args, self.offsets = rows, {}, set()
+
+    def _call(self, pack, groups, pods, bf16, transposed=False, peers=None):
+        if pack.bw.shape[0] == self.rows:
+            if bf16 not in self.args:
+                self.args[bf16] = (_moved(pack, "cpu"), groups.cpu(),
+                                   _moved(pods, "cpu"), bf16)
+            self.offsets.add(float(pack.params[7]))
+        return self._real(pack, groups, pods, bf16, transposed=transposed,
+                          peers=peers)
+
+    def __enter__(self):
+        self._module.static_tile_scores = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._module.static_tile_scores = self._real
+
+
+def _shard_vs_solo(args, state_full, cfg, offset: int) -> dict:
+    """A captured shard launch on the kernel (uncounted) against its
+    plain version (mask identical, raw within ``TOL``) and against the
+    matching rows of the solo launch on the whole state (bit for bit)."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+
+    dev = state_full.bw.device
+    pack, pp, bf16 = _moved(args[0], dev), _moved(args[2], dev), args[3]
+    groups = args[1].to(dev)
+    rows = pack.bw.shape[0]
+    with uncounted():
+        raw, ok = K.static_tile_scores(pack, groups, pp, bf16,
+                                       transposed=True)
+        raw_p, ok_p = K.static_tile_scores_plain(pack, groups, pp, bf16)
+        solo = tiled_score.static_replay_pack(state_full, cfg)
+        raw_s, ok_s = K.static_tile_scores(
+            solo, state_full.group_bits.contiguous(), pp, bf16,
+            transposed=True)
+    torch.cuda.synchronize()
+    sl = slice(offset, offset + rows)
+    feas = ok_p
+    err = (float((raw.T[feas] - raw_p[feas]).abs().max())
+           if bool(feas.any()) else float("inf"))
+    return {"shape": list(raw.shape), "offset": offset,
+            "feasible": int(feas.sum()), "max_abs_err": err,
+            "plain_ok": bool(torch.equal(ok.T, ok_p) and bool(feas.any())
+                             and torch.allclose(raw.T[feas], raw_p[feas],
+                                                rtol=TOL, atol=TOL)),
+            "solo_bits_equal": bool(
+                torch.equal(bits(raw), bits(raw_s[sl]))
+                and torch.equal(ok, ok_s[sl]))}
+
+
+def _on_device(state, dev):
+    from kubernetesnetawarescheduler_tpu_torch.core.state import tree_map
+
+    return tree_map(lambda x: x.to(dev), state)
+
+
+def _par_child(role: str, rank: str, world: str, rendezvous: str,
+               out: str) -> int:
+    """One rank of a phase-``parallel`` drive (a child process of the
+    script); writes its result or its error to ``out.<rank>``."""
+    import pickle
+
+    rank_i, world_i = int(rank), int(world)
+    try:
+        res = {"a": _par_child_a, "b": _par_child_b,
+               "c": _par_child_c}[role](rank_i, world_i, rendezvous)
+        payload = {"ok": res}
+    except Exception:  # noqa: BLE001 — reported by the parent
+        payload = {"error": traceback.format_exc()[-4000:]}
+    with open(f"{out}.{rank_i}", "wb") as f:
+        pickle.dump(payload, f)
+    return 0
+
+
+def _par_launches() -> dict:
+    """Every kernel's launches since the counts were last set to 0."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+
+    return {n: fn.launches for n, fn in K.KERNELS.items()}
+
+
+def _par_replay_stats(a, rounds, wall: float, n_valid: int, batches: int,
+                      syncs: int, collectives: int) -> dict:
+    return {"pods_per_s": n_valid / wall, "wall_s": wall,
+            "rounds_mean": float(np.mean(rounds)), "rounds_max": max(rounds),
+            "host_syncs_per_batch": syncs / batches,
+            "collectives_per_batch": collectives / batches,
+            "launches": _par_launches(), "batches": batches,
+            "placed": int((a >= 0).sum())}
+
+
+def _par_child_a(rank: int, world: int, store: str) -> dict:
+    """(a): a one-rank NCCL group and its 1x1 mesh on the card: the
+    sharded replay against the unsharded one under both backends,
+    ``run_density(mode="device", mesh=...)``, and ``serve.py --mesh``
+    against the plain daemon."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from kubernetesnetawarescheduler_tpu_torch import serve
+    from kubernetesnetawarescheduler_tpu_torch.bench.density import (
+        run_density,
+        synthetic_density,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakeapi import (
+        FakeApiServer,
+        node_json,
+        pod_json,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core.replay import (
+        replay_stream,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.state import host_flag
+    from kubernetesnetawarescheduler_tpu_torch.parallel.sharding import (
+        make_mesh,
+        sharded_replay_stream,
+    )
+
+    dist.init_process_group(PAR_SOLO_BACKEND, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(1, 1, device=PAR_DEVICE)
+        out = {"backend": mesh.backend, "device": str(mesh.device)}
+        state, stream = synthetic_density(PAR_NODES, PAR_SOLO_PODS,
+                                          _par_cfg(), seed=SEED,
+                                          device=PAR_DEVICE)
+        n_valid = int(stream.pod_valid.sum())
+        batches = stream.num_pods // BATCH
+        for backend, bf16 in (("pallas", True), ("xla", True)):
+            cfg = _par_cfg(backend, bf16)
+            drives = {"solo": [], "mesh": []}
+            # In turns (solo, mesh, mesh, solo): the first replay of a
+            # process also pays the allocator's and the libraries' first
+            # calls.
+            for label in ("solo", "mesh", "mesh", "solo"):
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
+                s0, c0 = host_flag.syncs, mesh.collectives
+                t0 = time.perf_counter()
+                if label == "solo":
+                    res = replay_stream(state, stream, cfg, with_stats=True)
+                else:
+                    res = sharded_replay_stream(state, stream, cfg, mesh,
+                                                with_stats=True)
+                a, rounds = res[0].cpu().numpy(), res[2]
+                wall = time.perf_counter() - t0
+                del res
+                drives[label].append((a, _par_replay_stats(
+                    a, rounds, wall, n_valid, batches, host_flag.syncs - s0,
+                    mesh.collectives - c0)))
+            first = drives["solo"][0][0]
+            out[f"{backend}_bf16" if bf16 else backend] = {
+                "identical": all(np.array_equal(a, first)
+                                 for a, _ in drives["solo"] + drives["mesh"]),
+                "solo": [x for _, x in drives["solo"]],
+                "mesh": [x for _, x in drives["mesh"]]}
+        del state, stream
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()
+        dens = run_density(PAR_NODES, PAR_SOLO_PODS, batch_size=BATCH,
+                           mode="device", mesh=mesh, score_backend="pallas",
+                           seed=SEED, device=PAR_DEVICE)
+        out["density"] = {"pods_per_sec": dens.pods_per_sec,
+                          "pods_bound": dens.pods_bound,
+                          "pods_submitted": dens.pods_submitted,
+                          "launches": _par_launches()}
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+        cfg_path = Path(tmp) / "cfg.json"
+        cfg_path.write_text(json.dumps({
+            "max_nodes": PAR_NODES, "max_pods": BATCH, "max_peers": PEERS,
+            "queue_capacity": PAR_SERVE_PODS + BATCH}))
+        binds = {}
+        for label, extra in (("plain", []), ("mesh", ["--mesh"])):
+            api = FakeApiServer()
+            api.nodes = [node_json(f"node-{i:04d}") for i in range(PAR_NODES)]
+            api.node_events = [{"type": "ADDED", "object": nd}
+                               for nd in api.nodes]
+            api.pods = [pod_json(f"pod-{i:05d}")
+                        for i in range(PAR_SERVE_PODS)]
+            api.pod_events = [{"type": "ADDED", "object": p}
+                              for p in api.pods]
+            try:
+                K.reset_launch_counts()
+                rc = serve.main(["--cluster", f"kube:{api.url}",
+                                 "--kube-token", "t", "--once",
+                                 "--uds", str(Path(tmp) / f"{label}.sock"),
+                                 "--config", str(cfg_path),
+                                 "--probe-period-s", "0",
+                                 "--device", PAR_DEVICE, *extra])
+                binds[label] = (rc, sorted(
+                    (b["body"]["metadata"]["name"],
+                     b["body"]["target"]["name"]) for b in api.bindings),
+                    _par_launches())
+            finally:
+                api.stop()
+        out["serve"] = {"rc": [binds["plain"][0], binds["mesh"][0]],
+                        "bound": [len(binds["plain"][1]),
+                                  len(binds["mesh"][1])],
+                        "identical": binds["plain"][1] == binds["mesh"][1],
+                        "launches": binds["mesh"][2]}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_child_b(rank: int, world: int, store: str) -> dict:
+    """(b): four gloo ranks sharing the card, meshes 2x2 and 1x4:
+    ``bench/mesh_replay.run`` under ``"pallas"`` at f32 and bf16 and under
+    ``"xla"``, against rank 0's unsharded replay, with each rank's first
+    shard launch at each precision captured and held against its plain
+    version and the solo launch's rows.  The whole state is generated on
+    the host; each rank's device holds its shard."""
+    import torch.distributed as dist
+
+    from kubernetesnetawarescheduler_tpu_torch.bench import mesh_replay
+    from kubernetesnetawarescheduler_tpu_torch.parallel.sharding import (
+        make_mesh,
+    )
+
+    dev = torch.device(PAR_DEVICE, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        base, state, stream = mesh_replay.workload(PAR_NODES, PAR_MESH_PODS,
+                                                   BATCH, SEED)
+        out = {}
+        for dp, tp in PAR_MESHES:
+            mesh = make_mesh(dp, tp, device=dev)
+            with _RowShardSpy(PAR_NODES // tp) as spy:
+                report = mesh_replay.run(mesh, base, state, stream,
+                                         drives=PAR_B_BACKENDS)
+            offset = mesh.tp_index * (PAR_NODES // tp)
+            full = _on_device(state, dev)
+            captures = {
+                "bf16" if bf16 else "f32": _shard_vs_solo(
+                    args, full, dataclasses.replace(
+                        base, score_backend="pallas", use_bfloat16=bf16),
+                    offset)
+                for bf16, args in spy.args.items()}
+            del full
+            torch.cuda.empty_cache()
+            out[f"{dp}x{tp}"] = {"report": report, "row_offset": offset,
+                                 "kernel_offsets": sorted(spy.offsets),
+                                 "captures": captures}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_child_c(rank: int, world: int, port: str) -> dict:
+    """(c): ``--multihost``'s bootstrap over a TCP store on 127.0.0.1,
+    gloo, both ranks on the card: rank 0 serves ``PAR_CYCLES`` cycles as
+    the controller of a 5,120-node fake cluster, rank 1 follows; then
+    rank 0 drives the same cycles on an unsharded loop."""
+    import torch.distributed as dist
+
+    from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
+        ClusterSpec,
+        WorkloadSpec,
+        build_fake_cluster,
+        feed_metrics,
+        generate_workload,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core.loop import SchedulerLoop
+    from kubernetesnetawarescheduler_tpu_torch.parallel import serve_multihost
+    from kubernetesnetawarescheduler_tpu_torch.parallel.multihost import (
+        global_mesh,
+        init_multihost,
+    )
+
+    init_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        mesh = global_mesh(device=f"{PAR_DEVICE}:0")
+        cfg = _par_cfg()
+        if rank != 0:
+            t0 = time.perf_counter()
+            K.reset_launch_counts()
+            steps = serve_multihost.run_follower(cfg, mesh)
+            return {"steps": steps, "shape": mesh.shape,
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": _par_launches()}
+
+        def drive(m):
+            cluster, lat, bw = build_fake_cluster(
+                ClusterSpec(num_nodes=PAR_NODES, seed=SEED))
+            loop = SchedulerLoop(cluster, cfg, mesh=m, device=PAR_DEVICE)
+            ctl = None
+            try:
+                loop.encoder.set_network(lat, bw)
+                feed_metrics(cluster, loop.encoder,
+                             np.random.default_rng(SEED + 1))
+                if m is not None:
+                    ctl = serve_multihost.install_controller(loop, cfg, m)
+                cluster.add_pods(generate_workload(
+                    WorkloadSpec(num_pods=PAR_CYCLES * BATCH, seed=SEED),
+                    scheduler_name=cfg.scheduler_name))
+                walls, bound = [], 0
+                K.reset_launch_counts()
+                for _ in range(PAR_CYCLES):
+                    pods = loop.queue.pop_batch(BATCH, timeout=0.0)
+                    t0 = time.perf_counter()
+                    bound += loop.schedule_pods(pods)
+                    walls.append(time.perf_counter() - t0)
+                launches = _par_launches()
+            finally:
+                if ctl is not None:
+                    ctl.stop()
+                loop.stop_bind_worker()
+            return ({b.pod_name: b.node_name for b in cluster.bindings},
+                    bound, walls, None if ctl is None else ctl.big_sent,
+                    launches)
+
+        mesh_binds, bound, walls, sent, launches = drive(mesh)
+        solo_binds, solo_bound, solo_walls, _, _ = drive(None)
+        return {"shape": mesh.shape, "bound": bound,
+                "solo_bound": solo_bound,
+                "identical": mesh_binds == solo_binds,
+                "cycle_s": walls, "solo_cycle_s": solo_walls,
+                "big_leaves_sent": sent, "launches": launches}
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_spawn(role: str, world: int, check) -> list:
+    """Run ``world`` ranks of drive ``role`` as child processes of this
+    script and return their results in rank order; a child that fails,
+    or a drive that outlives its time limit, fails the phase (every
+    child is stopped first)."""
+    import pickle
+    import socket
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_parallel_{role}_"))
+    if role == "c":
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            rendezvous = str(s.getsockname()[1])
+    else:
+        rendezvous = str(tmp / "store")
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-child",
+         role, str(r), str(world), rendezvous, str(tmp / "out")],
+        stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.monotonic() + PAR_TIMEOUT_S[role]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        check(False, f"drive ({role}) outlived {PAR_TIMEOUT_S[role]} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    results = []
+    for r in range(world):
+        path = tmp / f"out.{r}"
+        if not path.exists():
+            tail = (tmp / f"rank{r}.log").read_text()[-3000:]
+            check(False, f"drive ({role}) rank {r} left no result: {tail}")
+        with open(path, "rb") as f:
+            res = pickle.load(f)
+        check("error" not in res,
+              f"drive ({role}) rank {r}: {res.get('error')}")
+        results.append(res["ok"])
+    return results
+
+
+def row_shard_launch_check(state, stream, cfg, mem_bw: float,
+                           f32_peak: float, check) -> dict:
+    """The static kernel on tp row shard ``PAR_SHARD_INDEX`` of
+    ``PAR_SHARD_TP`` (1,280 rows of 5,120, row offset 1,280), on phase
+    ``kernels``' batch: held against its plain version and the solo
+    launch's rows, timed against the plain version, one library product
+    of T and the shard's C rows, and the bound of the bytes and
+    operations the shard's launch needs."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
+
+    st, pods = kernel_inputs(cfg, state, stream)
+    n = st.num_nodes
+    rows = n // PAR_SHARD_TP
+    lo = PAR_SHARD_INDEX * rows
+    full = tiled_score.static_replay_pack(st, cfg)
+    params = full.params.clone()
+    params[7] = float(lo)
+    sl = slice(lo, lo + rows)
+    pack = dataclasses.replace(
+        full, params=params, bw=full.bw[sl].contiguous(),
+        lat=full.lat[sl].contiguous(), base=full.base[sl].contiguous(),
+        node_valid=full.node_valid[sl].contiguous(),
+        taint=full.taint[sl].contiguous(), label=full.label[sl].contiguous())
+    groups = st.group_bits[sl].contiguous()
+    pp = tiled_score.pack_pods(pods, n)
+    bf16 = cfg.use_bfloat16
+    got = _shard_vs_solo((pack, groups, pp, bf16), st, cfg, lo)
+    check(got["plain_ok"], f"row shard: kernel differs from plain by "
+          f"{got['max_abs_err']}")
+    check(got["solo_bits_equal"], "row shard: kernel differs from the solo "
+          "launch's rows")
+    with uncounted():
+        _, count = K.peer_columns(pp.t)
+        count = int(count.cpu())
+        c_t = K.desirability_plain(pack).T.contiguous()
+        t_l, c_l = ((pp.t.to(torch.bfloat16), c_t.to(torch.bfloat16))
+                    if bf16 else (pp.t, c_t))
+        ms = time_ms(lambda: K.static_tile_scores(pack, groups, pp, bf16,
+                                                  transposed=True))
+        plain_ms = time_ms(lambda: K.static_tile_scores_plain(
+            pack, groups, pp, bf16))
+        lib_ms = time_ms(lambda: torch.matmul(t_l, c_l))
+    p = pp.t.shape[0]
+    # As phase ``kernels`` counts one launch, at the shard's rows: T once,
+    # the shard's bw/lat entries of the batch's peer columns (and validk,
+    # cols), the shard's node planes and group rows, the pod planes, each
+    # output once; FLOPs 2·nnz(T)·rows.
+    nb = (nbytes(pp.t) + (2 * rows + 2) * count * 4 + 4
+          + nbytes(pp.pod_valid, pp.tol, pp.sel, pp.soft_sel, pp.soft_grp,
+                   pp.soft_sel_w, pp.soft_grp_w)
+          + nbytes(pack.params, pack.base, pack.node_valid, pack.taint,
+                   pack.label, groups) + p * rows * (4 + 1))
+    ops = 2.0 * int((pp.t != 0).sum()) * rows
+    t_bytes, t_ops = nb / mem_bw * 1e3, ops / f32_peak * 1e3
+    return {**got, "use_bfloat16": bf16, "tp": PAR_SHARD_TP, "p": p,
+            "n": n, "peer_count": count, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library": "torch.matmul(T, C[rows]^T)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nb, "ops": ops, "l2": "flushed"}
+
+
+def phase_parallel(state, stream, cfg, mem_bw: float, f32_peak: float):
+    """Phase ``parallel``: every mesh drive runs in child processes, so
+    this process holds no process group."""
+    errors: list[str] = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+            fail("parallel", "; ".join(errors))
+
+    t_phase = time.perf_counter()
+    mode = compute_mode()
+    check(mode == "Default", f"the card's compute mode is {mode!r}: four "
+          "ranks on one card need several processes per device")
+    shard = row_shard_launch_check(state, stream, cfg, mem_bw, f32_peak,
+                                   check)
+    # Phase parallel's path: every drive on a mesh, on every rank, each
+    # counted from 0 just before it (the unsharded drives beside them
+    # are comparisons and count nowhere).
+    path = {}
+
+    def tally(launches: dict) -> None:
+        for n, c in launches.items():
+            path[n] = path.get(n, 0) + c
+
+    def one_compaction_each(launches: dict, what: str) -> None:
+        check(launches["peer_columns"] == launches["static_scores_kernel"],
+              f"{what}: {launches['peer_columns']} peer-column compactions "
+              f"for {launches['static_scores_kernel']} static launches")
+
+    t0 = time.perf_counter()
+    (a,) = _par_spawn("a", 1, check)
+    a_s = time.perf_counter() - t0
+    for key in ("pallas_bf16", "xla_bf16"):
+        check(a[key]["identical"], f"(a) 1x1 mesh {key}: assignments differ "
+              "from the unsharded replay")
+        for rec in a[key]["mesh"]:
+            tally(rec["launches"])
+    for rec in a["pallas_bf16"]["mesh"]:
+        check(rec["launches"]["static_scores_kernel"] == rec["batches"],
+              f"(a) 1x1 mesh: {rec['launches']['static_scores_kernel']} "
+              f"static launches for {rec['batches']} batches")
+        one_compaction_each(rec["launches"], "(a) 1x1 mesh")
+    dens = a["density"]
+    check(dens["pods_bound"] > 0
+          and dens["launches"]["static_scores_kernel"] > 0,
+          f"(a) run_density on the mesh: {dens}")
+    one_compaction_each(dens["launches"], "(a) run_density on the mesh")
+    check(a["serve"]["rc"] == [0, 0] and a["serve"]["identical"]
+          and a["serve"]["bound"][0] > 0,
+          f"(a) serve.py --mesh: {a['serve']}")
+    tally(dens["launches"])
+    tally(a["serve"]["launches"])
+    t0 = time.perf_counter()
+    b = _par_spawn("b", 4, check)
+    b_s = time.perf_counter() - t0
+    meshes, solo = {}, {}
+    row_shard = dict.fromkeys(("static_scores_kernel", "peer_columns"), 0)
+    for mesh_key, res0 in b[0].items():
+        dp, tp = (int(x) for x in mesh_key.split("x"))
+        rows = PAR_NODES // tp
+        for backend, d in res0["report"]["drives"].items():
+            key = f"{mesh_key}/{backend}"
+            solo.setdefault(backend, []).append(d["solo"])
+            check(d["identical"], f"(b) {key}: assignments differ from the "
+                  "unsharded replay")
+            for r, rec in enumerate(d["ranks"]):
+                tally(rec["launches"])
+                check(rec["lat_shape"] == [rows, PAR_NODES]
+                      and rec["bw_shape"] == [rows, PAR_NODES],
+                      f"(b) {key} rank {r}: lat {rec['lat_shape']}, bw "
+                      f"{rec['bw_shape']}")
+                if backend.startswith("pallas"):
+                    got = rec["launches"]["static_scores_kernel"]
+                    check(got == rec["batches"],
+                          f"(b) {key} rank {r}: {got} launches for "
+                          f"{rec['batches']} batches")
+                    one_compaction_each(rec["launches"], f"(b) {key} "
+                                        f"rank {r}")
+                    for n in row_shard:
+                        row_shard[n] += rec["launches"][n]
+            meshes[key] = {"per_rank": d["ranks"],
+                           "pods_per_s": min(x["pods_per_s"]
+                                             for x in d["ranks"]),
+                           "max_memory_allocated_per_rank":
+                               [x["max_memory_allocated"]
+                                for x in d["ranks"]]}
+        for r, res in enumerate(b):
+            mine = res[mesh_key]
+            check(mine["kernel_offsets"] == [float(mine["row_offset"])],
+                  f"(b) {mesh_key} rank {r}: offsets "
+                  f"{mine['kernel_offsets']}, want {mine['row_offset']}")
+            check(set(mine["captures"]) == {"f32", "bf16"},
+                  f"(b) {mesh_key} rank {r}: captured "
+                  f"{sorted(mine['captures'])}")
+            for prec, cap in mine["captures"].items():
+                check(cap["plain_ok"], f"(b) {mesh_key} {prec} rank {r}: "
+                      f"shard launch differs from plain by "
+                      f"{cap['max_abs_err']}")
+                check(cap["solo_bits_equal"], f"(b) {mesh_key} {prec} rank "
+                      f"{r}: shard launch differs from the solo launch's "
+                      "rows")
+    t0 = time.perf_counter()
+    c = _par_spawn("c", 2, check)
+    c_s = time.perf_counter() - t0
+    ctl, fol = c
+    check(ctl["identical"] and ctl["bound"] == ctl["solo_bound"] > 0,
+          f"(c) controller bound {ctl['bound']} vs {ctl['solo_bound']}, "
+          f"identical {ctl['identical']}")
+    check(fol["steps"] == PAR_CYCLES,
+          f"(c) follower joined {fol['steps']} of {PAR_CYCLES} steps")
+    tally(ctl["launches"])
+    tally(fol["launches"])
+    summary = {
+        "phase": "parallel", "ok": True, "compute_mode": mode,
+        "nvidia_smi": nvidia_smi(),
+        "solo_mesh_1x1": a,
+        "four_ranks": {
+            "solo": solo,
+            "meshes": meshes,
+            "per_rank": [{k: {x: v[x] for x in ("row_offset",
+                                                "kernel_offsets",
+                                                "captures")}
+                          for k, v in res.items()} for res in b]},
+        "pair": {"controller": ctl, "follower": fol},
+        "row_shard_launch": shard,
+        "launches": path,
+        "row_shard_launches": row_shard,
+        "seconds": {"a": a_s, "b": b_s, "c": c_s,
+                    "phase": time.perf_counter() - t_phase}}
+    emit(summary)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--parallel-child"]:
+        return _par_child(*sys.argv[2:7])
     from kubernetesnetawarescheduler_tpu_torch.bench.density import (
         synthetic_density,
     )
@@ -4717,6 +5371,8 @@ def main() -> int:
     scenario_res = run_phase("scenario", phase_scenario)
     suite_res = run_phase("suite", phase_suite)
     fleet_res = run_phase("fleet", phase_fleet, mem_bw, f32_peak)
+    par_res = run_phase("parallel", phase_parallel, state, stream, cfg,
+                        mem_bw, f32_peak)
     if FAILED:
         emit({"failed_phases": FAILED})
         return 1
@@ -4750,6 +5406,9 @@ def main() -> int:
                "scenario": scenario_res["launches"],
                "suite": suite_res["launches"],
                "fleet": fleet_res["launches"]}
+    # Phase parallel's launches ran in its child processes, on every rank
+    # of its meshes; the row-shard route (tp > 1) is its own row below.
+    by_path["parallel"] = par_res["launches"]
     rows = []
     for kname in kres[prec]:
         r = kres[prec][kname]
@@ -4781,6 +5440,23 @@ def main() -> int:
         "bound_by": lane["bound_by"], "library_ms": lane["library_ms"],
         "k_solo_ms": lane["k_solo_ms"], "lanes": lane["lanes"],
         "use_bfloat16": lane["use_bfloat16"], "l2": "flushed"})
+    # The static kernel on a tp row shard of bw/lat (params[7] its row
+    # offset): JAX shard_maps _static_pallas_call at parallel/sharding.py:
+    # 504; launched by every rank of phase parallel's 2x2 and 1x4 meshes.
+    shard = par_res["row_shard_launch"]
+    rows.append({
+        "name": "static_scores_kernel (tp row shard)", "route": "cuda",
+        "source": "kubernetesnetawarescheduler_tpu_torch/csrc/"
+                  "tiled_score.cu",
+        "replaces": replaces["static_scores_kernel"] + " (shard_map'd at "
+                    "kubernetesnetawarescheduler_tpu/parallel/sharding.py:"
+                    "504)",
+        "launches": par_res["row_shard_launches"]["static_scores_kernel"],
+        "max_abs_err": shard["max_abs_err"], "ms": shard["ms"],
+        "plain_ms": shard["plain_ms"], "bound_ms": shard["bound_ms"],
+        "bound_by": shard["bound_by"], "library_ms": shard["library_ms"],
+        "shape": shard["shape"], "row_offset": shard["offset"],
+        "use_bfloat16": shard["use_bfloat16"], "l2": "flushed"})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

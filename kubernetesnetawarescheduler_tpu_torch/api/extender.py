@@ -23,9 +23,11 @@ module:
   ``non_blocking=True`` and a ``torch.cuda.Event`` recorded after it; the
   finisher thread waits on that event (on the CPU the rows are already
   host memory).
-- Mesh-sharded scoring is not ported (ROADMAP Queue A item 15; the loop
-  refuses a mesh at construction), so the wave always scores on the one
-  device the encoder lives on.
+- A loop built with a mesh carries ``sharded_score``
+  (``parallel/sharding.py``): the wave's scores are the sharded dense
+  columns gathered whole, from the dense static pair (a mesh's webhook
+  scores dense, as in JAX).  Under ``--multihost`` the controller turns
+  it off and the wave scores on rank 0's device.
 - ``/explain/<uid>`` returns the loop's explain record for the pod
   (``enable_explain``), under either score backend; the ``/debug/*``
   pages of the unported layers answer ``{"enabled": false}``, as the
@@ -39,6 +41,7 @@ one consistent state.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import queue as queue_mod
 import threading
@@ -298,7 +301,13 @@ class _ScoreBatcher:
                 state, version = loop.encoder.snapshot_versioned()
                 static = self._static_for(state, version)
                 self.dispatches += 1
-                rows = score_pods_auto(state, enc, loop.cfg, static)
+                # A mesh loop carries the sharded full-score callable:
+                # the node axis over the mesh's tp ranks, the wave whole.
+                sharded = getattr(loop, "sharded_score", None)
+                if sharded is not None:
+                    rows = sharded(state, enc, static)
+                else:
+                    rows = score_pods_auto(state, enc, loop.cfg, static)
                 idxs = [e[3] for e in chunk]
                 width = (_round_pow2(max(len(ix) for ix in idxs))
                          if all(ix is not None for ix in idxs)
@@ -390,7 +399,13 @@ class _ScoreBatcher:
 
     def _static_for(self, state, version: int):
         if self._static_version != version:
-            self._static_val = compute_static(state, self._loop.cfg)
+            cfg = self._loop.cfg
+            if getattr(self._loop, "sharded_score", None) is not None:
+                # The sharded score is dense; its static is the dense
+                # (base, C.T) pair, whatever the backend (the callable
+                # warned of the coercion when it was built).
+                cfg = dataclasses.replace(cfg, score_backend="xla")
+            self._static_val = compute_static(state, cfg)
             self._static_version = version
         return self._static_val
 

@@ -667,8 +667,11 @@ def run_density(num_nodes: int = 100, num_pods: int = 300,
     ``mode="device"`` and ``mode="pipeline"`` drain the whole backlog
     through the device replay (:func:`_run_density_device`): one
     whole-stream replay, or the chunked replay of ``chunk_batches``
-    batches per chunk.  A ``mesh`` raises :class:`NotImplementedError`
-    when the loop is built (ROADMAP Queue A item 15).
+    batches per chunk.  A ``mesh`` (``parallel/sharding.py``) builds the
+    loop on it (host mode serves through its sharded callables) and
+    drains ``mode="device"`` through the sharded replay (every rank of
+    the mesh calls ``run_density`` alike); the chunked drain has no mesh
+    variant, and ``mode="pipeline"`` with a mesh raises ``ValueError``.
 
     ``churn_links`` > 0 injects seeded link-probe + metrics churn before
     every serving cycle (host), chunk arrival (pipeline) or bind batch
@@ -724,7 +727,7 @@ def run_density(num_nodes: int = 100, num_pods: int = 300,
                                    pipeline=(mode == "pipeline"),
                                    churn_links=churn_links,
                                    trace_out=trace_out, device=device,
-                                   after_drain=after_drain)
+                                   after_drain=after_drain, mesh=mesh)
 
     if warmup:
         wloop = _throwaway_loop(num_nodes, seed, cfg, method,
@@ -835,7 +838,7 @@ def _run_density_device(cluster, loop: SchedulerLoop, pods, cfg,
                         churn_links: int = 0,
                         trace_out: str | None = None,
                         device="cuda",
-                        after_drain=None) -> DensityResult:
+                        after_drain=None, mesh=None) -> DensityResult:
     """Device-replay drain, two strategies sharing one harness.
 
     ``pipeline=False``: the whole backlog as one :func:`replay_stream`,
@@ -857,14 +860,38 @@ def _run_density_device(cluster, loop: SchedulerLoop, pods, cfg,
     amortized mean (``score_samples == 1``).  ``bind_p99_ms`` is over
     per-batch bind samples, ``bind_tail_ms`` the wall left after the
     replay (the binds the pipeline did not hide)."""
+    if mesh is not None and pipeline:
+        # The chunked drain has no mesh variant; the caller picks the
+        # drain, and a silent switch would make its mode label lie.
+        raise ValueError(
+            "mesh-sharded replay has no pipelined drain; use "
+            "mode='device' with mesh")
     cluster.add_pods(pods)
     queued = loop.queue.pop_batch(len(pods), timeout=0.0)
     num_batches = round_up(len(queued), cfg.max_pods) // cfg.max_pods
     dev = loop.encoder.device
 
     # The measured state is uploaded before the warm-up, which replays
-    # on it; a live deployment pays this upload once at startup.
+    # on it; a live deployment pays this upload once at startup.  On a
+    # mesh it is placed onto the rank's shard there, and one sharded
+    # replay callable serves the warm-up and the measured run.
     state = loop.encoder.snapshot()
+    if mesh is None:
+        def replay(st, stream_in):
+            return replay_stream(st, stream_in, cfg, method,
+                                 with_stats=True)
+    else:
+        from kubernetesnetawarescheduler_tpu_torch.parallel.sharding import (
+            _leaf_placer,
+            sharded_replay_fn,
+        )
+
+        state = _leaf_placer(mesh)(state)
+        mesh_replay = sharded_replay_fn(cfg, mesh, method, with_stats=True)
+
+        def replay(st, stream_in):
+            return mesh_replay(st, fold_stream(stream_in.to(mesh.device),
+                                               cfg))
     _sync(dev)
 
     # Seeded churn (one tick per chunk arrival / bind batch) routes probe
@@ -903,8 +930,7 @@ def _run_density_device(cluster, loop: SchedulerLoop, pods, cfg,
                                              chunk_batches):
                 pass
         else:
-            wassign, _, _ = replay_stream(state, wstream, cfg, method,
-                                          with_stats=True)
+            wassign, _, _ = replay(state, wstream)
             wassign.cpu()
         if churn_tick is not None:
             _warm_churn_path(loop, churn_tick)
@@ -1066,8 +1092,7 @@ def _run_density_device(cluster, loop: SchedulerLoop, pods, cfg,
         # one device_wait phase (replay + copy) and one bind phase.
         sb = loop._span_begin("bench_device")
         t_dev = time.perf_counter()
-        assignment_dev, _final, rounds_dev = replay_stream(
-            state, stream, cfg, method, with_stats=True)
+        assignment_dev, _final, rounds_dev = replay(state, stream)
         round_samples.extend(int(r) for r in rounds_dev)
         assignment = assignment_dev.cpu().numpy()[:len(queued)]
         sb.add_phase("device_wait", t_dev, time.perf_counter() - t_dev)

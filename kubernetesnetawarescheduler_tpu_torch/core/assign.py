@@ -43,12 +43,16 @@ from kubernetesnetawarescheduler_tpu_torch.core.state import (
     add_zone_counts,
     bit_planes,
     commit_assignments,
+    concat_shards,
     exact_matmul,
     host_flag,
     index_tree,
+    local_rows,
     planes_to_words,
     scatter_add_rows,
+    scatter_add_rows_shard,
     scatter_or_onehot,
+    shard_pods,
 )
 
 UNASSIGNED = -1
@@ -870,6 +874,463 @@ def assign_parallel_lanes(states: ClusterState, pods: PodBatch,
         carry, cont = vmap(round_c)(c, carry, cont, choice, winner, used_a,
                                     b, used_b)
     return torch.where(pods.pod_valid, carry[6], UNASSIGNED), rounds
+
+
+# ---------------------------------------------------------------------------
+# The conflict loop as explicit SPMD over a (dp, tp) mesh.
+# ---------------------------------------------------------------------------
+
+
+def _static_parts_spmd(state: ClusterState, lp: PodBatch,
+                       cfg: SchedulerConfig, static, mesh):
+    """Node-major ``(raw f32[rows, Ps], static_ok bool[rows, Ps])``: the
+    rank's tile of :func:`_static_parts`, its node shard by its pods.
+    ``static`` is the shard's dense pair
+    (:func:`~.score.static_node_scores_spmd`; computed here when None),
+    or a precomputed tile: ``{"raw", "ok"}`` pod-major or ``{"rawT",
+    "okT"}`` node-major (the row-shard kernel route)."""
+    if isinstance(static, dict):
+        if "rawT" in static:
+            return static["rawT"], static["okT"]
+        return static["raw"].T, static["ok"].T
+    if static is None:
+        static = score_lib.static_node_scores_spmd(state, cfg, mesh)
+    base, ct = static
+    off = mesh.tp_index * state.num_nodes
+    soft_t = score_lib.soft_affinity_scores(state, lp, cfg, transposed=True)
+    net_t = score_lib.network_scores_shard(lp, cfg, ct, off, transposed=True)
+    return (base[:, None] + net_t + soft_t,
+            score_lib.static_feasibility_t(state, lp))
+
+
+def _mesh_geometry(state: ClusterState, pods: PodBatch, mesh):
+    """``(P, Ps, pod offset, rows, N, node offset)`` of this rank."""
+    p = pods.num_pods
+    if p % mesh.dp != 0:
+        raise ValueError(f"max_pods={p} does not split over dp={mesh.dp}")
+    ps = p // mesh.dp
+    rows = state.num_nodes
+    return p, ps, mesh.dp_index * ps, rows, rows * mesh.tp, \
+        mesh.tp_index * rows
+
+
+def assign_parallel_spmd(state: ClusterState, pods: PodBatch,
+                         cfg: SchedulerConfig, mesh, static=None, *,
+                         with_stats: bool = False, node_zone=None):
+    """:func:`assign_parallel` as explicit SPMD over a ``(dp, tp)`` mesh:
+    the same assignment, bit for bit.  Collective: every rank of
+    ``mesh`` calls it with its node shard ``state`` (``tp`` rows of
+    every node-axis leaf, the zone planes whole) and the WHOLE batch
+    ``pods``; each returns the whole ``i32[P]`` assignment (and the
+    round count with ``with_stats``).  ``node_zone`` is the whole
+    cluster's ``i32[N]`` when the caller has it (else gathered here).
+
+    The carried core matrix is node-major, so a rank holds its tile
+    ``[N/tp, P/dp]`` (its nodes by its dp rows of the batch); everything
+    of length P is whole on every rank.  Per round:
+
+    - ``argmax2``: each rank's per-pod (best, lowest index, second best)
+      over its rows, with the raw score and the node's usage and
+      capacity at its pick, gathered over ``tp``; the value is the max,
+      the node the lowest GLOBAL index among equal maxima (JAX's
+      ``pmin`` combine), the second best the max of the winning shard's
+      own second best and every other shard's best — all exact.  Then
+      the ``P/dp`` proposals are gathered over ``dp``.
+    - ``accept`` runs on every rank over the whole proposal set (its
+      segment sums are differences of prefix sums over ALL contenders,
+      so a subset would round otherwise), reading each contender's node
+      through the gathered usage and capacity.
+    - the usage commit is the one-hot product at the whole cluster's
+      shape, of which each rank adds its rows
+      (:func:`~.state.scatter_add_rows_shard`); the group/anti ORs and
+      the row patch write only the rank's rows.
+    - the zone caps and zone counts read the whole ``node_zone``.
+    - the continue test, the second-chance gate and the zone-work gate
+      are each one MAX all-reduce over the world (:meth:`Mesh.flag`),
+      so every rank takes the same branch and joins the same
+      collectives."""
+    p, ps, poff, ns, n, off = _mesh_geometry(state, pods, mesh)
+    if (n + 1) * p > _INT32_MAX:
+        raise ValueError(
+            f"max_nodes*max_pods={n}*{p} overflows the int32 "
+            "winner-selection key; reduce the batch or node padding")
+    if n >= 1 << 24:
+        raise ValueError(f"{n} nodes exceed the f32-exact node index of the "
+                         "argmax gather")
+    dev = state.device
+    lp = shard_pods(pods, mesh.dp_index, mesh.dp)
+    rawT, static_okT = _static_parts_spmd(state, lp, cfg, static, mesh)
+    if node_zone is None:
+        node_zone = concat_shards(mesh, state.node_zone, "tp")
+    w_bal = float(np.float32(cfg.weights.balance))
+    pod_ids = torch.arange(p, dtype=torch.int32, device=dev)
+    row_ids = (off + torch.arange(ns, dtype=torch.int32, device=dev))[:, None]
+    lcols = torch.arange(ps, device=dev)
+    cap = state.cap
+    cap_eps = cap.clamp_min(_EPS)
+    req = pods.req
+    r_res = req.shape[1]
+
+    order = torch.argsort(-pods.priority, stable=True)
+    rank = torch.zeros((p,), dtype=torch.int32, device=dev)
+    rank[order] = pod_ids
+    mask_b = 32 * pods.group_bit.shape[1]
+    gb_planes = bit_planes(pods.group_bit, torch.int32)
+    ab_planes = bit_planes(pods.anti_bits, torch.int32)
+    zpair_conflict = (
+        (((pods.zanti_bits[:, None, :] & pods.group_bit[None, :, :]) != 0)
+         .any(dim=-1)
+         | ((pods.group_bit[:, None, :] & pods.zanti_bits[None, :, :]) != 0)
+         .any(dim=-1))
+        & (rank[:, None] < rank[None, :]))
+
+    def argmax2(s_m, used, extra=None):
+        """Whole-batch ``(choice i32[P], best, second, raw at choice,
+        used[choice] [P, R], cap[choice] [P, R])`` of the tiles ``s_m``
+        over every rank, plus the tp max of ``extra`` (a per-local-pod
+        f32 row) when given."""
+        best_l = s_m.amax(dim=0)
+        choice_l = torch.where(s_m == best_l[None, :], row_ids,
+                               n).amin(dim=0)
+        second_l = torch.where(row_ids == choice_l[None, :], NEG_INF,
+                               s_m).amax(dim=0)
+        cl = (choice_l - off).clamp(0, ns - 1).long()
+        cols = [best_l, choice_l.to(torch.float32), second_l,
+                rawT[cl, lcols]]
+        if extra is not None:
+            cols.append(extra)
+        pack = torch.cat([torch.stack(cols, dim=1), used[cl], cap[cl]],
+                         dim=1)                               # [Ps, C]
+        allp = mesh.gather(pack, "tp")                        # [tp, Ps, C]
+        bests, choices = allp[:, :, 0], allp[:, :, 1]
+        best = bests.amax(dim=0)
+        choice = torch.where(bests == best[None, :], choices,
+                             float(n)).amin(dim=0)
+        win = (bests == best[None, :]) & (choices == choice[None, :])
+        second = torch.where(win, allp[:, :, 2], bests).amax(dim=0)
+        pick = win.to(torch.int8).argmax(dim=0)               # [Ps]
+        chosen = allp[pick, lcols]                            # [Ps, C]
+        out = torch.cat([torch.stack([choice, best, second], dim=1),
+                         chosen[:, 3:]], dim=1)
+        if extra is not None:
+            out[:, 4] = allp[:, :, 4].amax(dim=0)
+        out = concat_shards(mesh, out, "dp")                          # [P, C]
+        j = 5 if extra is not None else 4
+        res = (out[:, 0].to(torch.int32), out[:, 1], out[:, 2], out[:, 3],
+               out[:, j:j + r_res], out[:, j + r_res:j + 2 * r_res])
+        return res + ((out[:, 4],) if extra is not None else ())
+
+    def core_scores_t(used, group_bits, resident_anti, assignment_l):
+        free = cap - used
+        fits = (lp.req[None, :, :] <= free[:, None, :] + _EPS).all(dim=-1)
+        aff_req = lp.affinity_bits[None, :, :]
+        affinity = ((group_bits[:, None, :] & aff_req)
+                    == aff_req).all(dim=-1)
+        anti = ((group_bits[:, None, :] & lp.anti_bits[None, :, :])
+                == 0).all(dim=-1)
+        sym = ((resident_anti[:, None, :] & lp.group_bit[None, :, :])
+               == 0).all(dim=-1)
+        bal = ((used[:, None, :] + lp.req[None, :, :])
+               / cap_eps[:, None, :]).amax(dim=-1)
+        ok = (static_okT & fits & affinity & anti & sym
+              & (assignment_l == UNASSIGNED)[None, :])
+        return torch.where(ok, rawT - w_bal * bal, NEG_INF)
+
+    zone_work = mesh.flag(
+        score_lib.spread_active(pods).any()
+        | (pods.zaff_bits != 0).any() | (pods.zanti_bits != 0).any()
+        | (state.az_anti != 0).any())
+    static_ok_pn = static_okT.T if zone_work else None
+
+    def node_min(x):
+        return mesh.reduce(x, "min", "tp")
+
+    def overlay(sT, gz, az):
+        if not zone_work:
+            return sT
+        spread_pen, spread_ok = score_lib.spread_terms_ungated(
+            state, lp, cfg, gz, static_ok=static_ok_pn, node_min=node_min)
+        zone_ok = score_lib.zone_affinity_ungated(state, lp, gz, az)
+        return torch.where((spread_ok & zone_ok).T, sT - spread_pen.T,
+                           NEG_INF)
+
+    idx = torch.arange(p, dtype=torch.int32, device=dev)
+    zero_row = torch.zeros((1, mask_b), dtype=torch.int32, device=dev)
+
+    def accept(second_best, choice_x, feas_x, raw_sel, used_c, cap_c):
+        """:func:`assign_parallel`'s ``accept`` over the whole proposal
+        set, each contender's node read through ``used_c``/``cap_c``
+        (its chosen node's rows) instead of a node-axis gather."""
+        key = torch.where(feas_x, choice_x * p + rank, n * p + rank)
+        perm = torch.argsort(key)
+        group_id = key[perm] // p
+        first = _segment_starts(group_id)
+        req_sorted = req[perm]
+        csum = _assoc_cumsum0(req_sorted)
+        base = torch.where(first[:, None], csum - req_sorted, -float("inf"))
+        seg_csum = csum - _cummax0(base)
+        fits_cum = (seg_csum <= (cap_c - used_c)[perm] + _EPS).all(dim=-1)
+        bal_after = ((used_c[perm] + seg_csum)
+                     / cap_c.clamp_min(_EPS)[perm]).amax(dim=-1)
+        adj_sorted = raw_sel[perm] - w_bal * bal_after
+        stays_best = adj_sorted >= second_best[perm] - 1e-6
+        seg2 = (group_id * 2)[:, None]
+        gbp, abp = gb_planes[perm], ab_planes[perm]
+        incl_gb = _cummax0(seg2 + gbp) - seg2
+        incl_ab = _cummax0(seg2 + abp) - seg2
+        excl_gb = torch.where(first[:, None], 0,
+                              torch.cat([zero_row, incl_gb[:-1]])) >= 1
+        excl_ab = torch.where(first[:, None], 0,
+                              torch.cat([zero_row, incl_ab[:-1]])) >= 1
+        pair_ok = (~(excl_ab & (gbp >= 1)).any(dim=1)
+                   & ~(excl_gb & (abp >= 1)).any(dim=1))
+        good = fits_cum & pair_ok & stays_best
+        seg_start = _cummax0(torch.where(first, idx, -1))
+        last_bad = _cummax0(torch.where(~good, idx, -1))
+        prefix_ok = last_bad < seg_start
+        out = torch.zeros((p,), dtype=torch.bool, device=dev)
+        out[perm] = (first | prefix_ok) & (group_id < n)
+        return out
+
+    def seg_or_updates(choice_x, winner_x, group_bits, resident_anti):
+        key = torch.where(winner_x, choice_x * p + rank, n * p + rank)
+        perm = torch.argsort(key)
+        group_id = key[perm] // p
+        first = _segment_starts(group_id)
+        node_sorted = group_id.clamp(0, n - 1)
+        seg2 = (group_id * 2)[:, None]
+        win_sorted = winner_x[perm].to(torch.int32)[:, None]
+        or_gb = (_cummax0(seg2 + gb_planes[perm] * win_sorted) - seg2) >= 1
+        or_ab = (_cummax0(seg2 + ab_planes[perm] * win_sorted) - seg2) >= 1
+        last_of_seg = torch.cat([first[1:], torch.ones(
+            (1,), dtype=torch.bool, device=dev)])
+        seg_cols = local_rows(torch.where(last_of_seg & (group_id < n),
+                                          node_sorted, n), off, ns)
+        safe = seg_cols.clamp(0, ns - 1).long()
+        new_group = _set_rows(group_bits, seg_cols,
+                              group_bits[safe] | planes_to_words(or_gb))
+        new_anti = _set_rows(resident_anti, seg_cols,
+                             resident_anti[safe] | planes_to_words(or_ab))
+        return new_group, new_anti
+
+    def row_patch(sT, wnodes, used_x, group_x, anti_x, assignment_l):
+        """The shard's rows among ``wnodes`` (global, ``n`` = none)
+        recomputed and patched; the patch rows of other shards' nodes
+        come back NEG_INF."""
+        wl = local_rows(wnodes, off, ns)
+        inside = wl < ns
+        cc = wl.clamp(0, ns - 1).long()
+        sub_used = used_x[cc]
+        sub_cap = cap[cc]
+        fits2 = (lp.req[None, :, :] <= (sub_cap - sub_used)[:, None, :]
+                 + _EPS).all(dim=-1)
+        gb = group_x[cc]
+        ra = anti_x[cc]
+        aff_req2 = lp.affinity_bits[None, :, :]
+        affinity2 = ((gb[:, None, :] & aff_req2) == aff_req2).all(dim=-1)
+        aok = ((gb[:, None, :] & lp.anti_bits[None, :, :])
+               == 0).all(dim=-1)
+        sym2 = ((ra[:, None, :] & lp.group_bit[None, :, :])
+                == 0).all(dim=-1)
+        bal = ((sub_used[:, None, :] + lp.req[None, :, :])
+               / sub_cap.clamp_min(_EPS)[:, None, :]).amax(dim=-1)
+        ok = (static_okT[cc] & fits2 & affinity2 & aok & sym2
+              & (assignment_l == UNASSIGNED)[None, :]
+              & inside[:, None])
+        sub = torch.where(ok, rawT[cc] - w_bal * bal, NEG_INF)
+        return _set_rows(sT, wl, sub), sub
+
+    def local(x):
+        return x[poff:poff + ps]
+
+    def body(sT, used, group_bits, resident_anti, gz, az, assignment):
+        s_ov = overlay(sT, gz, az)
+        alive = (assignment == UNASSIGNED) & pods.pod_valid
+        s_m = torch.where(local(alive)[None, :], s_ov, NEG_INF)
+        choice, val, second_best, raw_sel, used_c, cap_c = argmax2(s_m,
+                                                                   used)
+        feasible = val > NEG_HALF
+        winner = accept(second_best, choice, feasible, raw_sel, used_c,
+                        cap_c)
+
+        choice_l = choice.clamp(0, n - 1).long()
+        zone_of = node_zone[choice_l]
+        s_active = (winner & score_lib.spread_active(pods)
+                    & (zone_of >= 0))
+        zdim = state.gz_counts.shape[1]
+        gzmax = state.gz_counts.shape[0] * zdim
+        gz_id = torch.where(s_active, pods.group_idx * zdim + zone_of,
+                            gzmax + rank)
+        key2 = gz_id * p + rank
+        perm2 = torch.argsort(key2)
+        first2 = _segment_starts(key2[perm2] // p)
+        keep = torch.zeros((p,), dtype=torch.bool, device=dev)
+        keep[perm2] = first2
+        winner = winner & keep
+        zsame = (winner[:, None] & winner[None, :]
+                 & (zone_of[:, None] == zone_of[None, :])
+                 & (zone_of >= 0)[:, None])
+        winner = winner & ~(zsame & zpair_conflict).any(dim=0)
+
+        assignment_a = torch.where(winner, choice, assignment)
+        used_a = scatter_add_rows_shard(used, choice, req, winner, off, n)
+        group_a, anti_a = seg_or_updates(choice, winner, group_bits,
+                                         resident_anti)
+        wnodes_a = torch.where(winner, choice, n)
+        s_patched, sub_a = row_patch(sT, wnodes_a, used_a, group_a, anti_a,
+                                     local(assignment_a))
+
+        if not zone_work and mesh.flag((~winner & feasible).any()):
+            s_b = _set_rows(sT, local_rows(wnodes_a, off, ns),
+                            torch.full_like(sub_a, NEG_INF))
+            alive_b = alive & ~winner
+            s_bm = torch.where(local(alive_b)[None, :], s_b, NEG_INF)
+            (choice_b, val_b, sb2, raw_b, used_cb, cap_cb,
+             va_new) = argmax2(s_bm, used, extra=sub_a.amax(dim=0))
+            feas_b = (val_b > NEG_HALF) & (val_b >= va_new - 1e-6)
+            winner_b = accept(torch.maximum(sb2, va_new), choice_b, feas_b,
+                              raw_b, used_cb, cap_cb)
+            winner_m = winner | winner_b
+            choice_m = torch.where(winner_b, choice_b, choice)
+            new_assignment = torch.where(winner_m, choice_m, assignment)
+            new_used = scatter_add_rows_shard(used_a, choice_b, req,
+                                              winner_b, off, n)
+            new_group, new_anti = seg_or_updates(choice_b, winner_b,
+                                                 group_a, anti_a)
+            wnodes_b = torch.where(winner_b, choice_b, n)
+            new_sT, _ = row_patch(s_patched, wnodes_b, new_used, new_group,
+                                  new_anti, local(new_assignment))
+        else:
+            winner_m, choice_m, new_assignment = winner, choice, assignment_a
+            new_used, new_group, new_anti = used_a, group_a, anti_a
+            new_sT = s_patched
+        progress = winner_m.any()
+        new_gz = add_zone_counts(gz, node_zone, pods.group_bit, choice_m,
+                                 winner_m)
+        zone_of_m = node_zone[choice_m.clamp(0, n - 1).long()]
+        zmax = az.shape[0]
+        zhot = (winner_m & (zone_of_m >= 0))[:, None] & (
+            zone_of_m.clamp(0, zmax - 1)[:, None]
+            == torch.arange(zmax, device=dev)[None, :])
+        new_az = az | scatter_or_onehot(zhot, pods.zanti_bits)
+        alive2 = (new_assignment == UNASSIGNED) & pods.pod_valid
+        cont = progress & (torch.where(local(alive2)[None, :], new_sT,
+                                       NEG_INF) > NEG_HALF).any()
+        return (new_sT, new_used, new_group, new_anti, new_gz, new_az,
+                new_assignment, cont)
+
+    assignment = torch.full((p,), UNASSIGNED, dtype=torch.int32, device=dev)
+    carry = (core_scores_t(state.used, state.group_bits,
+                           state.resident_anti, local(assignment)),
+             state.used, state.group_bits, state.resident_anti,
+             state.gz_counts, state.az_anti, assignment)
+    cont = (carry[0] > NEG_HALF).any()
+    rounds = 0
+    while mesh.flag(cont):
+        *carry, cont = body(*carry)
+        rounds += 1
+    assignment = torch.where(pods.pod_valid, carry[6], UNASSIGNED)
+    if with_stats:
+        return assignment, rounds
+    return assignment
+
+
+def assign_greedy_spmd(state: ClusterState, pods: PodBatch,
+                       cfg: SchedulerConfig, mesh, static=None, *,
+                       node_zone=None) -> torch.Tensor:
+    """:func:`assign_greedy` as explicit SPMD over a ``(dp, tp)`` mesh,
+    bit for bit; the arguments are :func:`assign_parallel_spmd`'s.  The
+    rank's static tile is gathered over ``dp`` (every pod's row on the
+    rank's nodes); per pod, in priority order, each rank scores its rows
+    and the choice is the tp combine of :func:`assign_parallel_spmd`'s
+    ``argmax2`` (max value, lowest global index), with the spread
+    minimum a MIN all-reduce over ``tp`` for a spread-active pod."""
+    p, ps, poff, ns, n, off = _mesh_geometry(state, pods, mesh)
+    dev = state.device
+    lp = shard_pods(pods, mesh.dp_index, mesh.dp)
+    rawT, okT = _static_parts_spmd(state, lp, cfg, static, mesh)
+    raw = concat_shards(mesh, rawT.T.contiguous(), "dp")              # [P, rows]
+    static_ok = concat_shards(mesh, okT.T.contiguous(), "dp")
+    if node_zone is None:
+        node_zone = concat_shards(mesh, state.node_zone, "tp")
+    w_bal = float(np.float32(cfg.weights.balance))
+    w_spread = float(np.float32(cfg.weights.spread))
+    order = torch.argsort(-pods.priority, stable=True)
+    gmax, zmax = state.gz_counts.shape
+    zone_l = state.node_zone
+    has_zone = zone_l >= 0
+    zrow = zone_l.clamp(0, zmax - 1).long()
+    sact = score_lib.spread_active(pods)
+    sact_host = sact.tolist()
+    cap = state.cap.clamp_min(_EPS)
+    node_ids = off + torch.arange(ns, device=dev)
+    zone_ids = torch.arange(zmax, device=dev)
+    used, group_bits, resident_anti = (state.used, state.group_bits,
+                                       state.resident_anti)
+    gz, az = state.gz_counts, state.az_anti
+    nodes_sorted = []
+    for i in order.tolist():
+        req = pods.req[i]
+        bal_row = ((used + req[None, :]) / cap).amax(dim=-1)
+        fits = (req[None, :] <= state.cap - used + _EPS).all(dim=-1)
+        aff = pods.affinity_bits[i][None, :]
+        affinity = ((group_bits & aff) == aff).all(dim=-1)
+        anti = ((group_bits & pods.anti_bits[i][None, :]) == 0).all(dim=-1)
+        sym = ((resident_anti & pods.group_bit[i][None, :]) == 0).all(dim=-1)
+        cz = gz[pods.group_idx[i].clamp(0, gmax - 1).long()]
+        cnt = cz[zrow]
+        elig = static_ok[i] & has_zone
+        min_c = torch.where(elig, cnt, 2 ** 30).amin()
+        if sact_host[i]:
+            min_c = mesh.reduce(min_c, "min", "tp")
+        skew_after = cnt + 1 - min_c
+        maxskew = pods.spread_maxskew[i]
+        hard = pods.spread_hard[i]
+        violates = sact[i] & has_zone & (skew_after > maxskew)
+        spread_ok = ~(violates & hard)
+        excess = (skew_after - maxskew).clamp_min(0).to(torch.float32)
+        pen = torch.where(violates & ~hard, w_spread * excess, 0.0)
+        zwords = planes_to_words((gz > 0).T)
+        pres = zwords[zrow]
+        azn = az[zrow]
+        zaff = pods.zaff_bits[i][None, :]
+        zone_ok = (
+            torch.where(has_zone, ((pres & zaff) == zaff).all(dim=-1),
+                        (zaff == 0).all())
+            & (~has_zone | ((pres & pods.zanti_bits[i][None, :])
+                            == 0).all(dim=-1))
+            & (~has_zone | ((azn & pods.group_bit[i][None, :])
+                            == 0).all(dim=-1)))
+        ok = (static_ok[i] & fits & affinity & anti & sym & spread_ok
+              & zone_ok)
+        row = torch.where(ok, raw[i] - w_bal * bal_row - pen, NEG_INF)
+        best_l = row.amax()
+        choice_l = torch.where(row == best_l, node_ids, n).amin()
+        allp = mesh.gather(torch.stack([best_l, choice_l.to(torch.float32)]),
+                           "tp")                                # [tp, 2]
+        best = allp[:, 0].amax()
+        choice = torch.where(allp[:, 0] == best, allp[:, 1],
+                             float(n)).amin().to(torch.int64)
+        feasible = best > NEG_HALF
+        nodes_sorted.append(torch.where(feasible, choice, UNASSIGNED))
+        placed = feasible & pods.pod_valid[i]
+        hit = placed & (node_ids == choice)
+        used = torch.where(hit[:, None], used + req[None, :], used)
+        group_bits = torch.where(hit[:, None],
+                                 group_bits | pods.group_bit[i][None, :],
+                                 group_bits)
+        resident_anti = torch.where(
+            hit[:, None], resident_anti | pods.anti_bits[i][None, :],
+            resident_anti)
+        pzone = node_zone[choice.clamp(0, n - 1)]
+        zhit = placed & (pzone >= 0) & (zone_ids == pzone)
+        gplanes = bit_planes(pods.group_bit[i][None, :], torch.int32)[0]
+        gz = gz + torch.where(zhit[None, :], gplanes[:, None], 0)
+        az = torch.where(zhit[:, None], az | pods.zanti_bits[i][None, :], az)
+    assignment = torch.full((p,), UNASSIGNED, dtype=torch.int32, device=dev)
+    if nodes_sorted:
+        assignment[order] = torch.stack(nodes_sorted).to(torch.int32)
+    return torch.where(pods.pod_valid, assignment, UNASSIGNED)
 
 
 def schedule_batch(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,

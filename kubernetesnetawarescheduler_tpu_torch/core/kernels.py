@@ -165,7 +165,12 @@ def build_library() -> ctypes.CDLL:
     it.  ``build_library.seconds`` holds the compile time of this
     process's build (0 when a cached library was loaded) and
     ``build_library.log`` the compiler's ``-Xptxas -v`` report, kept
-    beside the library so a cached load reads it too."""
+    beside the library so a cached load reads it too.
+
+    Several processes may build into ``_build/`` at once (the ranks of a
+    mesh): each compiles to a name of its own and renames the report,
+    then the library, into place, so a process never loads a partial
+    file, and one that finds the library finds its report too."""
     global _LIB
     if _LIB is not None:
         return _LIB
@@ -184,7 +189,9 @@ def build_library() -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {SOURCE}:\n"
                                f"{proc.stdout + proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
+        tmp_log = log.with_suffix(f".{os.getpid()}.logtmp")
+        tmp_log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp_log, log)
         os.replace(tmp, out)
     build_library.log = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(out))

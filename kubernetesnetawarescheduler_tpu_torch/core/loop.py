@@ -12,9 +12,11 @@ reconcile paths.  What differs from the JAX loop:
   is the encode-ahead of the next burst against the retire of the last.
 - The assignment reaches the host through ``.cpu()`` (:func:`_to_host`),
   which waits for the kernels that wrote it.
-- The mesh is not ported yet: asking for one raises
-  :class:`NotImplementedError` when the loop is built, never mid-cycle.
-  Placement quality, SLOs, the learned policy with its promotion gate
+- A ``mesh`` (``parallel/sharding.py``) runs the cycle's assign, the
+  webhook's score and the backlog burst as explicit SPMD over its ranks
+  (``serving_fns``); every rank of the mesh must join each call, which
+  ``parallel/serve_multihost.py`` arranges for the ranks that are not
+  rank 0.  Placement quality, SLOs, the learned policy with its promotion gate
   (whose replay leg runs ``policy_eval_trace`` on the loop's device)
   and rebalancing are ported; a device fault inside a maintain-time
   tick or at the commit seam propagates instead of being swallowed with
@@ -87,16 +89,6 @@ from kubernetesnetawarescheduler_tpu_torch.utils.timeseries import (
 )
 
 
-def _refuse_unported(mesh) -> None:
-    """Raise :class:`NotImplementedError` for a layer that is asked for
-    but not ported — at construction, so a loop never fails mid-cycle
-    for it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded serving needs parallel/sharding.py (ROADMAP "
-            "Queue A item 15), which is not ported yet")
-
-
 def _observation_guard(exc: BaseException) -> None:
     """The JAX loop swallows every error of a maintain-time layer or of
     the commit seam's observers; the port swallows host errors only and
@@ -116,7 +108,6 @@ class SchedulerLoop:
                  pipelined: bool = False,
                  multicycle: int | None = None,
                  device="cuda") -> None:
-        _refuse_unported(mesh)
         self.cfg = cfg
         self.client = client
         self.method = method
@@ -322,8 +313,25 @@ class SchedulerLoop:
         self._awaiting_preemption: dict[
             str, tuple[Pod, set, float]] = {}
         self._preempt_lock = threading.Lock()
-        self._assign = {"greedy": assign_greedy,
-                        "parallel": assign_parallel}[method]
+        if mesh is not None:
+            # Mesh-sharded serving: the same cycle, with score + assign
+            # run as SPMD over the mesh's (dp, tp) ranks; the webhook's
+            # batcher picks up sharded_score, and the burst path the
+            # sharded replay.  The three share one state placement.
+            from kubernetesnetawarescheduler_tpu_torch.parallel.sharding \
+                import serving_fns
+
+            (self._assign, self.sharded_score,
+             self._sharded_burst) = serving_fns(cfg, mesh, method)
+        else:
+            self.sharded_score = None
+            self._sharded_burst = None
+            self._assign = {"greedy": assign_greedy,
+                            "parallel": assign_parallel}[method]
+        # The mesh serving fns keep their own placement and static
+        # caches; only the single-device path threads an explicit
+        # static.
+        self._assign_takes_static = mesh is None
         # Batch-invariant static prep cache (explicit (state, version)
         # threading): the O(N^2) metric-vote/network normalization
         # depends only on metrics/network/validity — never on
@@ -965,9 +973,10 @@ class SchedulerLoop:
         # Persistent multi-cycle window: with K>1 and a deep backlog,
         # pop up to K batches and serve them as ONE replay over the
         # window — run_once still counts/retires per logical cycle.
-        # Gang groups retire the window first (same snapshot ordering
-        # as the pipelined path).
-        if (self.multicycle > 1
+        # Single-device path only (a mesh serves deep backlogs through
+        # its sharded burst); gang groups retire the window first (same
+        # snapshot ordering as the pipelined path).
+        if (self.multicycle > 1 and self._sharded_burst is None
                 and len(self.queue) >= 2 * batch):
             pods = self.queue.pop_batch(self.multicycle * batch,
                                         timeout)
@@ -1088,13 +1097,19 @@ class SchedulerLoop:
                           count=n_real)
         self._emit_degraded_events()
         t0 = time.perf_counter()
+        static = None
         with self._profile_step(sb.cycle_id):
-            with_stats = self.method == "parallel"
-            # Same version-keyed static cache as the per-batch cycle.
-            static = self._static_for(state, version)
-            out = replay_stream_static(state, stream, static,
-                                       self.cfg, self.method,
-                                       with_stats=with_stats)
+            if self._sharded_burst is not None:
+                # Mesh path: the sharded replay over the shared
+                # placement; its static prep is cached by leaf identity.
+                out, with_stats = self._sharded_burst(state, stream)
+            else:
+                with_stats = self.method == "parallel"
+                # Same version-keyed static cache as the per-batch cycle.
+                static = self._static_for(state, version)
+                out = replay_stream_static(state, stream, static,
+                                           self.cfg, self.method,
+                                           with_stats=with_stats)
         cycle_rounds = 0
         if with_stats:
             assignment_dev, _final_state, rounds_dev = out
@@ -1178,12 +1193,16 @@ class SchedulerLoop:
         state, version = self.encoder.snapshot_versioned()
         node_table = self.encoder.node_table()
         self._emit_degraded_events()
+        static = None
         with self._profile_step(sb.cycle_id):
-            with_stats = self.method == "parallel"
-            static = self._static_for(state, version)
-            out = replay_stream_static(state, stream, static,
-                                       self.cfg, self.method,
-                                       with_stats=with_stats)
+            if self._sharded_burst is not None:
+                out, with_stats = self._sharded_burst(state, stream)
+            else:
+                with_stats = self.method == "parallel"
+                static = self._static_for(state, version)
+                out = replay_stream_static(state, stream, static,
+                                           self.cfg, self.method,
+                                           with_stats=with_stats)
         # "dispatch" records finalize + snapshot + the replay call,
         # which (one host sync per conflict round) runs the device
         # step nearly to its end before it returns; the fetch in
@@ -1489,8 +1508,12 @@ class SchedulerLoop:
             # only when asking for it (stats implies parallel).
             kw = {"with_stats": True} if stats else {}
             with self._profile_step(sb.cycle_id):
-                static = self._static_for(state, static_version)
-                out = self._assign(state, batch, self.cfg, static, **kw)
+                if self._assign_takes_static:
+                    static = self._static_for(state, static_version)
+                    out = self._assign(state, batch, self.cfg, static,
+                                       **kw)
+                else:
+                    out = self._assign(state, batch, self.cfg, **kw)
                 cycle_rounds = 0
                 if stats:
                     assignment_dev, rounds = out
@@ -1661,8 +1684,17 @@ class SchedulerLoop:
             node_table = self.encoder.node_table()
         self._emit_degraded_events()
         with sb.phase("score_assign"), self.timer.phase("score_assign"):
-            static = self._static_for(state, static_version)
-            assign_fn = self._assign
+            if self._assign_takes_static:
+                static = self._static_for(state, static_version)
+                assign_fn = self._assign
+            else:
+                # Mesh path: the sharded callables take no static, and
+                # gang re-scoring needs the {"raw", "ok"} seam, so the
+                # (rare, small) gang batches take the single-device
+                # assigners on the encoder's device.
+                static = None
+                assign_fn = {"greedy": assign_greedy,
+                             "parallel": assign_parallel}[self.method]
             # Elastic realizations: when the gang declares
             # alternative shapes AND the feature is on, score every
             # declared realization and commit the winner; otherwise

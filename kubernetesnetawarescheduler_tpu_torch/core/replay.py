@@ -30,7 +30,9 @@ from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
 from kubernetesnetawarescheduler_tpu_torch.core.assign import (
     UNASSIGNED,
     assign_greedy,
+    assign_greedy_spmd,
     assign_parallel,
+    assign_parallel_spmd,
 )
 from kubernetesnetawarescheduler_tpu_torch.core.state import (
     POD_DTYPES,
@@ -38,6 +40,8 @@ from kubernetesnetawarescheduler_tpu_torch.core.state import (
     PodBatch,
     _TensorTree,
     commit_assignments,
+    commit_assignments_shard,
+    concat_shards,
     resolve_device,
     to_tensor,
 )
@@ -156,13 +160,24 @@ def batch_from_stream(sl: PodStream, node_of_pod: torch.Tensor) -> PodBatch:
 
 
 def _make_step(state: ClusterState, cfg: SchedulerConfig, method: str,
-               static):
+               static, mesh=None):
     """The per-batch body shared by the replay variants.  Carry is
     ``(used, group_bits, resident_anti, gz_counts, az_anti,
     node_of_pod)``: only the placement-mutated tensors; the large
     immutable state is closed over.  Returns ``(carry, assignment,
-    rounds)``; ``node_of_pod`` is updated in place (the replay owns it)."""
+    rounds)``; ``node_of_pod`` is updated in place (the replay owns it).
+
+    A callable ``static`` is a per-batch builder ``(st, pods) -> (raw,
+    ok)`` (or a tile dict) whose result goes to the assigner as its
+    precomputed pair.  With a ``mesh``, ``state`` is the rank's node
+    shard and the step is the SPMD one (:func:`~.assign.
+    assign_parallel_spmd`, :func:`~.state.commit_assignments_shard`);
+    every batch is whole on every rank."""
     batch = cfg.max_pods
+    if mesh is not None:
+        node_zone = concat_shards(mesh, state.node_zone, "tp")
+        rows = state.num_nodes
+        off, n = mesh.tp_index * rows, rows * mesh.tp
 
     def step(carry, i: int, sl: PodStream):
         (used, group_bits, resident_anti, gz_counts, az_anti,
@@ -171,15 +186,33 @@ def _make_step(state: ClusterState, cfg: SchedulerConfig, method: str,
                            resident_anti=resident_anti,
                            gz_counts=gz_counts, az_anti=az_anti)
         pods = batch_from_stream(sl, node_of_pod)
-        if method == "parallel":
-            assignment, rounds = assign_parallel(st, pods, cfg, static,
-                                                 with_stats=True)
-        elif method == "greedy":
-            assignment = assign_greedy(st, pods, cfg, static)
-            rounds = 0
-        else:
+        batch_static = static
+        if callable(static):
+            out = static(st, pods)
+            batch_static = (out if isinstance(out, dict)
+                            else {"raw": out[0], "ok": out[1]})
+        if method not in ("parallel", "greedy"):
             raise ValueError(f"unknown method {method!r}")
-        st = commit_assignments(st, pods, assignment)
+        if mesh is not None:
+            if method == "parallel":
+                assignment, rounds = assign_parallel_spmd(
+                    st, pods, cfg, mesh, batch_static, with_stats=True,
+                    node_zone=node_zone)
+            else:
+                assignment = assign_greedy_spmd(st, pods, cfg, mesh,
+                                                batch_static,
+                                                node_zone=node_zone)
+                rounds = 0
+            st = commit_assignments_shard(st, pods, assignment, off, n,
+                                          node_zone)
+        else:
+            if method == "parallel":
+                assignment, rounds = assign_parallel(
+                    st, pods, cfg, batch_static, with_stats=True)
+            else:
+                assignment = assign_greedy(st, pods, cfg, batch_static)
+                rounds = 0
+            st = commit_assignments(st, pods, assignment)
         node_of_pod[i * batch:(i + 1) * batch] = assignment
         return ((st.used, st.group_bits, st.resident_anti, st.gz_counts,
                  st.az_anti, node_of_pod), assignment, rounds)
@@ -199,17 +232,27 @@ def _initial_carry(state: ClusterState, s_total: int):
 def replay_folded(state: ClusterState, folded: list[PodStream],
                   cfg: SchedulerConfig, method: str = "parallel",
                   static=None, with_stats: bool = False,
-                  batch_hook=None):
+                  batch_hook=None, static_builder=None, mesh=None):
     """Run pre-folded batches through score → assign → commit.  The
     batch-invariant static prep is computed ONCE here unless ``static``
     is given.  ``batch_hook(i, "start" | "end")``, if given, is called
-    around each batch (timing)."""
+    around each batch (timing).
+
+    ``static_builder``, if given, replaces that prep: called once with
+    the state, it returns the static, or a per-batch callable ``(st,
+    pods) -> (raw, static_ok)`` (the row-shard kernel route of
+    ``parallel.sharding.pallas_static_builder``).  With a ``mesh`` the
+    replay is the SPMD one: ``state`` is the rank's node shard, the
+    batches are whole on every rank, every rank calls it (collective),
+    and the final state is the rank's shard."""
     if method not in ("parallel", "greedy"):
         raise ValueError(f"unknown method {method!r}")
     s_total = len(folded) * cfg.max_pods
-    if static is None:
+    if static_builder is not None:
+        static = static_builder(state)
+    elif static is None:
         static = compute_assign_static(state, cfg)
-    step = _make_step(state, cfg, method, static)
+    step = _make_step(state, cfg, method, static, mesh)
     carry = _initial_carry(state, s_total)
     assignments, rounds = [], []
     for i, sl in enumerate(folded):

@@ -36,6 +36,7 @@ from kubernetesnetawarescheduler_tpu_torch.config import (
 from kubernetesnetawarescheduler_tpu_torch.core.state import (
     ClusterState,
     PodBatch,
+    concat_shards,
     exact_matmul,
     host_flag,
     planes_to_words,
@@ -297,9 +298,9 @@ def network_scores(state: ClusterState, pods: PodBatch,
     package: a peer gather (``K * 16 <= N``: ``net[p] = Σ_k traffic[p, k]
     · C.T[node(k)]``, O(P·K·N)) or the dense product ``T @ C.T``.  In bf16
     mode the product takes bf16-rounded inputs and accumulates in f32."""
-    n = state.num_nodes
     if ct is None:
         ct = prep_net_matrix(net_cost_matrix(state, cfg), cfg)
+    n = ct.shape[0]
     k = pods.peers.shape[1]
     if k * 16 <= n:
         valid = (pods.peers >= 0) & pods.pod_valid[:, None]
@@ -394,30 +395,37 @@ def spread_active(pods: PodBatch) -> torch.Tensor:
 def spread_terms(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
                  gz_counts: torch.Tensor | None = None,
                  static_ok: torch.Tensor | None = None,
-                 wvec: torch.Tensor | None = None):
+                 wvec: torch.Tensor | None = None, node_min=None):
     """Zone-level topology-spread penalty and mask, ``(f32[P, N],
     bool[P, N])``: placing on zone ``z`` is allowed iff ``count[z] + 1 -
     min(count) <= maxSkew``; hard constraints mask, soft ones pay
     ``weights.spread`` per unit of excess.  ``static_ok`` scopes the min
     to each pod's eligible domains (``nodeAffinityPolicy: Honor``).
-    Skipped when no pod is spread-active."""
+    Skipped when no pod is spread-active.  ``node_min`` is the node-shard
+    seam of :func:`spread_terms_ungated`."""
     gz = state.gz_counts if gz_counts is None else gz_counts
     n = state.num_nodes
     p = pods.num_pods
     if not host_flag(spread_active(pods).any()):
         return (torch.zeros((p, n), dtype=torch.float32, device=gz.device),
                 torch.ones((p, n), dtype=torch.bool, device=gz.device))
-    return spread_terms_ungated(state, pods, cfg, gz, static_ok, wvec)
+    return spread_terms_ungated(state, pods, cfg, gz, static_ok, wvec,
+                                node_min=node_min)
 
 
 def spread_terms_ungated(state: ClusterState, pods: PodBatch,
                          cfg: SchedulerConfig, gz: torch.Tensor,
                          static_ok: torch.Tensor | None = None,
-                         wvec: torch.Tensor | None = None):
+                         wvec: torch.Tensor | None = None, node_min=None):
     """:func:`spread_terms` without its host gate: with no spread-active
     pod it returns the gate's zero penalty and all-true mask itself.
     With ``static_ok`` given it makes no host sync and no in-place
-    write, so it runs under ``torch.func.vmap`` (the fleet's lanes)."""
+    write, so it runs under ``torch.func.vmap`` (the fleet's lanes).
+
+    On a node shard (a mesh's ``tp`` rows) each pod's minimum count over
+    its eligible domains spans every shard: ``node_min(x)`` takes the
+    shard's per-pod minima ``i32[P]`` to the whole cluster's (a MIN
+    all-reduce over ``tp``, exact).  ``static_ok`` must then be given."""
     g, z = gz.shape
     active = spread_active(pods)
     cpz = gz[pods.group_idx.clamp(0, g - 1).long()]          # [P, Z]
@@ -427,6 +435,8 @@ def spread_terms_ungated(state: ClusterState, pods: PodBatch,
     if static_ok is not None:
         elig = static_ok & has_zone[None, :]
         min_c = torch.where(elig, cnt, big).amin(dim=1)
+        if node_min is not None:
+            min_c = node_min(min_c)
     else:
         nz = torch.where(state.node_valid & has_zone, state.node_zone, z)
         zone_valid = torch.zeros((z + 1,), dtype=torch.bool,
@@ -696,3 +706,118 @@ def explain_scores(state: ClusterState, pods: PodBatch,
         dtype = torch.bool if key in _GATE_KEYS else torch.float32
         out[key] = val.to(dtype).expand(shape).cpu().numpy().copy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Node shards of a mesh (``parallel/sharding.py``).  ``mesh`` is a
+# :class:`~..parallel.sharding.Mesh`: ``gather``/``reduce`` over an axis,
+# and the rank's ``tp_index`` of ``tp``.
+# ---------------------------------------------------------------------------
+
+
+def network_scores_shard(pods: PodBatch, cfg: SchedulerConfig,
+                         ct: torch.Tensor, offset: int,
+                         transposed: bool = False) -> torch.Tensor:
+    """:func:`network_scores` on a node shard: ``ct`` holds the shard's
+    columns of ``C.T`` (``[N, rows]``, the shard's rows of ``C``; the
+    peer axis is whole), ``offset`` the global index of its first node.
+    Returns ``f32[P, rows]`` (``[rows, P]`` transposed), each entry with
+    the bits :func:`network_scores` gives it on one device.
+
+    The peer gather runs at the whole cluster's width: the shard's
+    columns sit in a zero ``[P, K, N]`` block and the shard's columns of
+    the contraction are kept, so the contraction has the single-device
+    shape (cuBLAS picks its kernel by shape) and sums each entry's peers
+    in the same order.  The dense form contracts the peer axis, which
+    every rank holds whole."""
+    n, rows = ct.shape
+    k = pods.peers.shape[1]
+    if k * 16 <= n:
+        valid = (pods.peers >= 0) & pods.pod_valid[:, None]
+        safe = torch.where(valid, pods.peers, 0).long()
+        traffic = torch.where(valid, pods.peer_traffic, 0.0)
+        part = ct[safe].to(torch.float32)                    # [P, K, rows]
+        if rows != n:
+            full = torch.zeros(part.shape[:2] + (n,), dtype=torch.float32,
+                               device=part.device)
+            full[:, :, offset:offset + rows] = part
+            part = full
+        net = torch.einsum("pk,pkn->pn", traffic, part)
+        net = net[:, offset:offset + rows]
+        return net.T if transposed else net
+    t = peer_traffic_matrix(pods, n)
+    if ct.dtype == torch.bfloat16:
+        t = t.to(torch.bfloat16)
+    net = exact_matmul(t.to(torch.float32), ct.to(torch.float32))
+    return net.T if transposed else net
+
+
+def static_tile_inputs_spmd(state: ClusterState, cfg: SchedulerConfig,
+                            mesh):
+    """The sharded batch-invariant inputs: ``(base f32[rows], bw_max,
+    lat_max, node_valid bool[N])``, the shard's rows of the metric vote,
+    the whole cluster's network normalizers and validity, each with the
+    single-device bits.  Collective: every rank of the mesh calls it.
+
+    The metric vote is O(N·M): each rank gathers the metric columns over
+    ``tp`` and votes at the single-device shape (cuBLAS picks its kernel
+    by shape), then keeps its rows.  The normalizers are MAX all-reduces
+    of the shard maxima over ``tp``, exact."""
+    rows = state.num_nodes
+    off = mesh.tp_index * rows
+    valid_all = concat_shards(mesh, state.node_valid, "tp")
+    full = state.replace(
+        metrics=concat_shards(mesh, state.metrics, "tp"),
+        metrics_age=concat_shards(mesh, state.metrics_age, "tp"),
+        node_valid=valid_all)
+    base = metric_scores(full, cfg)[off:off + rows]
+    pair_valid = state.node_valid[:, None] & valid_all[None, :]
+    bw_max = mesh.reduce(torch.where(pair_valid, state.bw, 0.0).amax(),
+                         "max", "tp").clamp_min(_EPS)
+    lat_max = mesh.reduce(torch.where(pair_valid, state.lat, 0.0).amax(),
+                          "max", "tp").clamp_min(_EPS)
+    return base, bw_max, lat_max, valid_all
+
+
+def static_node_scores_spmd(state: ClusterState, cfg: SchedulerConfig,
+                            mesh):
+    """:func:`static_node_scores` on a node shard: ``(base f32[rows],
+    ct [N, rows])``, the shard's entries of the single-device pair, bit
+    for bit (:func:`static_tile_inputs_spmd`).  ``C`` is formed only for
+    the shard's rows (full peer columns), so no rank holds an N×N
+    plane.  Collective."""
+    base, bw_max, lat_max, valid_all = static_tile_inputs_spmd(state, cfg,
+                                                               mesh)
+    rows = state.num_nodes
+    off = mesh.tp_index * rows
+    pair_valid = state.node_valid[:, None] & valid_all[None, :]
+    w = cfg.weights
+    c = w.peer_bw * state.bw / bw_max - w.peer_lat * state.lat / lat_max
+    ids = off + torch.arange(rows, device=c.device)
+    cols = torch.arange(valid_all.shape[0], device=c.device)
+    c = torch.where(ids[:, None] == cols[None, :],
+                    float(np.float32(w.peer_bw)), c)
+    c = torch.where(pair_valid, c, 0.0)
+    return base, prep_net_matrix(c, cfg)
+
+
+def score_pods_spmd(state: ClusterState, pods: PodBatch,
+                    cfg: SchedulerConfig, static, mesh) -> torch.Tensor:
+    """:func:`score_pods` on a node shard: the masked score columns
+    ``f32[P, rows]`` of the shard's nodes for the whole batch, with
+    ``static`` the shard's :func:`static_node_scores_spmd` pair.  The
+    spread gate reads the batch, which every rank holds whole, so every
+    rank takes it alike and joins the MIN all-reduce of the eligible
+    minima.  Collective."""
+    base, ct = static
+    off = mesh.tp_index * state.num_nodes
+    net = network_scores_shard(pods, cfg, ct, off)
+    soft = soft_affinity_scores(state, pods, cfg)
+    bal = _balance_weight(cfg, None) * balance_penalty(state, pods)
+    sok = static_feasibility(state, pods)
+    spread_pen, spread_ok = spread_terms(
+        state, pods, cfg, static_ok=sok,
+        node_min=lambda x: mesh.reduce(x, "min", "tp"))
+    raw = base[None, :] + net + soft - bal - spread_pen
+    ok = feasibility_mask(state, pods, static_ok=sok) & spread_ok
+    return torch.where(ok, raw, NEG_INF)

@@ -510,3 +510,97 @@ def set_tree_row(tree, k: int, row):
 
     tree_map(put, tree, row)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Mesh shards: a rank's rows of the node axis (tp) or the pod axis (dp).
+# ---------------------------------------------------------------------------
+
+# ClusterState leaves replicated on every rank of a mesh: the small zone
+# planes, which every assign round reads at arbitrary rows.  Every other
+# leaf splits its node axis (axis 0) over ``tp``.
+REPLICATED_STATE_FIELDS = ("gz_counts", "az_anti")
+
+
+def shard_rows(x: torch.Tensor, index: int, count: int) -> torch.Tensor:
+    """Rows ``[index * s, (index + 1) * s)`` of ``x`` (``s = rows /
+    count``), a view.  The axis must divide evenly."""
+    rows = x.shape[0]
+    if rows % count != 0:
+        raise ValueError(f"axis of {rows} rows does not split into "
+                         f"{count} equal shards")
+    s = rows // count
+    return x[index * s:(index + 1) * s]
+
+
+def shard_pods(pods, dp_index: int, dp: int):
+    """Pod shard ``dp_index`` of ``dp`` of a :class:`PodBatch` (or any
+    tensor dataclass whose leaves lead with the pod axis).  Views."""
+    return tree_map(lambda x: shard_rows(x, dp_index, dp), pods)
+
+
+def concat_shards(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Every rank's ``x`` over a mesh axis (``mesh.gather``), concatenated
+    along dim 0 in the axis's index order: the whole leaf from its
+    shards."""
+    g = mesh.gather(x, axis)
+    return g.reshape((g.shape[0] * g.shape[1],) + tuple(g.shape[2:]))
+
+
+def local_rows(nodes: torch.Tensor, offset: int, rows: int) -> torch.Tensor:
+    """Global node indices → a shard's local row indices: ``nodes -
+    offset`` where the node lies in ``[offset, offset + rows)``, else
+    ``rows`` (the drop sentinel of the row writes)."""
+    local = nodes - offset
+    inside = (local >= 0) & (local < rows)
+    return torch.where(inside, local, rows)
+
+
+def scatter_add_rows_shard(base: torch.Tensor, idx: torch.Tensor,
+                           vals: torch.Tensor, mask: torch.Tensor,
+                           offset: int, num_nodes: int) -> torch.Tensor:
+    """:func:`scatter_add_rows` onto a node shard (``base`` holds global
+    rows ``[offset, offset + rows)`` of ``num_nodes``; ``idx`` global).
+
+    The one-hot product runs at the whole cluster's shape, ``[N, P] x
+    [P, R]``, and the shard's rows of it are added: a product of the
+    shard's shape may sum three or more pods on one node in another
+    order (cuBLAS picks its kernel by shape), and ``used`` must keep the
+    single-device bits."""
+    onehot = mask[:, None] & (
+        idx[:, None] == torch.arange(num_nodes, device=idx.device)[None, :])
+    add = torch.where(mask[:, None], vals, torch.zeros_like(vals))
+    prod = exact_matmul(onehot.to(torch.float32).T, add)
+    return base + prod[offset:offset + base.shape[0]]
+
+
+def commit_assignments_shard(state: ClusterState, pods: PodBatch,
+                             assignment: torch.Tensor, offset: int,
+                             num_nodes: int,
+                             node_zone: torch.Tensor) -> ClusterState:
+    """:func:`commit_assignments` on a node shard: ``state`` holds global
+    node rows ``[offset, offset + rows)`` of ``num_nodes`` and the whole
+    zone planes; ``pods`` and ``assignment`` are the whole batch (every
+    rank of a mesh has them) and ``node_zone`` is the whole cluster's
+    ``i32[N]``.  The shard's rows and the zone planes come out with the
+    bits :func:`commit_assignments` gives them on one device."""
+    rows = state.num_nodes
+    placed = (assignment >= 0) & pods.pod_valid
+    used = scatter_add_rows_shard(state.used, assignment, pods.req, placed,
+                                  offset, num_nodes)
+    ids = offset + torch.arange(rows, device=assignment.device)
+    onehot = placed[:, None] & (assignment[:, None] == ids[None, :])
+    zone_of = node_zone[assignment.clamp(0, num_nodes - 1).long()]
+    z = state.az_anti.shape[0]
+    zhot = (placed & (zone_of >= 0))[:, None] & (
+        zone_of.clamp(0, z - 1)[:, None]
+        == torch.arange(z, device=zone_of.device)[None, :])
+    return state.replace(
+        used=used,
+        group_bits=state.group_bits | scatter_or_onehot(onehot,
+                                                        pods.group_bit),
+        resident_anti=state.resident_anti | scatter_or_onehot(
+            onehot, pods.anti_bits),
+        gz_counts=add_zone_counts(state.gz_counts, node_zone,
+                                  pods.group_bit, assignment, placed),
+        az_anti=state.az_anti | scatter_or_onehot(zhot, pods.zanti_bits))

@@ -28,9 +28,14 @@ What differs from the JAX daemon:
 - ``--jax-profile-dir`` (its name kept so deploy command lines carry
   over) wraps the run in ``torch.profiler`` and writes a Chrome trace
   there; every device step carries the flight recorder's cycle id.
-- Flags of layers not ported yet (the mesh and multi-host serving)
-  make the daemon exit with code 2 and one line naming the layer's
-  ROADMAP item, before anything starts.
+- ``--mesh`` alone serves on a 1×1 mesh on the daemon's card: torch
+  drives one device per process, so the daemon builds a one-rank process
+  group itself.  Larger meshes come through ``--multihost``, one process
+  per rank (``--coordinator host:port --num-processes R --process-id
+  r``, or torchrun's environment): rank 0 runs the control plane and
+  every other rank follows (``parallel/serve_multihost.py``).  The
+  collectives run on NCCL when this host has a card for each of its
+  ranks, else on gloo (``parallel/multihost.default_backend``).
 - ``--policy-eval-trace`` hands the promotion gate its trace; the
   gate's replays run on the daemon's device.
 - The audit thread and the state-chaos thread end on a fault of the
@@ -54,27 +59,6 @@ from kubernetesnetawarescheduler_tpu_torch.config import (
     load_config,
 )
 
-# CLI flags of layers this package does not have yet, with the ROADMAP
-# item each needs.
-_UNPORTED_FLAGS = (
-    ("mesh", "--mesh", "parallel/sharding.py", 15),
-    ("multihost", "--multihost", "parallel/multihost.py", 15),
-    ("coordinator", "--coordinator", "parallel/multihost.py", 15),
-    ("num_processes", "--num-processes", "parallel/multihost.py", 15),
-    ("process_id", "--process-id", "parallel/multihost.py", 15),
-)
-
-
-def _unported(ap: argparse.ArgumentParser, args) -> str | None:
-    """The refusal line for the first unported layer switched on by a
-    flag (any value but its default), or None."""
-    for attr, flag, needs, item in _UNPORTED_FLAGS:
-        if getattr(args, attr) != ap.get_default(attr):
-            return (f"{flag} needs {needs} (ROADMAP Queue A item {item}), "
-                    "which is not ported yet")
-    return None
-
-
 def _agent_reachable(host: str, port: int, timeout_s: float = 3.0) -> bool:
     """One /healthz round-trip to a probe agent."""
     import urllib.request
@@ -94,7 +78,7 @@ def _agent_reachable(host: str, port: int, timeout_s: float = 3.0) -> bool:
 
 def build_fake(num_nodes: int, seed: int, cfg: SchedulerConfig,
                async_bind: bool = False, burst_batches: int = 8,
-               pipelined: bool = False, device="cuda"):
+               pipelined: bool = False, device="cuda", mesh=None):
     import numpy as np
 
     from kubernetesnetawarescheduler_tpu_torch.bench.fakecluster import (
@@ -108,7 +92,7 @@ def build_fake(num_nodes: int, seed: int, cfg: SchedulerConfig,
         ClusterSpec(num_nodes=num_nodes, seed=seed))
     loop = SchedulerLoop(cluster, cfg, async_bind=async_bind,
                          burst_batches=burst_batches, pipelined=pipelined,
-                         device=device)
+                         device=device, mesh=mesh)
     loop.encoder.set_network(lat, bw)
     feed_metrics(cluster, loop.encoder, np.random.default_rng(seed + 1))
     return loop, lat, bw
@@ -261,18 +245,58 @@ def _parser() -> argparse.ArgumentParser:
                          "counterfactually; without one the gate "
                          "refuses every promotion and the policy "
                          "stays shadow-only")
-    # Layers not ported yet: accepted so deploy command lines parse, and
-    # refused with their ROADMAP item (see _UNPORTED_FLAGS).
-    for flag in ("--mesh", "--multihost"):
-        ap.add_argument(flag, action="store_true",
-                        help="not ported yet; refused")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve the watch loop's score + assign, the "
+                         "webhook's score and the backlog burst on a "
+                         "(dp, tp) mesh; alone, a 1x1 mesh on this "
+                         "process's card (torch drives one device per "
+                         "process: larger meshes take --multihost)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group before device use, one "
+                         "process per rank; implies --mesh.  Serving is "
+                         "single-CONTROLLER: rank 0 runs the control "
+                         "plane and broadcasts each cycle to the other "
+                         "ranks, which join the sharded assign as "
+                         "followers (parallel/serve_multihost.py).  "
+                         "Bootstrap failures are fatal")
     ap.add_argument("--coordinator", default="",
-                    help="not ported yet; refused")
+                    help="host:port of rank 0's TCP store for "
+                         "--multihost (empty = torchrun's environment); "
+                         "needs --num-processes and --process-id")
     ap.add_argument("--num-processes", type=int, default=None,
-                    help="not ported yet; refused")
+                    help="total rank count for --multihost")
     ap.add_argument("--process-id", type=int, default=None,
-                    help="not ported yet; refused")
+                    help="this process's rank for --multihost")
     return ap
+
+
+def _join_mesh(args, device):
+    """``(mesh, owned)``: the process group joined (``--multihost``) or
+    made as one rank (``--mesh`` alone, unless a group exists), and the
+    global mesh over it; ``owned`` says this call created the group."""
+    import torch.distributed as dist
+
+    from kubernetesnetawarescheduler_tpu_torch.parallel.multihost import (
+        default_backend,
+        global_mesh,
+        init_multihost,
+    )
+
+    backend = default_backend(device)
+    owned = not dist.is_initialized()
+    if args.multihost:
+        init_multihost(coordinator_address=args.coordinator or None,
+                       num_processes=args.num_processes,
+                       process_id=args.process_id, backend=backend)
+    elif owned:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        return global_mesh(device=device), owned
+    except BaseException:
+        if owned:
+            dist.destroy_process_group()
+        raise
 
 
 def main(argv=None, stop: threading.Event | None = None) -> int:
@@ -300,17 +324,48 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
         over["enable_learned_score"] = True
     if over:
         cfg = dataclasses.replace(cfg, **over)
-    refusal = _unported(ap, args)
-    if refusal is not None:
-        print(f"refusing to start: {refusal}", file=sys.stderr)
-        return 2
-
-    from kubernetesnetawarescheduler_tpu_torch.core import kernels
     from kubernetesnetawarescheduler_tpu_torch.core.state import (
         resolve_device,
     )
 
     device = resolve_device(args.device)
+    mesh = None
+    owned_group = False
+    if args.mesh or args.multihost:
+        import torch.distributed as dist
+
+        mesh, owned_group = _join_mesh(args, args.device)
+        if mesh.rank != 0:
+            # Serving stays single-controller: one informer, queue,
+            # encoder and binder, on rank 0.  Every other rank joins the
+            # sharded assign of each cycle as a follower.
+            from kubernetesnetawarescheduler_tpu_torch.parallel import (
+                serve_multihost,
+            )
+
+            print(f"multihost follower {mesh.rank}/{mesh.size} joining "
+                  "the mesh", file=sys.stderr)
+            try:
+                steps = serve_multihost.run_follower(cfg, mesh)
+            finally:
+                if owned_group:
+                    dist.destroy_process_group()
+            print(f"multihost follower exiting after {steps} steps",
+                  file=sys.stderr)
+            return 0
+        try:
+            return _serve(ap, args, cfg, device, mesh, stop)
+        finally:
+            if owned_group:
+                dist.destroy_process_group()
+    return _serve(ap, args, cfg, device, mesh, stop)
+
+
+def _serve(ap, args, cfg: SchedulerConfig, device, mesh,
+           stop: threading.Event | None) -> int:
+    """The daemon proper (rank 0 of a mesh, or the only process)."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels
+
     if cfg.multicycle > 1:
         print(f"multi-cycle serving enabled: K={cfg.multicycle}, "
               f"device queue depth {cfg.multicycle_queue_depth}, "
@@ -354,7 +409,7 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
         loop, lat_truth, bw_truth = build_fake(
             int(param or "128"), args.seed, cfg,
             async_bind=args.async_bind, burst_batches=args.burst_batches,
-            pipelined=args.pipeline, device=device)
+            pipelined=args.pipeline, device=device, mesh=mesh)
     elif kind in ("incluster", "kube"):
         from kubernetesnetawarescheduler_tpu_torch.core.loop import (
             SchedulerLoop,
@@ -370,7 +425,8 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
         # recovers pods already pending at startup.
         loop = SchedulerLoop(client, cfg, async_bind=args.async_bind,
                              burst_batches=args.burst_batches,
-                             pipelined=args.pipeline, device=device)
+                             pipelined=args.pipeline, device=device,
+                             mesh=mesh)
         loop.informer.resync()
     else:
         ap.error(f"unknown cluster kind {kind!r} "
@@ -696,6 +752,18 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
     if auditor is not None:
         auditor.start()
 
+    # A multi-rank mesh: rank 0 is the one controller; its assign
+    # broadcasts each cycle so the followers join every sharded step.
+    multihost_ctl = None
+    if mesh is not None and mesh.size > 1:
+        from kubernetesnetawarescheduler_tpu_torch.parallel import (
+            serve_multihost,
+        )
+
+        multihost_ctl = serve_multihost.install_controller(loop, cfg, mesh)
+        print(f"multihost controller driving {mesh.size} processes",
+              file=sys.stderr)
+
     # Main serving loop: drain any informer-fed queue work; extender-
     # path requests are served by the UDS/gRPC threads directly.  Every
     # ~60s: resync pending pods and reconcile the usage ledger.
@@ -799,6 +867,9 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
             close()
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
+        if multihost_ctl is not None:
+            # Release the followers blocked in their header broadcast.
+            multihost_ctl.stop()
     if thread_errors:
         raise thread_errors[0]
     return 0

@@ -401,6 +401,51 @@ def test_row_shard_with_offset_on_card(cuda):
     assert torch.allclose(raw, raw_full[:, lo:hi], rtol=1e-5, atol=1e-5)
 
 
+def _row_shard(pack, groups, tp_index: int, tp: int):
+    """The static kernel's inputs for node shard ``tp_index`` of ``tp``,
+    as ``parallel.sharding.pallas_static_builder`` forms them: the
+    shard's rows of every node plane, full peer columns, ``params[7]``
+    its global row offset."""
+    rows = pack.bw.shape[0] // tp
+    lo, hi = tp_index * rows, (tp_index + 1) * rows
+    params = pack.params.clone()
+    params[7] = float(lo)
+    shard = dataclasses.replace(
+        pack, params=params, bw=pack.bw[lo:hi].contiguous(),
+        lat=pack.lat[lo:hi].contiguous(), base=pack.base[lo:hi].contiguous(),
+        node_valid=pack.node_valid[lo:hi].contiguous(),
+        taint=pack.taint[lo:hi].contiguous(),
+        label=pack.label[lo:hi].contiguous())
+    return shard, groups[lo:hi].contiguous(), slice(lo, hi)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_tp_row_shard_launch_matches_plain_and_solo_columns(cuda, tp, bf16):
+    """Each tp rank's launch (its ``[N/tp, N]`` rows, its offset) against
+    its plain version (mask identical, raw within 1e-4) and against the
+    matching columns of the solo launch, bit for bit: the per-entry peer
+    walk does not depend on the output rows."""
+    _, state, pack, pods = _inputs(cuda, nodes=500, max_nodes=512, pods=64,
+                                   seed=4)
+    raw_solo, ok_solo = kernels.static_tile_scores(pack, state.group_bits,
+                                                   pods, bf16,
+                                                   transposed=True)
+    for t in range(tp):
+        shard, groups, cols = _row_shard(pack, state.group_bits, t, tp)
+        raw, ok = kernels.static_tile_scores(shard, groups, pods, bf16,
+                                             transposed=True)
+        raw_p, ok_p = kernels.static_tile_scores_plain(shard, groups, pods,
+                                                       bf16)
+        torch.cuda.synchronize()
+        assert torch.equal(ok.T, ok_p)
+        assert torch.allclose(raw.T[ok_p], raw_p[ok_p], rtol=1e-4,
+                              atol=1e-4)
+        assert torch.equal(raw.view(torch.int32),
+                           raw_solo[cols].contiguous().view(torch.int32))
+        assert torch.equal(ok, ok_solo[cols])
+
+
 def test_wrapper_rejects_bad_inputs_and_counts_launches(cuda):
     _, state, pack, pods = _inputs(cuda, seed=3)
     kernels.reset_launch_counts()

@@ -75,6 +75,9 @@ _MODULES = {
     "bench.native_load",
     # Fleet-of-clusters serving.
     "fleet", "fleet.batch", "fleet.server", "fleet.transfer",
+    # Mesh-sharded scheduling and multi-process serving.
+    "parallel", "parallel.sharding", "parallel.multihost",
+    "parallel.serve_multihost", "bench.mesh_replay",
 }
 
 

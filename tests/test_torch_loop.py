@@ -9,9 +9,10 @@ at rtol=atol=1e-6 (co-located pods add into ``used`` through a one-hot
 product in the port, a scatter in JAX).  The shapes are the JAX tests':
 ``tests/test_burst.py`` (48 nodes, ``max_nodes=64``, ``max_pods=16``, 96
 pods, seeds 51-53), ``tests/test_pipeline.py`` and
-``tests/test_multicycle.py`` (K=2).  Also: the loop refuses unported
-layers at construction and builds the rebalancer when asked,
-``run_density(mode="host")`` places what the JAX run places, and the
+``tests/test_multicycle.py`` (K=2).  Also: the loop builds its learning
+layers and the rebalancer when asked, binds on a one-rank mesh as it does
+without one, ``run_density(mode="host")`` places what the JAX run places
+(and ``mode="device"`` on a mesh what it places without one), and the
 queue, histogram and flight recorder units behave alike.
 """
 
@@ -174,27 +175,63 @@ def test_pallas_backend_serial_drive_matches_jax():
     np.testing.assert_allclose(_used(tl), _used(jl), rtol=1e-6, atol=1e-6)
 
 
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A 1x1 mesh over a one-rank gloo group of this process, torn down
+    after the test."""
+    import torch.distributed as dist
+
+    from kubernetesnetawarescheduler_tpu_torch.parallel.sharding import (
+        make_mesh,
+    )
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_loop_binds_as_the_plain_loop(one_rank_mesh):
+    """A loop built on a mesh serves through the mesh's sharded callables
+    (the per-batch assign, and the sharded replay for a backlog burst)
+    and binds what the plain loop binds."""
+    out = {}
+    for label, mesh, bb in (("plain", None, 1), ("mesh", one_rank_mesh, 1),
+                            ("burst", one_rank_mesh, 4)):
+        cluster, lat, bw = tfc.build_fake_cluster(
+            tfc.ClusterSpec(num_nodes=24, seed=5))
+        loop = tloop.SchedulerLoop(
+            cluster, TCfg(max_nodes=32, max_pods=8, max_peers=4,
+                          queue_capacity=128, use_bfloat16=False),
+            mesh=mesh, burst_batches=bb, device="cpu")
+        try:
+            assert (loop.sharded_score is None) == (mesh is None)
+            loop.encoder.set_network(lat, bw)
+            tfc.feed_metrics(cluster, loop.encoder,
+                             np.random.default_rng(6))
+            cluster.add_pods(tfc.generate_workload(
+                tfc.WorkloadSpec(num_pods=32, seed=7),
+                scheduler_name=loop.cfg.scheduler_name))
+            loop.run_until_drained()
+            out[label] = ({b.pod_name: b.node_name
+                           for b in cluster.bindings}, loop.burst_cycles)
+        finally:
+            loop.stop_bind_worker()
+    assert out["mesh"][0] == out["plain"][0] == out["burst"][0]
+    assert out["plain"][0] and out["burst"][1] > 0 and out["mesh"][1] == 0
+
+
 @pytest.mark.parametrize("flag", ["enable_quality_obs", "enable_slo",
-                                  "enable_learned_score", "enable_netmodel",
-                                  "mesh"])
+                                  "enable_learned_score", "enable_netmodel"])
 def test_unported_layer_refused_at_construction(flag):
-    """The mesh (ROADMAP item 15) is refused when the loop is built.  The
-    learning layers (item 12) are built with the loop, and the promotion
-    gate's replay trace (item 14) is stored when it is set."""
+    """The learning layers (item 12) are built with the loop, and the
+    promotion gate's replay trace (item 14) is stored when it is set."""
     cfg_kw = dict(max_nodes=8, max_pods=4, max_peers=2)
-    loop_kw = {}
-    if flag == "mesh":
-        loop_kw["mesh"] = object()
-    else:
-        cfg_kw[flag] = True
+    cfg_kw[flag] = True
     cluster = tfc.build_fake_cluster(tfc.ClusterSpec(num_nodes=4,
                                                      seed=1))[0]
-    if flag == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 15"):
-            tloop.SchedulerLoop(cluster, TCfg(**cfg_kw), device="cpu",
-                                **loop_kw)
-        return
     loop = tloop.SchedulerLoop(cluster, TCfg(**cfg_kw), device="cpu")
     try:
         layer = {"enable_quality_obs": loop.quality,
@@ -248,7 +285,7 @@ def test_loop_builds_on_cuda_by_default():
         tloop.SchedulerLoop(cluster, cfg)
 
 
-def test_run_density_host_matches_jax():
+def test_run_density_host_matches_jax(one_rank_mesh):
     kw = dict(num_nodes=48, num_pods=96, batch_size=16, seed=4,
               warmup=False, churn_links=2)
     want = jdensity.run_density(**kw)
@@ -258,11 +295,17 @@ def test_run_density_host_matches_jax():
         assert getattr(got, field) == getattr(want, field), field
     assert got.pods_per_sec > 0 and got.rounds_max >= 1
     assert got.trace_provenance["spans"] > 0
-    # The device modes run (tests/test_torch_replay_feed.py); a mesh is
-    # still refused, naming its ROADMAP item.
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 15"):
-        tdensity.run_density(num_nodes=8, num_pods=8, batch_size=4,
-                             mode="device", mesh=object(), device="cpu")
+    # The device modes run (tests/test_torch_replay_feed.py); on a mesh
+    # the device drain is the sharded replay, and the chunked drain,
+    # which has no mesh variant, is refused as in JAX.
+    small = dict(num_nodes=8, num_pods=8, batch_size=4, warmup=False)
+    solo = tdensity.run_density(mode="device", device="cpu", **small)
+    on_mesh = tdensity.run_density(mode="device", mesh=one_rank_mesh,
+                                   device="cpu", **small)
+    assert on_mesh.pods_bound == solo.pods_bound > 0
+    with pytest.raises(ValueError, match="no pipelined drain"):
+        tdensity.run_density(mode="pipeline", mesh=one_rank_mesh,
+                             device="cpu", **small)
 
 
 # -- units: the same operations give the same outputs --------------------

@@ -2,7 +2,8 @@
 ``tests/test_serve.py``: ``--once`` with checkpoint save and restore, a
 checkpoint of another cluster ignored, the UDS server answering while the
 daemon runs, a ``kube:<url>`` drive against the port's fake API server,
-each flag of an unported layer refused with its ROADMAP item, the
+``--mesh`` binding as the plain daemon and each failing ``--multihost``
+bootstrap propagating its error, the
 learning layers' flags and config fields starting their layers, the
 robustness flags starting the auditor, the state-fault injector and the
 rebalancer, their ``/metrics`` families equal to the JAX package's
@@ -130,22 +131,47 @@ def test_kube_apiserver_drive_binds_the_pending_pod(tmp_path):
         api.stop()
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--mesh"], 15),
-    (["--multihost"], 15), (["--coordinator", "h:1"], 15),
-    (["--num-processes", "2"], 15), (["--process-id", "0"], 15),
+def _bindings(api):
+    return sorted((b["body"]["metadata"]["name"], b["body"]["target"]["name"])
+                  for b in api.bindings)
+
+
+@pytest.mark.parametrize("extra,error", [
+    (["--mesh"], None),
+    (["--multihost"], "env:// rendezvous"),
+    (["--multihost", "--coordinator", "127.0.0.1"], "host:port"),
+    (["--multihost", "--coordinator", "127.0.0.1:1",
+      "--num-processes", "2"], "process_id"),
+    (["--multihost", "--coordinator", "127.0.0.1:1",
+      "--num-processes", "2", "--process-id", "2"], "not a rank"),
 ])
-def test_unported_layer_is_refused_before_anything_starts(tmp_path, capsys,
-                                                          extra, item):
-    if isinstance(extra, dict):
-        cfgp = tmp_path / "cfg.json"
-        cfgp.write_text(json.dumps(extra))
-        extra = ["--config", str(cfgp)]
-    assert serve.main(_argv(tmp_path, *extra, "--once")) == 2
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1
-    assert f"ROADMAP Queue A item {item}" in err[0]
-    assert not os.path.exists(tmp_path / "scorer.sock")
+def test_mesh_flags_serve_or_fail_their_bootstrap(tmp_path, monkeypatch,
+                                                  extra, error):
+    """``--mesh --once`` serves on a one-rank mesh and binds as the plain
+    daemon does; a ``--multihost`` bootstrap that cannot form its process
+    group fails the daemon with the bootstrap's own error, before
+    anything starts, and leaves no process group behind."""
+    import torch.distributed as dist
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            serve.main(_argv(tmp_path, *extra, "--once"))
+        assert not os.path.exists(tmp_path / "scorer.sock")
+        assert not dist.is_initialized()
+        return
+    got = {}
+    for label, flags in (("plain", []), ("mesh", extra)):
+        api = FakeApiServer()
+        try:
+            assert serve.main(_argv(tmp_path, "--kube-token", "t", "--once",
+                                    *flags, cluster=f"kube:{api.url}")) == 0
+            got[label] = _bindings(api)
+        finally:
+            api.stop()
+    assert got["mesh"] == got["plain"] and got["plain"]
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("extra,families", [
