@@ -407,6 +407,10 @@ class SchedulerConfig:
     enable_explain: bool = False
     explain_top_k: int = 5
     explain_retain: int = 512
+    # Per-pod timelines the flight recorder keeps (enqueued, popped,
+    # bind acknowledged; 0 keeps none): 16384 holds a minute of pods at
+    # 250 pods/s, or eight bursts of 8 batches of 256.
+    flight_pod_records: int = 16384
 
     # State integrity & self-healing (core/integrity.py): anti-entropy
     # audit period in seconds (0 disables the background auditor; the
@@ -618,6 +622,8 @@ class SchedulerConfig:
             raise ValueError("static_max_versions_behind must be >= 1")
         if self.flight_recorder_size < 0:
             raise ValueError("flight_recorder_size must be >= 0")
+        if self.flight_pod_records < 0:
+            raise ValueError("flight_pod_records must be >= 0")
         if self.explain_top_k < 1:
             raise ValueError("explain_top_k must be >= 1")
         if self.explain_retain < 1:

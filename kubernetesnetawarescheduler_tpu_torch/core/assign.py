@@ -54,6 +54,7 @@ from kubernetesnetawarescheduler_tpu_torch.core.state import (
     scatter_or_onehot,
     shard_pods,
 )
+from kubernetesnetawarescheduler_tpu_torch.utils.tracing import span
 
 UNASSIGNED = -1
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -267,7 +268,30 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
     winners' node rows each round; zone-scoped terms are re-derived per
     round as an overlay.  ``with_stats=True`` also returns the number of
     conflict rounds executed (a Python int; each round costs one host
-    sync for its continue test)."""
+    sync for its continue test).
+
+    Spans (:func:`~..utils.tracing.span`): ``assign.static`` over the
+    set-up up to the first continue test, ``assign.round`` over each
+    round with its continue test."""
+    with span("assign.static"):
+        body, carry, go = _parallel_setup(state, pods, cfg, static)
+    rounds = 0
+    while go:
+        with span("assign.round"):
+            *carry, cont = body(*carry)
+            go = host_flag(cont, "assign.continue")
+        rounds += 1
+    assignment = torch.where(pods.pod_valid, carry[6], UNASSIGNED)
+    if with_stats:
+        return assignment, rounds
+    return assignment
+
+
+def _parallel_setup(state: ClusterState, pods: PodBatch,
+                    cfg: SchedulerConfig, static=None):
+    """:func:`assign_parallel`'s set-up: the static parts, the round
+    ``body``, the first carry and whether a first round runs (the first
+    continue test, one host sync)."""
     p = pods.num_pods
     n = state.num_nodes
     if (n + 1) * p > _INT32_MAX:
@@ -332,7 +356,7 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
     zone_work = host_flag(
         score_lib.spread_active(pods).any()
         | (pods.zaff_bits != 0).any() | (pods.zanti_bits != 0).any()
-        | (state.az_anti != 0).any())
+        | (state.az_anti != 0).any(), "assign.zone_work")
     static_ok_pn = static_okT.T if zone_work else None
 
     def overlay(sT, gz, az):
@@ -488,7 +512,8 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
         # re-propose their best UNTOUCHED node in the same round, only
         # where it beats their best re-priced pass-A alternative.  Off
         # under zone work (pass A may move zone state).
-        if not zone_work and host_flag((~winner & feasible).any()):
+        if not zone_work and host_flag((~winner & feasible).any(),
+                                       "assign.second_chance"):
             va_new = sub_a.amax(dim=0)
             s_b = _set_rows(sT, wnodes_a, torch.full_like(sub_a, NEG_INF))
             alive_b = alive & ~winner
@@ -530,15 +555,8 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
                            state.resident_anti, assignment),
              state.used, state.group_bits, state.resident_anti,
              state.gz_counts, state.az_anti, assignment)
-    cont = (carry[0] > NEG_HALF).any()
-    rounds = 0
-    while host_flag(cont):
-        *carry, cont = body(*carry)
-        rounds += 1
-    assignment = torch.where(pods.pod_valid, carry[6], UNASSIGNED)
-    if with_stats:
-        return assignment, rounds
-    return assignment
+    return body, carry, host_flag((carry[0] > NEG_HALF).any(),
+                                  "assign.continue")
 
 
 # ---------------------------------------------------------------------------
@@ -861,10 +879,10 @@ def assign_parallel_lanes(states: ClusterState, pods: PodBatch,
     c = {"st": _tree_fields(states), "pd": _tree_fields(pods),
          "rawT": rawT, "okT": static_okT}
     c.update(vmap(consts)(c))
-    zone_any = host_flag(c["zwork"].any())
+    zone_any = host_flag(c["zwork"].any(), "lanes.zone_work")
     carry, cont = vmap(init)(c)
     rounds = torch.zeros((k_lanes,), dtype=torch.int32, device=dev)
-    while host_flag(cont.any()):
+    while host_flag(cont.any(), "lanes.continue"):
         choice, feasible, winner, alive = vmap(
             round_a, in_dims=(0, 0, None))(c, carry, zone_any)
         used_a = _lane_scatter_add(carry[1], choice, pods.req, winner)
@@ -1039,7 +1057,7 @@ def assign_parallel_spmd(state: ClusterState, pods: PodBatch,
     zone_work = mesh.flag(
         score_lib.spread_active(pods).any()
         | (pods.zaff_bits != 0).any() | (pods.zanti_bits != 0).any()
-        | (state.az_anti != 0).any())
+        | (state.az_anti != 0).any(), "zone_work")
     static_ok_pn = static_okT.T if zone_work else None
 
     def node_min(x):
@@ -1180,7 +1198,8 @@ def assign_parallel_spmd(state: ClusterState, pods: PodBatch,
         s_patched, sub_a = row_patch(sT, wnodes_a, used_a, group_a, anti_a,
                                      local(assignment_a))
 
-        if not zone_work and mesh.flag((~winner & feasible).any()):
+        if not zone_work and mesh.flag((~winner & feasible).any(),
+                                       "second_chance"):
             s_b = _set_rows(sT, local_rows(wnodes_a, off, ns),
                             torch.full_like(sub_a, NEG_INF))
             alive_b = alive & ~winner
@@ -1226,7 +1245,7 @@ def assign_parallel_spmd(state: ClusterState, pods: PodBatch,
              state.gz_counts, state.az_anti, assignment)
     cont = (carry[0] > NEG_HALF).any()
     rounds = 0
-    while mesh.flag(cont):
+    while mesh.flag(cont, "continue"):
         *carry, cont = body(*carry)
         rounds += 1
     assignment = torch.where(pods.pod_valid, carry[6], UNASSIGNED)

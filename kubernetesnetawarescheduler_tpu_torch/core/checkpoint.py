@@ -257,6 +257,12 @@ def read_state_arrays(path: str) -> "dict[str, np.ndarray]":
 # ---------------------------------------------------------------------------
 
 
+# Settings the port alone has, none of which shapes checkpointed state:
+# left out of the stored config, so the JAX package loads the port's
+# checkpoints (a restore without them takes their defaults).
+_PORT_ONLY_CONFIG = ("flight_pod_records",)
+
+
 def save_checkpoint(path: str, encoder: Encoder,
                     policy=None,
                     extra_meta: dict | None = None) -> None:
@@ -295,7 +301,8 @@ def save_checkpoint(path: str, encoder: Encoder,
                   for name in _STATE_ARRAYS}
         meta = {
             "format_version": FORMAT_VERSION,
-            "config": config_to_dict(encoder.cfg),
+            "config": {k: v for k, v in config_to_dict(encoder.cfg).items()
+                       if k not in _PORT_ONLY_CONFIG},
             "node_names": list(encoder._node_names),
             # Raw label sets per node index (lazy interning: the bit
             # arrays only carry selector-referenced labels; the raw

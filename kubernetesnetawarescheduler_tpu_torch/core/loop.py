@@ -48,7 +48,6 @@ cycle.
 
 from __future__ import annotations
 
-import contextlib
 import threading
 import time
 from typing import Sequence
@@ -69,7 +68,10 @@ from kubernetesnetawarescheduler_tpu_torch.core.gang import (
     place_gang,
     place_gang_shaped,
 )
-from kubernetesnetawarescheduler_tpu_torch.core.state import is_device_error
+from kubernetesnetawarescheduler_tpu_torch.core.state import (
+    host_sync,
+    is_device_error,
+)
 from kubernetesnetawarescheduler_tpu_torch.k8s.client import ClusterClient
 from kubernetesnetawarescheduler_tpu_torch.k8s.informer import Informer, PodQueue
 from kubernetesnetawarescheduler_tpu_torch.k8s.types import (
@@ -79,6 +81,7 @@ from kubernetesnetawarescheduler_tpu_torch.k8s.types import (
     failed_event,
     scheduled_event,
 )
+from kubernetesnetawarescheduler_tpu_torch.utils import tracing
 from kubernetesnetawarescheduler_tpu_torch.utils.flight import (
     NULL_SPAN,
     FlightRecorder,
@@ -164,27 +167,25 @@ class SchedulerLoop:
         # runs wherever the encoder's snapshots live.
         self.encoder = (encoder if encoder is not None
                         else Encoder(cfg, device=device))
-        self.queue = PodQueue(cfg.queue_capacity)
         # HistogramPhaseTimer = PhaseTimer + per-phase log-bucketed
         # histograms (utils/timeseries.py): the summary families keep
         # their series while /metrics gains native _hist buckets.
         self.timer = HistogramPhaseTimer()
         # Decision-level tracing (utils/flight.py): every serving cycle
-        # commits one CycleSpan into this bounded ring buffer.
+        # commits one CycleSpan into this bounded ring buffer, and the
+        # queue stamps each popped pod into its per-pod ring.
         # Observation only — nothing here feeds back into scoring.
         # cfg.flight_recorder_size=0 disables the recorder entirely
         # (NULL_SPAN no-ops).
         self.flight: FlightRecorder | None = (
-            FlightRecorder(cfg.flight_recorder_size, cfg.explain_retain)
+            FlightRecorder(cfg.flight_recorder_size, cfg.explain_retain,
+                           cfg.flight_pod_records)
             if cfg.flight_recorder_size > 0 else None)
+        self.queue = PodQueue(cfg.queue_capacity, records=(
+            self.flight.pods if self.flight is not None else None))
         # Last-seen cumulative snapshot-upload byte counters, so spans
         # carry per-cycle delta-vs-full increments.
         self._flight_bytes = (0, 0)
-        # Opt-in: the device step is then wrapped in a
-        # torch.profiler.record_function and (on a card) an NVTX range
-        # named with the flight recorder's cycle id, so a profiler
-        # timeline and the recorder's spans line up by number.
-        self.profile_steps = False
         self.scheduled = 0
         self.unschedulable = 0
         self.burst_cycles = 0  # backlog bursts served (observability)
@@ -517,15 +518,12 @@ class SchedulerLoop:
         # from the UDS/gRPC threads; iterating a deque mid-append
         # raises RuntimeError, so both sides take this lock.
         self._round_lock = threading.Lock()
-        # Fused-step accounting.  The serving loop never donates: its
-        # snapshot tensors belong to the encoder's delta-ingest cache
-        # (patched across cycles), and torch has no buffer donation —
-        # every device dispatch counts a donation SKIP.
-        # jit_cache_miss_total is the JAX loop's executable-cache
-        # growth; torch keeps no executable cache, so it stays 0 (a
-        # CUDA kernel is built once per process, on first use).
+        # Fused-step accounting.  torch has no buffer donation, so
+        # donated_total stays 0; jit_cache_miss_total is the JAX loop's
+        # executable-cache growth, and torch keeps no executable cache,
+        # so it stays 0 too (a CUDA kernel is built once per process, on
+        # first use).
         self.donated_total = 0
-        self.donation_skipped_total = 0
         self.jit_cache_miss_total = 0
         # is_parked keeps resync/watch re-deliveries of a preemptor
         # that is waiting for victim confirmation out of the queue —
@@ -657,32 +655,15 @@ class SchedulerLoop:
             return NULL_SPAN
         return self.flight.begin(path)
 
-    def _profile_step(self, step_num: int):
-        """Opt-in profiler annotation around the device step
-        (``profile_steps``): a ``torch.profiler.record_function`` and,
-        on a card, an NVTX range, both named with the flight
-        recorder's cycle id, so a profiler timeline and /debug/trace
-        line up by number.  Off (a null context) by default."""
-        if not self.profile_steps:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        name = f"netaware_cycle {step_num}"
-        stack.enter_context(torch.profiler.record_function(name))
-        if self.encoder.device.type == "cuda":
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        return stack
-
-    def _note_dispatch(self) -> None:
-        """Per-device-dispatch fused-step accounting: the serving
-        loop's snapshot is encoder-owned (delta-ingest patches it), so
-        its dispatches never donate — count the skip."""
-        self.donation_skipped_total += 1
+    def _cycle(self, sb):
+        """The span sink of cycle ``sb``: the loop's timer and the
+        cycle's span; under a profiler, the range ``netaware.cycle
+        <id>`` (:func:`~..utils.tracing.cycle`)."""
+        return tracing.cycle(self.timer, sb)
 
     def _span_commit(self, sb, pods: Sequence[Pod],
                      static_version: int | None = None,
                      rounds: int = 0,
-                     donated: int = 0,
-                     donation_skipped: int = 1,
                      scan_window_k: int | None = None,
                      retire_lag_cycles: int | None = None) -> None:
         """Freeze and commit a cycle span.  Called where the cycle's
@@ -789,11 +770,6 @@ class SchedulerLoop:
             delta_bytes=max(db - last_db, 0),
             full_bytes=max(fb - last_fb, 0),
             rounds=int(rounds),
-            # Cycle-level donation disposition mirrors the loop-wide
-            # counters: serving dispatches never donate (the snapshot
-            # is encoder-owned), so spans carry donated=0 and one skip.
-            donated=int(donated),
-            donation_skipped=int(donation_skipped),
             slo_burning=slo_burning,
             outcome_ring_depth=(self.quality.ring_depth()
                                 if self.quality is not None else 0),
@@ -1080,71 +1056,61 @@ class SchedulerLoop:
         n_real = -(-len(pods) // self.cfg.max_pods)
         sb = self._span_begin("burst")
         cycle_t0 = time.perf_counter()
-        t0 = cycle_t0
-        stream = self.encoder.encode_stream(
-            pods, node_of=self._peer_node, lenient=True)
-        # Padded to the FULL burst shape, as the JAX loop pads it to
-        # keep one compiled program; here each padded batch is a real
-        # (fully masked) replay step, and the timer normalizes by the
-        # real batches only.
-        stream = pad_stream(stream,
-                            self.burst_batches * self.cfg.max_pods)
-        state, version = self.encoder.snapshot_versioned()
-        node_table = self.encoder.node_table()
-        sb.add_phase("encode", t0, time.perf_counter() - t0)
-        self.timer.record("encode",
-                          (time.perf_counter() - t0) / n_real,
-                          count=n_real)
-        self._emit_degraded_events()
-        t0 = time.perf_counter()
-        static = None
-        with self._profile_step(sb.cycle_id):
-            if self._sharded_burst is not None:
-                # Mesh path: the sharded replay over the shared
-                # placement; its static prep is cached by leaf identity.
-                out, with_stats = self._sharded_burst(state, stream)
-            else:
-                with_stats = self.method == "parallel"
-                # Same version-keyed static cache as the per-batch cycle.
-                static = self._static_for(state, version)
-                out = replay_stream_static(state, stream, static,
-                                           self.cfg, self.method,
-                                           with_stats=with_stats)
-        cycle_rounds = 0
-        if with_stats:
-            assignment_dev, _final_state, rounds_dev = out
-            assignment = _to_host(assignment_dev)
-            rounds = np.asarray(rounds_dev)
-            cycle_rounds = int(rounds[:n_real].max()) if n_real else 0
-            with self._round_lock:
-                self.round_samples.extend(
-                    int(r) for r in rounds[:n_real])
-        else:
-            assignment_dev, _final_state = out
-            assignment = _to_host(assignment_dev)
-        self._note_dispatch()
-        sb.add_phase("score_assign", t0, time.perf_counter() - t0)
-        self.timer.record("score_assign",
-                          (time.perf_counter() - t0) / n_real,
-                          count=n_real)
-        assignment = assignment[:len(pods)]
-        t0 = time.perf_counter()
-        if self.async_bind:
-            bound = self._assume_and_enqueue(pods, assignment,
-                                             node_table)
-        else:
-            bound = self._bind_all(pods, assignment, node_table)
-        sb.add_phase("bind", t0, time.perf_counter() - t0)
-        self.timer.record("bind",
-                          (time.perf_counter() - t0) / n_real,
-                          count=n_real)
-        self.timer.record("burst_wall",
-                          time.perf_counter() - cycle_t0)
-        self.burst_cycles += 1
-        self._capture_explains_burst(pods, assignment, state, static,
-                                     node_table, sb.cycle_id, "burst")
-        self._span_commit(sb, pods, static_version=version,
-                          rounds=cycle_rounds)
+        with self._cycle(sb):
+            with tracing.span("encode", n_real):
+                stream = self.encoder.encode_stream(
+                    pods, node_of=self._peer_node, lenient=True)
+                # Padded to the FULL burst shape, as the JAX loop pads
+                # it to keep one compiled program; here each padded
+                # batch is a real (fully masked) replay step, and the
+                # timer normalizes by the real batches only.
+                stream = pad_stream(stream,
+                                    self.burst_batches * self.cfg.max_pods)
+                state, version = self.encoder.snapshot_versioned()
+                node_table = self.encoder.node_table()
+            self._emit_degraded_events()
+            static = None
+            with tracing.span("score_assign", n_real):
+                if self._sharded_burst is not None:
+                    # Mesh path: the sharded replay over the shared
+                    # placement; its static prep is cached by leaf
+                    # identity.
+                    out, with_stats = self._sharded_burst(state, stream)
+                else:
+                    with_stats = self.method == "parallel"
+                    # Same version-keyed static cache as the per-batch
+                    # cycle.
+                    static = self._static_for(state, version)
+                    out = replay_stream_static(state, stream, static,
+                                               self.cfg, self.method,
+                                               with_stats=with_stats)
+                cycle_rounds = 0
+                if with_stats:
+                    assignment_dev, _final_state, rounds_dev = out
+                    assignment = _to_host(assignment_dev)
+                    rounds = np.asarray(rounds_dev)
+                    cycle_rounds = (int(rounds[:n_real].max())
+                                    if n_real else 0)
+                    with self._round_lock:
+                        self.round_samples.extend(
+                            int(r) for r in rounds[:n_real])
+                else:
+                    assignment_dev, _final_state = out
+                    assignment = _to_host(assignment_dev)
+            assignment = assignment[:len(pods)]
+            with tracing.span("bind", n_real):
+                if self.async_bind:
+                    bound = self._assume_and_enqueue(pods, assignment,
+                                                     node_table)
+                else:
+                    bound = self._bind_all(pods, assignment, node_table)
+            self.timer.record("burst_wall",
+                              time.perf_counter() - cycle_t0)
+            self.burst_cycles += 1
+            self._capture_explains_burst(pods, assignment, state, static,
+                                         node_table, sb.cycle_id, "burst")
+            self._span_commit(sb, pods, static_version=version,
+                              rounds=cycle_rounds)
         return bound
 
     def _pipeline_cycle(self, pods: Sequence[Pod]) -> int:
@@ -1181,37 +1147,31 @@ class SchedulerLoop:
         # worker prepares this burst's arrays.
         bound = self._retire_inflight()
         prepared, encode_s = fut.result()
-        sb.add_phase("encode", time.perf_counter() - encode_s,
-                     encode_s)
-        self.timer.record("encode", encode_s / n_real, count=n_real)
-        t0 = time.perf_counter()
-        stream = self.encoder.finalize_stream(prepared,
-                                              self._peer_node)
-        # Full burst shape, as schedule_pods_burst pads it.
-        stream = pad_stream(stream,
-                            self.burst_batches * self.cfg.max_pods)
-        state, version = self.encoder.snapshot_versioned()
-        node_table = self.encoder.node_table()
-        self._emit_degraded_events()
-        static = None
-        with self._profile_step(sb.cycle_id):
-            if self._sharded_burst is not None:
-                out, with_stats = self._sharded_burst(state, stream)
-            else:
-                with_stats = self.method == "parallel"
-                static = self._static_for(state, version)
-                out = replay_stream_static(state, stream, static,
-                                           self.cfg, self.method,
-                                           with_stats=with_stats)
-        # "dispatch" records finalize + snapshot + the replay call,
-        # which (one host sync per conflict round) runs the device
-        # step nearly to its end before it returns; the fetch in
-        # _retire_inflight then waits only for its last operations.
-        sb.add_phase("dispatch", t0, time.perf_counter() - t0)
-        self.timer.record("dispatch",
-                          (time.perf_counter() - t0) / n_real,
-                          count=n_real)
-        self._note_dispatch()
+        with self._cycle(sb):
+            tracing.record("encode", time.perf_counter() - encode_s,
+                           encode_s, n_real)
+            # "dispatch" records finalize + snapshot + the replay call,
+            # which (one host sync per conflict round) runs the device
+            # step nearly to its end before it returns; the fetch in
+            # _retire_inflight then waits only for its last operations.
+            with tracing.span("dispatch", n_real):
+                stream = self.encoder.finalize_stream(prepared,
+                                                      self._peer_node)
+                # Full burst shape, as schedule_pods_burst pads it.
+                stream = pad_stream(stream,
+                                    self.burst_batches * self.cfg.max_pods)
+                state, version = self.encoder.snapshot_versioned()
+                node_table = self.encoder.node_table()
+                self._emit_degraded_events()
+                static = None
+                if self._sharded_burst is not None:
+                    out, with_stats = self._sharded_burst(state, stream)
+                else:
+                    with_stats = self.method == "parallel"
+                    static = self._static_for(state, version)
+                    out = replay_stream_static(state, stream, static,
+                                               self.cfg, self.method,
+                                               with_stats=with_stats)
         self._pipe_inflight = (pods, out, with_stats, node_table,
                                n_real, time.perf_counter(),
                                state, static)
@@ -1235,40 +1195,35 @@ class SchedulerLoop:
                             if self._pipe_span is not None
                             else (NULL_SPAN, None))
         self._pipe_span = None
-        t0 = time.perf_counter()
-        cycle_rounds = 0
-        if with_stats:
-            assignment_dev, _final_state, rounds_dev = out
-            assignment = _to_host(assignment_dev)
-            rounds = np.asarray(rounds_dev)
-            cycle_rounds = int(rounds[:n_real].max()) if n_real else 0
-            with self._round_lock:
-                self.round_samples.extend(
-                    int(r) for r in rounds[:n_real])
-        else:
-            assignment_dev, _final_state = out
-            assignment = _to_host(assignment_dev)
-        # The exposed device wait: whatever of the step did NOT
-        # overlap host work since dispatch.  Feeds the same
-        # score_assign percentile stream as the serial cycle.
-        sb.add_phase("score_assign", t0, time.perf_counter() - t0)
-        self.timer.record("score_assign",
-                          (time.perf_counter() - t0) / n_real,
-                          count=n_real)
-        assignment = assignment[:len(pods)]
-        t0 = time.perf_counter()
-        bound = self._assume_and_enqueue(pods, assignment, node_table)
-        sb.add_phase("bind", t0, time.perf_counter() - t0)
-        self.timer.record("bind",
-                          (time.perf_counter() - t0) / n_real,
-                          count=n_real)
-        self.timer.record("burst_wall",
-                          time.perf_counter() - t_dispatch)
-        self._capture_explains_burst(pods, assignment, state, static,
-                                     node_table, sb.cycle_id,
-                                     "pipelined")
-        self._span_commit(sb, pods, static_version=span_version,
-                          rounds=cycle_rounds)
+        with self._cycle(sb):
+            # The exposed device wait: whatever of the step did NOT
+            # overlap host work since dispatch.  Feeds the same
+            # score_assign percentile stream as the serial cycle.
+            with tracing.span("score_assign", n_real):
+                cycle_rounds = 0
+                if with_stats:
+                    assignment_dev, _final_state, rounds_dev = out
+                    assignment = _to_host(assignment_dev)
+                    rounds = np.asarray(rounds_dev)
+                    cycle_rounds = (int(rounds[:n_real].max())
+                                    if n_real else 0)
+                    with self._round_lock:
+                        self.round_samples.extend(
+                            int(r) for r in rounds[:n_real])
+                else:
+                    assignment_dev, _final_state = out
+                    assignment = _to_host(assignment_dev)
+            assignment = assignment[:len(pods)]
+            with tracing.span("bind", n_real):
+                bound = self._assume_and_enqueue(pods, assignment,
+                                                 node_table)
+            self.timer.record("burst_wall",
+                              time.perf_counter() - t_dispatch)
+            self._capture_explains_burst(pods, assignment, state, static,
+                                         node_table, sb.cycle_id,
+                                         "pipelined")
+            self._span_commit(sb, pods, static_version=span_version,
+                              rounds=cycle_rounds)
         return bound
 
     def schedule_pods_multicycle(self, pods: Sequence[Pod]) -> int:
@@ -1335,16 +1290,16 @@ class SchedulerLoop:
         # cycle; phase costs are amortized shares of the window's).
         sbs = [self._span_begin("multicycle") for _ in range(n_live)]
         for sb in sbs:
-            sb.add_phase("encode", t_enc, encode_s / n_live)
-        self.timer.record("encode", encode_s / n_live, count=n_live)
+            with self._cycle(sb):
+                tracing.record("encode", t_enc, encode_s / n_live)
         t0 = time.perf_counter()
         with_stats = self.method == "parallel"
         static = self._static_for(state, version)
-        with self._profile_step(sbs[0].cycle_id):
+        # The window's replay spans land in its first logical cycle.
+        with self._cycle(sbs[0]):
             out = replay_stream_static(state, window, static,
                                        self.cfg, self.method,
                                        with_stats=with_stats)
-        self._note_dispatch()
         dispatch_s = time.perf_counter() - t0
         for sb in sbs:
             sb.add_phase("dispatch", t0, dispatch_s / n_live)
@@ -1392,52 +1347,52 @@ class SchedulerLoop:
                 break
             (sb, wave_pods, j, k_eff, shared, node_table,
              version) = self._mc_inflight.popleft()
-            t0 = time.perf_counter()
-            if shared["fetched"] is None:
-                if shared["with_stats"]:
-                    a_dev, _final, r_dev = shared["out"]
-                    shared["fetched"] = _to_host(a_dev)
-                    shared["rounds"] = np.asarray(r_dev)
-                    with self._round_lock:
-                        self.round_samples.extend(
-                            int(r) for r in
-                            shared["rounds"][:shared["n_live"]])
+            with self._cycle(sb):
+                t0 = time.perf_counter()
+                if shared["fetched"] is None:
+                    if shared["with_stats"]:
+                        a_dev, _final, r_dev = shared["out"]
+                        shared["fetched"] = _to_host(a_dev)
+                        shared["rounds"] = np.asarray(r_dev)
+                        with self._round_lock:
+                            self.round_samples.extend(
+                                int(r) for r in
+                                shared["rounds"][:shared["n_live"]])
+                    else:
+                        a_dev, _final = shared["out"]
+                        shared["fetched"] = _to_host(a_dev)
+                    shared["out"] = None
+                    # The exposed device wait, amortized over the
+                    # window's logical cycles: the device-boundary score
+                    # latency the bench compares to the in-kernel
+                    # number.
+                    tracing.record("score_assign", t0,
+                                   time.perf_counter() - t0,
+                                   shared["n_live"])
                 else:
-                    a_dev, _final = shared["out"]
-                    shared["fetched"] = _to_host(a_dev)
-                shared["out"] = None
-                # The exposed device wait, amortized over the
-                # window's logical cycles: the device-boundary score
-                # latency the bench compares to the in-kernel number.
-                self.timer.record(
-                    "score_assign",
-                    (time.perf_counter() - t0) / shared["n_live"],
-                    count=shared["n_live"])
-            sb.add_phase("score_assign", t0,
-                         time.perf_counter() - t0)
-            assignment = shared["fetched"][
-                j * cap:j * cap + len(wave_pods)]
-            rounds_j = 0
-            if (shared["rounds"] is not None
-                    and j < len(shared["rounds"])):
-                rounds_j = int(shared["rounds"][j])
-            t0 = time.perf_counter()
-            if self.async_bind:
-                bound += self._assume_and_enqueue(
-                    wave_pods, assignment, node_table)
-            else:
-                bound += self._bind_all(wave_pods, assignment,
-                                        node_table)
-            sb.add_phase("bind", t0, time.perf_counter() - t0)
-            self.timer.record("bind", time.perf_counter() - t0)
-            self._retire_lag.append(float(j))
-            self._capture_explains_burst(
-                wave_pods, assignment, shared["state"],
-                shared["static"], node_table, sb.cycle_id,
-                "multicycle")
-            self._span_commit(sb, wave_pods, static_version=version,
-                              rounds=rounds_j, scan_window_k=k_eff,
-                              retire_lag_cycles=j)
+                    sb.add_phase("score_assign", t0,
+                                 time.perf_counter() - t0)
+                assignment = shared["fetched"][
+                    j * cap:j * cap + len(wave_pods)]
+                rounds_j = 0
+                if (shared["rounds"] is not None
+                        and j < len(shared["rounds"])):
+                    rounds_j = int(shared["rounds"][j])
+                with tracing.span("bind"):
+                    if self.async_bind:
+                        bound += self._assume_and_enqueue(
+                            wave_pods, assignment, node_table)
+                    else:
+                        bound += self._bind_all(wave_pods, assignment,
+                                                node_table)
+                self._retire_lag.append(float(j))
+                self._capture_explains_burst(
+                    wave_pods, assignment, shared["state"],
+                    shared["static"], node_table, sb.cycle_id,
+                    "multicycle")
+                self._span_commit(sb, wave_pods, static_version=version,
+                                  rounds=rounds_j, scan_window_k=k_eff,
+                                  retire_lag_cycles=j)
             self.multicycle_last_retired = sb.cycle_id
             retired += 1
         if retired and not self._mc_inflight and shared is not None:
@@ -1453,7 +1408,7 @@ class SchedulerLoop:
         Split out of :meth:`schedule_pods` so a multi-tenant server can
         run the SAME host-side semantics per tenant and hand each
         tenant back to :meth:`_cycle_outputs`."""
-        with sb.phase("encode"), self.timer.phase("encode"):
+        with self._cycle(sb), tracing.span("encode"):
             # Lenient: pods arrive from the watch (untrusted
             # manifests), and one pod with un-internable constraints
             # must degrade ITSELF (conservative bit directions +
@@ -1480,34 +1435,33 @@ class SchedulerLoop:
     def _cycle_outputs(self, sb, pods: Sequence[Pod], batch, state,
                        static, node_table, assignment: np.ndarray,
                        rounds: int, static_version: int, *,
-                       donated: int = 0, donation_skipped: int = 1,
                        path: str = "serial") -> int:
         """Bind half of a serial cycle: bind/assume, explain capture,
         span commit."""
-        with sb.phase("bind"), self.timer.phase("bind"):
-            if self.async_bind:
-                bound = self._assume_and_enqueue(pods, assignment,
-                                                 node_table)
-            else:
-                bound = self._bind_all(pods, assignment, node_table)
-        self._capture_explains(pods, batch, assignment, state, static,
-                               node_table, sb.cycle_id, path)
-        self._span_commit(sb, pods, static_version=static_version,
-                          rounds=rounds, donated=donated,
-                          donation_skipped=donation_skipped)
+        with self._cycle(sb):
+            with tracing.span("bind"):
+                if self.async_bind:
+                    bound = self._assume_and_enqueue(pods, assignment,
+                                                     node_table)
+                else:
+                    bound = self._bind_all(pods, assignment, node_table)
+            self._capture_explains(pods, batch, assignment, state, static,
+                                   node_table, sb.cycle_id, path)
+            self._span_commit(sb, pods, static_version=static_version,
+                              rounds=rounds)
         return bound
 
     def schedule_pods(self, pods: Sequence[Pod]) -> int:
         sb = self._span_begin("serial")
-        batch, state, static_version, node_table = \
-            self._cycle_inputs(sb, pods)
-        static = None
-        with sb.phase("score_assign"), self.timer.phase("score_assign"):
-            stats = self.method == "parallel"
-            # assign_greedy has no with_stats parameter — pass the kw
-            # only when asking for it (stats implies parallel).
-            kw = {"with_stats": True} if stats else {}
-            with self._profile_step(sb.cycle_id):
+        with self._cycle(sb):
+            batch, state, static_version, node_table = \
+                self._cycle_inputs(sb, pods)
+            static = None
+            with tracing.span("score_assign"):
+                stats = self.method == "parallel"
+                # assign_greedy has no with_stats parameter — pass the
+                # kw only when asking for it (stats implies parallel).
+                kw = {"with_stats": True} if stats else {}
                 if self._assign_takes_static:
                     static = self._static_for(state, static_version)
                     out = self._assign(state, batch, self.cfg, static,
@@ -1523,10 +1477,9 @@ class SchedulerLoop:
                         self.round_samples.append(cycle_rounds)
                 else:
                     assignment = _to_host(out)
-                self._note_dispatch()
-        return self._cycle_outputs(sb, pods, batch, state, static,
-                                   node_table, assignment,
-                                   cycle_rounds, static_version)
+            return self._cycle_outputs(sb, pods, batch, state, static,
+                                       node_table, assignment,
+                                       cycle_rounds, static_version)
 
     def _static_for(self, state, version: int):
         """Version-keyed cache of the batch-invariant assign static
@@ -1677,32 +1630,32 @@ class SchedulerLoop:
                     members[i:i + self.cfg.max_pods])
             return total
         sb = self._span_begin("gang")
-        with sb.phase("encode"), self.timer.phase("encode"):
-            batch = self.encoder.encode_pods(
-                members, node_of=self._peer_node, lenient=True)
-            state, static_version = self.encoder.snapshot_versioned()
-            node_table = self.encoder.node_table()
-        self._emit_degraded_events()
-        with sb.phase("score_assign"), self.timer.phase("score_assign"):
-            if self._assign_takes_static:
-                static = self._static_for(state, static_version)
-                assign_fn = self._assign
-            else:
-                # Mesh path: the sharded callables take no static, and
-                # gang re-scoring needs the {"raw", "ok"} seam, so the
-                # (rare, small) gang batches take the single-device
-                # assigners on the encoder's device.
-                static = None
-                assign_fn = {"greedy": assign_greedy,
-                             "parallel": assign_parallel}[self.method]
-            # Elastic realizations: when the gang declares
-            # alternative shapes AND the feature is on, score every
-            # declared realization and commit the winner; otherwise
-            # the rigid path runs.
-            shapes = (gang_shapes_of(members)
-                      if self.cfg.enable_gang_reshaping else ())
-            shaped = len(shapes) > 1
-            with self._profile_step(sb.cycle_id):
+        with self._cycle(sb):
+            with tracing.span("encode"):
+                batch = self.encoder.encode_pods(
+                    members, node_of=self._peer_node, lenient=True)
+                state, static_version = self.encoder.snapshot_versioned()
+                node_table = self.encoder.node_table()
+            self._emit_degraded_events()
+            with tracing.span("score_assign"):
+                if self._assign_takes_static:
+                    static = self._static_for(state, static_version)
+                    assign_fn = self._assign
+                else:
+                    # Mesh path: the sharded callables take no static, and
+                    # gang re-scoring needs the {"raw", "ok"} seam, so the
+                    # (rare, small) gang batches take the single-device
+                    # assigners on the encoder's device.
+                    static = None
+                    assign_fn = {"greedy": assign_greedy,
+                                 "parallel": assign_parallel}[self.method]
+                # Elastic realizations: when the gang declares
+                # alternative shapes AND the feature is on, score every
+                # declared realization and commit the winner; otherwise
+                # the rigid path runs.
+                shapes = (gang_shapes_of(members)
+                          if self.cfg.enable_gang_reshaping else ())
+                shaped = len(shapes) > 1
                 if shaped:
                     assignment, chosen, shape_info = place_gang_shaped(
                         state, batch, self.cfg, static, assign_fn,
@@ -1712,54 +1665,53 @@ class SchedulerLoop:
                                             static, assign_fn,
                                             len(members))
                     chosen, shape_info = len(members), None
-            self._note_dispatch()
-        commit_members = members
-        surplus: list[Pod] = []
-        if shaped and 0 < chosen < len(members):
-            # A degraded realization commits the chosen PREFIX
-            # all-or-nothing; the surplus members park (loudly) and
-            # re-gate on the next wakeup/resync — the rebalancer's
-            # regrow path restores the full shape when capacity
-            # returns.
-            commit_members = members[:chosen]
-            surplus = members[chosen:]
-        with sb.phase("bind"), self.timer.phase("bind"):
-            bound = self._commit_gang(key, commit_members, assignment,
-                                      node_table)
-        if shaped and bound:
-            self.encoder.note_gang_realization(key, len(commit_members),
-                                               len(members))
-        if surplus:
-            comp_events = []
-            if bound:
-                self.gangs_shaped_degraded += 1
-                why = (f"gang {key} realized degraded shape "
-                       f"{chosen}/{len(members)} "
-                       f"(declared family: "
-                       f"{','.join(str(c) for c, _ in shapes)}); "
-                       "member parked awaiting regrow")
-            else:
-                why = (f"gang {key}: no feasible placement at any "
-                       "declared shape")
-            for pod in surplus:
-                comp_events.append(failed_event(pod, comp, why))
-            self.client.create_events(comp_events)
-            self.unschedulable += len(surplus)
-            self._park_gang(surplus)
-        # Explain records note the joint C-matrix pass: the per-node
-        # decomposition is the INDEPENDENT score surface; the gang's
-        # co-placement bias may have moved the winner off the
-        # independent argmax, which is exactly what the marker flags.
-        self._capture_explains(
-            members, batch, assignment, state, static, node_table,
-            sb.cycle_id, "gang",
-            extra={"gang": {"key": key, "members": len(members),
-                            "joint_placement": True,
-                            "bound": bool(bound),
-                            **({"realization": chosen,
-                                "shape_info": shape_info}
-                               if shaped else {})}})
-        self._span_commit(sb, members, static_version=static_version)
+            commit_members = members
+            surplus: list[Pod] = []
+            if shaped and 0 < chosen < len(members):
+                # A degraded realization commits the chosen PREFIX
+                # all-or-nothing; the surplus members park (loudly) and
+                # re-gate on the next wakeup/resync — the rebalancer's
+                # regrow path restores the full shape when capacity
+                # returns.
+                commit_members = members[:chosen]
+                surplus = members[chosen:]
+            with tracing.span("bind"):
+                bound = self._commit_gang(key, commit_members, assignment,
+                                          node_table)
+            if shaped and bound:
+                self.encoder.note_gang_realization(key, len(commit_members),
+                                                   len(members))
+            if surplus:
+                comp_events = []
+                if bound:
+                    self.gangs_shaped_degraded += 1
+                    why = (f"gang {key} realized degraded shape "
+                           f"{chosen}/{len(members)} "
+                           f"(declared family: "
+                           f"{','.join(str(c) for c, _ in shapes)}); "
+                           "member parked awaiting regrow")
+                else:
+                    why = (f"gang {key}: no feasible placement at any "
+                           "declared shape")
+                for pod in surplus:
+                    comp_events.append(failed_event(pod, comp, why))
+                self.client.create_events(comp_events)
+                self.unschedulable += len(surplus)
+                self._park_gang(surplus)
+            # Explain records note the joint C-matrix pass: the per-node
+            # decomposition is the INDEPENDENT score surface; the gang's
+            # co-placement bias may have moved the winner off the
+            # independent argmax, which is exactly what the marker flags.
+            self._capture_explains(
+                members, batch, assignment, state, static, node_table,
+                sb.cycle_id, "gang",
+                extra={"gang": {"key": key, "members": len(members),
+                                "joint_placement": True,
+                                "bound": bool(bound),
+                                **({"realization": chosen,
+                                    "shape_info": shape_info}
+                                   if shaped else {})}})
+            self._span_commit(sb, members, static_version=static_version)
         return bound
 
     def _commit_gang(self, key: str, members: list[Pod],
@@ -2202,6 +2154,10 @@ class SchedulerLoop:
             Binding(pod_name=pod.name, namespace=pod.namespace,
                     node_name=name)
             for pod, name in zip(bindable, names)])
+        if self.flight is not None and self.flight.pods is not None:
+            self.flight.pods.acked(
+                [pod.uid for pod, exc in zip(bindable, outcomes)
+                 if exc is None], time.perf_counter())
 
         ok_pods: list[Pod] = []
         ok_idxs: list[int] = []
@@ -2898,5 +2854,7 @@ class SchedulerLoop:
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
     """A device result on the host as numpy: ``.cpu()`` waits for the
-    kernels that wrote it, so bind never races the device step."""
-    return x.cpu().numpy()
+    kernels that wrote it, so bind never races the device step (one
+    host sync, at site ``fetch``)."""
+    with host_sync("fetch"):
+        return x.cpu().numpy()

@@ -48,6 +48,7 @@ from kubernetesnetawarescheduler_tpu_torch.core.state import (
 from kubernetesnetawarescheduler_tpu_torch.core.tiled_score import (
     compute_assign_static,
 )
+from kubernetesnetawarescheduler_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -172,14 +173,17 @@ def _make_step(state: ClusterState, cfg: SchedulerConfig, method: str,
     precomputed pair.  With a ``mesh``, ``state`` is the rank's node
     shard and the step is the SPMD one (:func:`~.assign.
     assign_parallel_spmd`, :func:`~.state.commit_assignments_shard`);
-    every batch is whole on every rank."""
+    every batch is whole on every rank.
+
+    Spans (:func:`~..utils.tracing.span`): ``replay.batch`` over each
+    step, ``replay.commit`` over its commit."""
     batch = cfg.max_pods
     if mesh is not None:
         node_zone = concat_shards(mesh, state.node_zone, "tp")
         rows = state.num_nodes
         off, n = mesh.tp_index * rows, rows * mesh.tp
 
-    def step(carry, i: int, sl: PodStream):
+    def run(carry, i: int, sl: PodStream):
         (used, group_bits, resident_anti, gz_counts, az_anti,
          node_of_pod) = carry
         st = state.replace(used=used, group_bits=group_bits,
@@ -203,8 +207,9 @@ def _make_step(state: ClusterState, cfg: SchedulerConfig, method: str,
                                                 batch_static,
                                                 node_zone=node_zone)
                 rounds = 0
-            st = commit_assignments_shard(st, pods, assignment, off, n,
-                                          node_zone)
+            with span("replay.commit"):
+                st = commit_assignments_shard(st, pods, assignment, off, n,
+                                              node_zone)
         else:
             if method == "parallel":
                 assignment, rounds = assign_parallel(
@@ -212,10 +217,15 @@ def _make_step(state: ClusterState, cfg: SchedulerConfig, method: str,
             else:
                 assignment = assign_greedy(st, pods, cfg, batch_static)
                 rounds = 0
-            st = commit_assignments(st, pods, assignment)
+            with span("replay.commit"):
+                st = commit_assignments(st, pods, assignment)
         node_of_pod[i * batch:(i + 1) * batch] = assignment
         return ((st.used, st.group_bits, st.resident_anti, st.gz_counts,
                  st.az_anti, node_of_pod), assignment, rounds)
+
+    def step(carry, i: int, sl: PodStream):
+        with span("replay.batch"):
+            return run(carry, i, sl)
 
     return step
 

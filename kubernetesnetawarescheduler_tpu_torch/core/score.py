@@ -340,7 +340,7 @@ def soft_affinity_scores(state: ClusterState, pods: PodBatch,
     shape = (n, p) if transposed else (p, n)
     pred = ((pods.soft_sel_bits != 0).any()
             | (pods.soft_grp_bits != 0).any())
-    if host_flag(pred):
+    if host_flag(pred, "score.soft_affinity_gate"):
         lb = state.label_bits[None, None, :, :]              # [1, 1, N, W]
         sb = pods.soft_sel_bits[:, :, None, :]               # [P, T, 1, W]
         label_match = ((lb & sb) == sb).all(dim=-1)          # [P, T, N]
@@ -371,7 +371,8 @@ def soft_zone_scores(state: ClusterState, pods: PodBatch,
     p = pods.pod_valid.shape[0]
     n = state.node_valid.shape[0]
     shape = (n, p) if transposed else (p, n)
-    if not host_flag((pods.soft_zone_bits != 0).any()):
+    if not host_flag((pods.soft_zone_bits != 0).any(),
+                     "score.soft_zone_gate"):
         return torch.zeros(shape, dtype=torch.float32, device=state.device)
     zmax = state.az_anti.shape[0]
     zwords = planes_to_words((state.gz_counts > 0).T)        # i32[Z, W]
@@ -406,7 +407,7 @@ def spread_terms(state: ClusterState, pods: PodBatch, cfg: SchedulerConfig,
     gz = state.gz_counts if gz_counts is None else gz_counts
     n = state.num_nodes
     p = pods.num_pods
-    if not host_flag(spread_active(pods).any()):
+    if not host_flag(spread_active(pods).any(), "score.spread_gate"):
         return (torch.zeros((p, n), dtype=torch.float32, device=gz.device),
                 torch.ones((p, n), dtype=torch.bool, device=gz.device))
     return spread_terms_ungated(state, pods, cfg, gz, static_ok, wvec,
@@ -475,7 +476,7 @@ def ns_affinity_ok(state: ClusterState, pods: PodBatch,
     p = pods.pod_valid.shape[0]
     n = state.node_valid.shape[0]
     shape = (n, p) if transposed else (p, n)
-    if not host_flag(pods.ns_term_used.any()):
+    if not host_flag(pods.ns_term_used.any(), "score.ns_affinity_gate"):
         return torch.ones(shape, dtype=torch.bool, device=state.device)
     labels = state.label_bits                                # [N, W]
     anyof = pods.ns_anyof                                    # [P, T2, E, W]
@@ -486,7 +487,7 @@ def ns_affinity_ok(state: ClusterState, pods: PodBatch,
     clean = ((pods.ns_forbid[:, :, None, :] & labels[None, None, :, :])
              == 0).all(dim=-1)                               # [P, T2, N]
     term_ok = expr_ok.all(dim=2) & clean & pods.ns_term_used[:, :, None]
-    if host_flag((pods.ns_num_col >= 0).any()):
+    if host_flag((pods.ns_num_col >= 0).any(), "score.ns_numeric_gate"):
         col = pods.ns_num_col                                # [P, T2, NE]
         vals = state.node_numeric[:, col.clamp_min(0).long()]  # [N,P,T2,NE]
         vals = vals.movedim(0, -1)                           # [P,T2,NE,N]
@@ -514,7 +515,7 @@ def zone_affinity_ok(state: ClusterState, pods: PodBatch,
     n = state.node_valid.shape[0]
     pred = ((pods.zaff_bits != 0).any() | (pods.zanti_bits != 0).any()
             | (az != 0).any())
-    if not host_flag(pred):
+    if not host_flag(pred, "score.zone_affinity_gate"):
         return torch.ones((p, n), dtype=torch.bool, device=gz.device)
     return zone_affinity_ungated(state, pods, gz, az)
 

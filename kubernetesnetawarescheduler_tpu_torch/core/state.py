@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+from kubernetesnetawarescheduler_tpu_torch.utils.tracing import span
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -42,13 +43,24 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def host_flag(x: torch.Tensor) -> bool:
+def host_sync(site: str):
+    """One wait of the host for the device at ``site``: counted in
+    ``host_flag.syncs`` and timed as the span ``sync.<site>``
+    (:func:`~..utils.tracing.span`; inside a serving cycle the loop's
+    timer counts it per site, and those counts add up to the cycle's
+    share of the total).  Enter it around the call that waits."""
+    host_flag.syncs += 1
+    return span("sync." + site)
+
+
+def host_flag(x: torch.Tensor, site: str) -> bool:
     """Read a scalar device predicate on the host — the place where a
     JAX ``lax.cond``/``while_loop`` predicate becomes a Python ``if``.
-    Each call is one host sync on a CUDA tensor; ``host_flag.syncs``
-    counts them so a run can report what its control flow cost."""
-    host_flag.syncs += 1
-    return bool(x)
+    Each call is one host sync on a CUDA tensor (:func:`host_sync` at
+    ``site``); ``host_flag.syncs`` counts them so a run can report what
+    its control flow cost."""
+    with host_sync(site):
+        return bool(x)
 
 
 host_flag.syncs = 0

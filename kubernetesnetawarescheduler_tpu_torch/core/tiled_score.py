@@ -185,7 +185,7 @@ def score_pods_tiled(state: ClusterState, pods: PodBatch,
     out = out + score_lib.soft_zone_scores(state, pods, cfg)
     out = torch.where(score_lib.ns_affinity_ok(state, pods), out, NEG_INF)
     out = torch.where(score_lib.zone_affinity_ok(state, pods), out, NEG_INF)
-    if host_flag(score_lib.spread_active(pods).any()):
+    if host_flag(score_lib.spread_active(pods).any(), "tiled.spread_gate"):
         spread_pen, spread_ok = score_lib.spread_terms(
             state, pods, cfg,
             static_ok=score_lib.static_feasibility(state, pods))
@@ -206,7 +206,8 @@ def winner_joins_active(state: ClusterState, pods: PodBatch) -> bool:
                      | (pods.zaff_bits != 0).any()
                      | (pods.zanti_bits != 0).any()
                      | (state.az_anti != 0).any()
-                     | score_lib.spread_active(pods).any())
+                     | score_lib.spread_active(pods).any(),
+                     "tiled.winner_joins")
 
 
 def score_winner_tiled(state: ClusterState, pods: PodBatch,

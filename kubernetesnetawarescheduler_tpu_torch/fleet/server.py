@@ -50,6 +50,7 @@ from kubernetesnetawarescheduler_tpu_torch.fleet.batch import (
 from kubernetesnetawarescheduler_tpu_torch.fleet.transfer import (
     TransferRegistry,
 )
+from kubernetesnetawarescheduler_tpu_torch.utils import tracing
 
 
 def _pow2(n: int) -> int:
@@ -274,12 +275,11 @@ class FleetServer:
                 # Every tenant's span carries the SHARED dispatch wall:
                 # the whole bucket waits on one call, so that wall IS
                 # each tenant's score_assign cost this cycle.
-                sb.add_phase("score_assign", t0, dt)
-                loop.timer.record("score_assign", dt)
+                with loop._cycle(sb):
+                    tracing.record("score_assign", t0, dt)
                 cycle_rounds = int(rounds[k])
                 with loop._round_lock:
                     loop.round_samples.append(cycle_rounds)
-                loop._note_dispatch()
                 bound += loop._cycle_outputs(
                     sb, pods, batch, state, static, node_table, asg[k],
                     cycle_rounds, version, path="fleet")

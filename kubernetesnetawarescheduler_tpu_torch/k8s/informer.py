@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Callable, Sequence
 
 from kubernetesnetawarescheduler_tpu_torch.k8s.client import ClusterClient
@@ -29,12 +30,18 @@ class PodQueue:
     ``pop_batch`` drains up to ``max_batch`` pods — the batching the
     device path needs (the reference popped exactly one pod per cycle,
     scheduler.go:191).
+
+    ``push`` stamps when each pod entered; with ``records`` (the flight
+    recorder's :class:`~..utils.flight.PodRecords`) each pop hands the
+    popped pods' uids, their stamps and the pop's time to it.
     """
 
-    def __init__(self, capacity: int = 300) -> None:
+    def __init__(self, capacity: int = 300, records=None) -> None:
         self._capacity = capacity
         self._dq: collections.deque[Pod] = collections.deque()
-        self._queued: set[str] = set()
+        # Queued pods' keys -> perf_counter seconds at their push.
+        self._queued: dict[str, float] = {}
+        self.records = records
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         self.dropped = 0
@@ -62,7 +69,7 @@ class PodQueue:
                 self.dropped += 1
                 return False
             self._dq.append(pod)
-            self._queued.add(self._key(pod))
+            self._queued[self._key(pod)] = time.perf_counter()
             self._not_empty.notify()
             return True
 
@@ -70,15 +77,19 @@ class PodQueue:
                   ) -> list[Pod]:
         """Take up to ``max_batch`` pods; blocks up to ``timeout`` for
         the first one (None = non-blocking)."""
+        stamps = []
         with self._not_empty:
             if not self._dq and timeout:
                 self._not_empty.wait(timeout)
+            t = time.perf_counter()
             batch: list[Pod] = []
             while self._dq and len(batch) < max_batch:
                 pod = self._dq.popleft()
-                self._queued.discard(self._key(pod))
+                stamps.append((pod.uid, self._queued.pop(self._key(pod))))
                 batch.append(pod)
-            return batch
+        if self.records is not None and stamps:
+            self.records.popped(stamps, t)
+        return batch
 
 
 class Informer:

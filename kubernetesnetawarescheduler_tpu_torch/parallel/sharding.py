@@ -132,12 +132,13 @@ class Mesh:
         dist.all_reduce(t, op=_OPS[op], group=self._groups[axis])
         return t.reshape(x.shape).to(device=x.device, dtype=x.dtype)
 
-    def flag(self, pred) -> bool:
+    def flag(self, pred, site: str) -> bool:
         """A predicate read once on the host, OR-ed over the world: every
         rank takes the same branch, so every rank joins the same
-        collectives after it.  One :func:`~..core.state.host_flag`."""
+        collectives after it.  One :func:`~..core.state.host_flag`, at
+        ``mesh.<site>``."""
         t = torch.as_tensor(pred).to(torch.int32).reshape(1)
-        return host_flag(self.reduce(t, "max", "world")[0])
+        return host_flag(self.reduce(t, "max", "world")[0], "mesh." + site)
 
     def __repr__(self) -> str:
         return (f"Mesh(dp={self.dp}, tp={self.tp}, rank={self.rank}, "
@@ -298,7 +299,7 @@ class _StaticCache:
         key = tuple(getattr(placed, k) for k in self._KEYS)
         stale = self._key is None or any(
             a is not b for a, b in zip(key, self._key))
-        if self._mesh.flag(torch.tensor(stale)):
+        if self._mesh.flag(torch.tensor(stale), "static_stale"):
             self._val = self._build(placed)
             self._key = key
         return self._val

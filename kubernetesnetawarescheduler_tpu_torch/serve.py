@@ -27,7 +27,9 @@ What differs from the JAX daemon:
   is the nvcc library, so a persistent volume there skips the build.
 - ``--jax-profile-dir`` (its name kept so deploy command lines carry
   over) wraps the run in ``torch.profiler`` and writes a Chrome trace
-  there; every device step carries the flight recorder's cycle id.
+  there; every cycle is a ``netaware.cycle <id>`` range, with the flight
+  recorder's cycle id, and its spans ``netaware.<name>`` ranges inside
+  it (``utils/tracing.py``).
 - ``--mesh`` alone serves on a 1×1 mesh on the daemon's card: torch
   drives one device per process, so the daemon builds a one-rank process
   group itself.  Larger meshes come through ``--multihost``, one process
@@ -778,7 +780,6 @@ def _serve(ap, args, cfg: SchedulerConfig, device, mesh,
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.__enter__()
-        loop.profile_steps = True
         print(f"torch profiler tracing to {args.jax_profile_dir}",
               file=sys.stderr)
     crash_dump_path = args.crash_dump or (
@@ -812,7 +813,6 @@ def _serve(ap, args, cfg: SchedulerConfig, device, mesh,
         for t in threads:
             t.join(timeout=5.0)
         if profiler is not None:
-            loop.profile_steps = False
             try:
                 profiler.__exit__(None, None, None)
                 profiler.export_chrome_trace(

@@ -13,10 +13,11 @@ gap.  This module is the repro's equivalent:
   version lag, breaker + degraded-mode state, delta-vs-full ingest
   bytes, fault class).
 * :class:`FlightRecorder` — a bounded ring buffer of the most recent
-  spans plus a bounded store of per-pod explain records.  Overflow
-  evicts oldest and counts ``dropped`` (scrapeable as
-  ``netaware_flight_dropped_total``); RSS stays O(capacity) no matter
-  how long the serve runs.
+  spans plus a bounded store of per-pod explain records and a bounded
+  ring of per-pod timelines (:class:`PodRecords`: enqueued, popped,
+  bind acknowledged).  Overflow evicts oldest and counts ``dropped``
+  (scrapeable as ``netaware_flight_dropped_total``); RSS stays
+  O(capacity) no matter how long the serve runs.
 * :func:`FlightRecorder.to_chrome_trace` — Chrome trace-event JSON
   (Perfetto-loadable: ``ph:"X"`` complete events, phases nested under
   their cycle by time containment on one tid).
@@ -43,8 +44,17 @@ __all__ = [
     "CycleSpan",
     "FlightRecorder",
     "NULL_SPAN",
+    "PodRecords",
     "SpanBuilder",
+    "recent",
 ]
+
+# The newest recorders of this process, kept past their loop (bounded):
+# a reader in the same process — a post-mortem hook after a fault tore
+# the loop down, an in-process benchmark after its run — reaches a
+# loop's record through :func:`recent`.  Holding a recorder changes
+# nothing it records.
+_RECENT: collections.deque = collections.deque(maxlen=4)
 
 
 @dataclass(frozen=True)
@@ -72,17 +82,11 @@ class CycleSpan:
     fault_class: str | None = None
     delta_bytes: int = 0
     full_bytes: int = 0
-    # Fused-step accounting: conflict rounds the device
-    # executed for this cycle's batches (max across a burst's batches
-    # — the round-bound share of the cycle's device time), and the
-    # donation disposition of the dispatch (buffers donated vs skips
-    # counted because the caller did not own the state; see
-    # core/assign.fused_schedule_step's contract).  Default-valued so
-    # spans recorded by older code paths (and pre-r9 crash dumps)
-    # deserialize unchanged.
+    # Conflict rounds the device executed for this cycle's batches
+    # (max across a burst's batches — the round-bound share of the
+    # cycle's device time).  Default-valued so spans recorded by older
+    # code paths deserialize unchanged.
     rounds: int = 0
-    donated: int = 0
-    donation_skipped: int = 0
     # Outcome observability: the SLO objective burning when
     # this cycle committed (None = all objectives healthy or engine
     # off) and the quality observer's outcome-ring depth — so a trace
@@ -157,8 +161,6 @@ class CycleSpan:
             "delta_bytes": self.delta_bytes,
             "full_bytes": self.full_bytes,
             "rounds": self.rounds,
-            "donated": self.donated,
-            "donation_skipped": self.donation_skipped,
             "slo_burning": self.slo_burning,
             "outcome_ring_depth": self.outcome_ring_depth,
             "rebalance_moves": self.rebalance_moves,
@@ -245,6 +247,53 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class PodRecords:
+    """Bounded ring of per-pod timelines, keyed by pod uid:
+    ``[enqueued, popped, acked]`` in ``perf_counter`` seconds — when the
+    queue took the pod, when a cycle popped it, and when the API server
+    acknowledged its bind (None until then, or if it never does).  A
+    record is made at the pop (a pod popped again starts a new one, at
+    the newest end); past ``capacity`` the oldest is evicted and counted
+    in ``dropped``.  Thread-safe: the cycle thread pops, the async bind
+    worker acknowledges."""
+
+    def __init__(self, capacity: int) -> None:
+        self.capacity = max(1, int(capacity))
+        self._recs: collections.OrderedDict[str, list] = (
+            collections.OrderedDict())
+        self._lock = threading.Lock()
+        self.dropped = 0
+
+    def popped(self, stamps, t: float) -> None:
+        """``stamps``: ``(uid, enqueued)`` of the pods one pop took at
+        ``t``."""
+        with self._lock:
+            recs = self._recs
+            for uid, enqueued in stamps:
+                recs.pop(uid, None)
+                recs[uid] = [enqueued, t, None]
+            while len(recs) > self.capacity:
+                recs.popitem(last=False)
+                self.dropped += 1
+
+    def acked(self, uids, t: float) -> None:
+        with self._lock:
+            recs = self._recs
+            for uid in uids:
+                rec = recs.get(uid)
+                if rec is not None:
+                    rec[2] = t
+
+    def records(self) -> list[tuple[str, float, float, float | None]]:
+        """``(uid, enqueued, popped, acked)``, oldest pop first."""
+        with self._lock:
+            return [(uid, *rec) for uid, rec in self._recs.items()]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._recs)
+
+
 class FlightRecorder:
     """Bounded ring buffer of :class:`CycleSpan` + bounded per-pod
     explain store.  All methods are thread-safe (serving thread
@@ -252,9 +301,14 @@ class FlightRecorder:
     touches it)."""
 
     def __init__(self, capacity: int = 512,
-                 explain_retain: int = 512) -> None:
+                 explain_retain: int = 512,
+                 pod_records: int = 0) -> None:
         self.capacity = int(capacity)
         self.explain_retain = int(explain_retain)
+        # Per-pod timelines (0 keeps none); the loop hands the ring to
+        # its queue, which stamps the pops.
+        self.pods: PodRecords | None = (PodRecords(pod_records)
+                                        if pod_records > 0 else None)
         self._spans: collections.deque[CycleSpan] = collections.deque(
             maxlen=max(1, self.capacity))
         self._explains: collections.OrderedDict[str, dict[str, Any]] = (
@@ -271,6 +325,7 @@ class FlightRecorder:
         # is empty because the process restarted (restored)", not
         # "nothing ever ran" (empty-but-versioned contract).
         self.meta: dict[str, Any] = {"checkpoint_state": "fresh"}
+        _RECENT.append(self)
 
     # -- span side ---------------------------------------------------
 
@@ -339,11 +394,14 @@ class FlightRecorder:
         ``ph:"X"`` complete events, phases are ``ph:"X"`` events whose
         [ts, ts+dur] interval is clamped inside their cycle's, so the
         viewer nests them and tools/trace_check.py can verify no span
-        is orphaned."""
+        is orphaned.  ``pods`` holds the per-pod timelines as
+        ``[uid, enqueued, popped, acked]`` on the events' clock (µs;
+        ``acked`` null until the bind is acknowledged)."""
         # One lock acquisition for spans AND counters: a commit landing
         # between two separate snapshots would make the recorder block
         # disagree with the event list (tools/trace_check.py pins
         # spans == number of cycle events).
+        pods = self.pods.records() if self.pods is not None else []
         with self._lock:
             spans = list(self._spans)
             recorder = {
@@ -355,6 +413,11 @@ class FlightRecorder:
                 "explain_retain": self.explain_retain,
                 "explains_dropped": self.explains_dropped,
                 "explains_failed": self.explains_failed,
+                "pod_records": len(pods),
+                "pod_records_capacity": (self.pods.capacity
+                                         if self.pods is not None else 0),
+                "pod_records_dropped": (self.pods.dropped
+                                        if self.pods is not None else 0),
             }
             meta = dict(self.meta, explains_failed=self.explains_failed)
         events: list[dict[str, Any]] = [
@@ -390,6 +453,9 @@ class FlightRecorder:
             "displayTimeUnit": "ms",
             "metadata": meta,
             "recorder": recorder,
+            "pods": [[uid, round(enq * 1e6, 3), round(pop * 1e6, 3),
+                      None if ack is None else round(ack * 1e6, 3)]
+                     for uid, enq, pop, ack in pods],
         }
 
     def worst_cycle(self) -> CycleSpan | None:
@@ -430,3 +496,9 @@ class FlightRecorder:
             json.dump(doc, fh, indent=1, sort_keys=True)
         os.replace(tmp, path)
         return path
+
+
+def recent() -> list[FlightRecorder]:
+    """The newest flight recorders this process made, oldest first (at
+    most four, each kept past its loop)."""
+    return list(_RECENT)

@@ -354,16 +354,11 @@ def render_metrics(loop) -> str:
             "Host-to-device snapshot bytes moved as full-array "
             "re-uploads")
 
-    # Fused-step accounting (r9, core/loop._note_dispatch): recompile
-    # and donation observables.  jit_cache_miss_total must FLATLINE
-    # after warmup — steady-state growth is a recompile the bucketed
-    # batch-size ladder should have prevented (regression-tested in
-    # tests/test_winner_fusion.py).  The serving loop's dispatches
-    # never donate (its snapshot is encoder-owned, patched in place by
-    # delta ingest), so donation_skipped grows one per dispatch while
-    # donated moves only on owned-state paths (bench chain, replay
-    # folds) — a nonzero donated here would mean the loop donated
-    # buffers it does not own.
+    # Fused-step accounting (r9): recompile and donation observables.
+    # jit_cache_miss_total must FLATLINE after warmup — steady-state
+    # growth is a recompile the bucketed batch-size ladder should have
+    # prevented (regression-tested in tests/test_winner_fusion.py).
+    # torch has no buffer donation, so donated stays 0 on the port.
     counter("netaware_jit_cache_miss_total",
             float(getattr(loop, "jit_cache_miss_total", 0)),
             "Executable-cache growth across the tracked jitted "
@@ -372,10 +367,6 @@ def render_metrics(loop) -> str:
             float(getattr(loop, "donated_total", 0)),
             "Device dispatches that donated the cluster-state "
             "buffers (fused_schedule_step on owned state)")
-    counter("netaware_donation_skipped_total",
-            float(getattr(loop, "donation_skipped_total", 0)),
-            "Device dispatches that could NOT donate (the serving "
-            "snapshot is encoder-owned and patched in place)")
     # The serving thread and the async refresh worker append to these
     # deques lock-free (appends are atomic; only iteration can see a
     # mutation and raise RuntimeError) — retry the snapshot instead of

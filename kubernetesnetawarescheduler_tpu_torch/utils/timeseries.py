@@ -39,6 +39,7 @@ the scrape stays small.
 from __future__ import annotations
 
 import bisect
+import collections
 import math
 import threading
 from typing import Any, Iterator
@@ -91,10 +92,10 @@ class LogHistogram:
         self._count = 0             # exact, never evicts
         self._sum = 0.0             # exact, never evicts
         # (value, count) pairs, newest last; bounded like PhaseTimer's
-        # per-phase deque but stored as a list ring to keep __slots__
-        # simple (evictions pop from the front in O(k) amortized).
-        self._window: list[tuple[float, int]] = []
+        # per-phase deque (an append past the bound evicts the oldest).
         self._maxlen = max(1, int(window))
+        self._window: collections.deque[tuple[float, int]] = (
+            collections.deque(maxlen=self._maxlen))
         self._lock = threading.Lock()
 
     # -- recording ---------------------------------------------------
@@ -114,8 +115,6 @@ class LogHistogram:
             self._count += count
             self._sum += value * count
             self._window.append((value, count))
-            if len(self._window) > self._maxlen:
-                del self._window[0:len(self._window) - self._maxlen]
 
     # Deque drop-in surface (the ad-hoc deques this class replaces
     # were appended/extended with bare floats, listed, len()'d,

@@ -1,10 +1,22 @@
-"""Self-metrics: per-phase latency histograms and throughput counters.
+"""Self-metrics: per-phase latency histograms and throughput counters,
+and the port's one span call.
 
 The reference had no observability of itself at all — only ``println``
 debugging of scraped values (scheduler.go:517, :525-526) and a node-name
 log line (scheduler.go:182).  Here per-phase (encode / score / assign /
 bind) timings and percentiles are first-class, because the north-star
 target is expressed as one (p99 Score() < 5 ms, BASELINE.json).
+
+:func:`span` times a stretch of a serving cycle by name.  Inside a cycle
+(:func:`cycle`, which the loop enters with its ``PhaseTimer`` and the
+cycle's flight-recorder span) it lands in both: the timer's exact count
+and total, and the cycle's child spans, nested by time containment.
+While a torch profiler is collecting, it is also a
+``torch.profiler.record_function`` range named ``netaware.<name>``, so
+the program's spans sit on the device trace's own timeline.  Free
+functions of ``core/`` call it without a handle: the cycle's sink is
+thread-local.  Outside a cycle and with no profiler running it returns
+one shared null context.
 """
 
 from __future__ import annotations
@@ -14,6 +26,8 @@ import contextlib
 import threading
 import time
 from typing import Deque, Iterator, Mapping
+
+from torch.autograd import profiler as _autograd_profiler
 
 # Per-phase retention ceiling for the percentile window.  The 25-minute
 # soak (soak.json r5) accumulated 208,210 timer entries — 28.5 MB of RSS
@@ -183,3 +197,128 @@ class PhaseTimer:
             self._samples.clear()
             self._counts.clear()
             self._totals.clear()
+
+
+# ---------------------------------------------------------------------------
+# The span call.
+# ---------------------------------------------------------------------------
+
+#: What :func:`span` returns outside a cycle with no profiler running.
+NULL = contextlib.nullcontext()
+
+#: Profiler range names carry this prefix (``netaware.assign.round``,
+#: ``netaware.cycle 17``).
+PREFIX = "netaware."
+
+
+class _Sink:
+    """Where the spans of the running cycle land: the loop's timer and
+    the cycle's ``SpanBuilder`` (``NULL_SPAN`` when the flight recorder
+    is off)."""
+
+    __slots__ = ("timer", "builder")
+
+    def __init__(self, timer, builder) -> None:
+        self.timer = timer
+        self.builder = builder
+
+
+class _Local(threading.local):
+    sink: _Sink | None = None
+
+
+_LOCAL = _Local()
+
+
+def _profiling() -> bool:
+    """Whether a torch profiler is collecting: one module-attribute
+    read, where an unconditional ``record_function`` costs microseconds
+    even with no profiler running."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _land(sink: _Sink, name: str, start: float, dur: float,
+          weight: int) -> None:
+    sink.timer.record(name, dur / weight, count=weight)
+    sink.builder.add_phase(name, start, dur)
+
+
+class _Span:
+    __slots__ = ("_name", "_sink", "_weight", "_start", "_range")
+
+    def __init__(self, name: str, sink: _Sink | None, weight: int) -> None:
+        self._name = name
+        self._sink = sink
+        self._weight = weight
+        self._range = None
+
+    def __enter__(self) -> "_Span":
+        if _profiling():
+            self._range = _autograd_profiler.record_function(
+                PREFIX + self._name)
+            self._range.__enter__()
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dur = time.perf_counter() - self._start
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self._sink is not None:
+            _land(self._sink, self._name, self._start, dur, self._weight)
+
+
+def span(name: str, weight: int = 1):
+    """Time the ``with`` block as span ``name`` (see the module doc).
+
+    ``weight`` records the block into the timer as ``weight`` samples of
+    ``duration / weight`` — a burst cycle's per-batch-normalised phase —
+    so the timer's total stays the block's wall time; the cycle's child
+    span is the block's own interval either way."""
+    sink = _LOCAL.sink
+    if sink is None and not _profiling():
+        return NULL
+    return _Span(name, sink, weight)
+
+
+def record(name: str, start: float, dur: float, weight: int = 1) -> None:
+    """Land an interval timed elsewhere (another thread's work, a share
+    of a window) as span ``name`` of the running cycle, as :func:`span`
+    would have; no profiler range.  No-op outside a cycle."""
+    sink = _LOCAL.sink
+    if sink is not None:
+        _land(sink, name, start, dur, weight)
+
+
+class _Cycle:
+    __slots__ = ("_sink", "_prev", "_range")
+
+    def __init__(self, sink: _Sink) -> None:
+        self._sink = sink
+        self._range = None
+
+    def __enter__(self) -> "_Cycle":
+        self._prev = _LOCAL.sink
+        _LOCAL.sink = self._sink
+        if _profiling():
+            self._range = _autograd_profiler.record_function(
+                f"{PREFIX}cycle {self._sink.builder.cycle_id}")
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _LOCAL.sink = self._prev
+
+
+def cycle(timer, builder):
+    """Make ``(timer, builder)`` the sink of the spans this thread opens
+    inside the ``with`` block; while a profiler collects, the block is
+    the range ``netaware.cycle <builder.cycle_id>``, the id
+    ``/debug/trace`` shows.  Re-entering the sink already in place is a
+    no-op, so a cycle's halves may each enter it."""
+    cur = _LOCAL.sink
+    if cur is not None and cur.builder is builder and cur.timer is timer:
+        return NULL
+    return _Cycle(_Sink(timer, builder))

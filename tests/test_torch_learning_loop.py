@@ -147,8 +147,11 @@ def _drive(pkg, path: str, backend: str = "xla"):
                    pol.shadow_agree_total + pol.shadow_disagreement_total),
         "netmodel": (model.steps_total, model.fits_total,
                      model.pairs_observed),
+        # The port has no donation-skip counter (torch donates no
+        # buffers; tests/test_torch_api.py pins the difference).
         "families": sorted(ln.split()[2] for ln in body.splitlines()
-                           if ln.startswith("# TYPE ")),
+                           if ln.startswith("# TYPE ")
+                           and "netaware_donation_skipped_total" not in ln),
         "slo_keys": (sorted(slo), sorted(slo["slo"]),
                      sorted(slo["slo"]["objectives"]),
                      sorted(slo["quality"])),
