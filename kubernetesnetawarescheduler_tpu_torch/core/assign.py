@@ -16,17 +16,21 @@ Both are deterministic: ties break on (higher priority, lower pod index,
 lower node index).  The JAX ``lax.while_loop`` becomes a Python loop
 whose continue test is one host sync per round, and each ``lax.cond``
 gate a Python ``if`` on a scalar (:func:`~.state.host_flag` counts both).
+:func:`assign_parallel`'s round has no gate of its own, and on a CUDA
+device it is one replay of a CUDA graph (:mod:`.round_graph`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
 from torch.func import vmap
 
 from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
+from kubernetesnetawarescheduler_tpu_torch.core import round_graph
 from kubernetesnetawarescheduler_tpu_torch.core import score as score_lib
 from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
 from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
@@ -270,15 +274,31 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
     conflict rounds executed (a Python int; each round costs one host
     sync for its continue test).
 
+    On a CUDA device each round is one launch of a CUDA graph of the
+    round body (:mod:`.round_graph`, captured once per thread and
+    shape); elsewhere the same body runs eagerly.
+
     Spans (:func:`~..utils.tracing.span`): ``assign.static`` over the
-    set-up up to the first continue test, ``assign.round`` over each
-    round with its continue test."""
+    set-up up to the first continue test (with ``assign.capture`` around
+    a new shape's capture), ``assign.round`` over each round with its
+    continue test, and inside it ``assign.replay`` around a graph launch
+    or ``assign.eager`` around an eager round."""
     with span("assign.static"):
-        body, carry, go = _parallel_setup(state, pods, cfg, static)
+        t, carry, zone_work, go = _parallel_setup(state, pods, cfg, static)
+        if go and carry[0].is_cuda:
+            launch = "assign.replay"
+            body = round_graph.acquire(
+                (zone_work, float(np.float32(cfg.weights.balance)),
+                 float(np.float32(cfg.weights.spread))), t, carry,
+                lambda ins: _round_body(ins, cfg, zone_work))
+        else:
+            launch = "assign.eager"
+            body = _round_body(t, cfg, zone_work)
     rounds = 0
     while go:
         with span("assign.round"):
-            *carry, cont = body(*carry)
+            with span(launch):
+                *carry, cont = body(*carry)
             go = host_flag(cont, "assign.continue")
         rounds += 1
     assignment = torch.where(pods.pod_valid, carry[6], UNASSIGNED)
@@ -287,11 +307,19 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
     return assignment
 
 
+# The pod fields the round body reads (:func:`_round_body`).
+_ROUND_PODS = ("req", "affinity_bits", "anti_bits", "group_bit",
+               "pod_valid", "group_idx", "spread_maxskew", "spread_hard",
+               "zaff_bits", "zanti_bits")
+
+
 def _parallel_setup(state: ClusterState, pods: PodBatch,
                     cfg: SchedulerConfig, static=None):
-    """:func:`assign_parallel`'s set-up: the static parts, the round
-    ``body``, the first carry and whether a first round runs (the first
-    continue test, one host sync)."""
+    """:func:`assign_parallel`'s set-up: ``(t, carry, zone_work, go)``,
+    the tensors the round body reads (:func:`_round_body`), the first
+    carry, whether the batch has zone-scoped work (one host sync) and
+    whether a first round runs (the first continue test, one host
+    sync)."""
     p = pods.num_pods
     n = state.num_nodes
     if (n + 1) * p > _INT32_MAX:
@@ -305,7 +333,6 @@ def _parallel_setup(state: ClusterState, pods: PodBatch,
                                      transposed=True)
     w_bal = float(np.float32(cfg.weights.balance))
     pod_ids = torch.arange(p, dtype=torch.int32, device=dev)
-    row_ids = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
     cap = state.cap
     cap_eps = cap.clamp_min(_EPS)
     req = pods.req
@@ -313,24 +340,18 @@ def _parallel_setup(state: ClusterState, pods: PodBatch,
     order = torch.argsort(-pods.priority, stable=True)
     rank = torch.zeros((p,), dtype=torch.int32, device=dev)
     rank[order] = pod_ids
-    mask_b = 32 * pods.group_bit.shape[1]
-    gb_planes = bit_planes(pods.group_bit, torch.int32)
-    ab_planes = bit_planes(pods.anti_bits, torch.int32)
     zpair_conflict = (
         (((pods.zanti_bits[:, None, :] & pods.group_bit[None, :, :]) != 0)
          .any(dim=-1)
          | ((pods.group_bit[:, None, :] & pods.zanti_bits[None, :, :]) != 0)
          .any(dim=-1))
         & (rank[:, None] < rank[None, :]))
-
-    def argmax2(s_m):
-        """(choice, best, second_best) over axis 0 of ``[N, P]``: first
-        max, and the best value on any OTHER row."""
-        best = s_m.amax(dim=0)
-        choice = torch.where(s_m == best[None, :], row_ids, n).amin(dim=0)
-        second = torch.where(row_ids == choice[None, :], NEG_INF,
-                             s_m).amax(dim=0)
-        return choice.to(torch.int32), best, second
+    t = {"rawT": rawT, "okT": static_okT, "rank": rank,
+         "gbp": bit_planes(pods.group_bit, torch.int32),
+         "abp": bit_planes(pods.anti_bits, torch.int32),
+         "zpc": zpair_conflict, "cap": cap, "cap_eps": cap_eps,
+         "node_zone": state.node_zone,
+         **{k: getattr(pods, k) for k in _ROUND_PODS}}
 
     def core_scores_t(used, group_bits, resident_anti, assignment):
         """The carried CORE matrix ``f32[N, P]``: raw score minus
@@ -357,17 +378,59 @@ def _parallel_setup(state: ClusterState, pods: PodBatch,
         score_lib.spread_active(pods).any()
         | (pods.zaff_bits != 0).any() | (pods.zanti_bits != 0).any()
         | (state.az_anti != 0).any(), "assign.zone_work")
+
+    assignment = torch.full((p,), UNASSIGNED, dtype=torch.int32, device=dev)
+    carry = (core_scores_t(state.used, state.group_bits,
+                           state.resident_anti, assignment),
+             state.used, state.group_bits, state.resident_anti,
+             state.gz_counts, state.az_anti, assignment)
+    return t, carry, zone_work, host_flag((carry[0] > NEG_HALF).any(),
+                                          "assign.continue")
+
+
+def _round_body(t: dict, cfg: SchedulerConfig, zone_work: bool):
+    """One conflict round, ``body(*carry) -> (*new_carry, cont)``, that
+    reads its batch only through ``t`` (:func:`_parallel_setup`) and
+    ``zone_work``, and makes no host sync, so a CUDA graph can capture
+    it.
+
+    The zone overlay takes :func:`~.score.spread_terms_ungated` and
+    :func:`~.score.zone_affinity_ungated`, and the second-chance pass
+    runs in every round without zone work.  Where pass A leaves no pod
+    that could take it, pass B finds no feasible proposal (``val_b <=
+    val <= NEG_HALF``), accepts no pod, adds exact zeros to ``used`` and
+    writes only the drop-sentinel row: the round the JAX package gates
+    on that test, bit for bit."""
+    rawT, static_okT = t["rawT"], t["okT"]
+    n, p = rawT.shape
+    dev = rawT.device
+    state = types.SimpleNamespace(node_zone=t["node_zone"])
+    pods = types.SimpleNamespace(**{k: t[k] for k in _ROUND_PODS})
+    w_bal = float(np.float32(cfg.weights.balance))
+    row_ids = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    cap, cap_eps, req = t["cap"], t["cap_eps"], pods.req
+    rank, gb_planes, ab_planes = t["rank"], t["gbp"], t["abp"]
+    zpair_conflict = t["zpc"]
+    mask_b = 32 * pods.group_bit.shape[1]
     static_ok_pn = static_okT.T if zone_work else None
+
+    def argmax2(s_m):
+        """(choice, best, second_best) over axis 0 of ``[N, P]``: first
+        max, and the best value on any OTHER row."""
+        best = s_m.amax(dim=0)
+        choice = torch.where(s_m == best[None, :], row_ids, n).amin(dim=0)
+        second = torch.where(row_ids == choice[None, :], NEG_INF,
+                             s_m).amax(dim=0)
+        return choice.to(torch.int32), best, second
 
     def overlay(sT, gz, az):
         """Zone-scoped terms against the CURRENT zone state: the spread
         penalty/mask and zone (anti-)affinity."""
         if not zone_work:
             return sT
-        spread_pen, spread_ok = score_lib.spread_terms(
-            state, pods, cfg, gz_counts=gz, static_ok=static_ok_pn)
-        zone_ok = score_lib.zone_affinity_ok(state, pods, gz_counts=gz,
-                                             az_anti=az)
+        spread_pen, spread_ok = score_lib.spread_terms_ungated(
+            state, pods, cfg, gz, static_ok=static_ok_pn)
+        zone_ok = score_lib.zone_affinity_ungated(state, pods, gz, az)
         return torch.where((spread_ok & zone_ok).T, sT - spread_pen.T,
                            NEG_INF)
 
@@ -481,8 +544,8 @@ def _parallel_setup(state: ClusterState, pods: PodBatch,
         zone_of = state.node_zone[choice_l]
         s_active = (winner & score_lib.spread_active(pods)
                     & (zone_of >= 0))
-        zdim = state.gz_counts.shape[1]
-        gzmax = state.gz_counts.shape[0] * zdim
+        zdim = gz.shape[1]
+        gzmax = gz.shape[0] * zdim
         gz_id = torch.where(s_active, pods.group_idx * zdim + zone_of,
                             gzmax + rank)
         key2 = gz_id * p + rank
@@ -511,9 +574,9 @@ def _parallel_setup(state: ClusterState, pods: PodBatch,
         # Second-chance pass: pods rejected at their argmax node
         # re-propose their best UNTOUCHED node in the same round, only
         # where it beats their best re-priced pass-A alternative.  Off
-        # under zone work (pass A may move zone state).
-        if not zone_work and host_flag((~winner & feasible).any(),
-                                       "assign.second_chance"):
+        # under zone work (pass A may move zone state).  It runs whatever
+        # pass A left (see the docstring).
+        if not zone_work:
             va_new = sub_a.amax(dim=0)
             s_b = _set_rows(sT, wnodes_a, torch.full_like(sub_a, NEG_INF))
             alive_b = alive & ~winner
@@ -550,13 +613,7 @@ def _parallel_setup(state: ClusterState, pods: PodBatch,
         return (new_sT, new_used, new_group, new_anti, new_gz, new_az,
                 new_assignment, cont)
 
-    assignment = torch.full((p,), UNASSIGNED, dtype=torch.int32, device=dev)
-    carry = (core_scores_t(state.used, state.group_bits,
-                           state.resident_anti, assignment),
-             state.used, state.group_bits, state.resident_anti,
-             state.gz_counts, state.az_anti, assignment)
-    return body, carry, host_flag((carry[0] > NEG_HALF).any(),
-                                  "assign.continue")
+    return body
 
 
 # ---------------------------------------------------------------------------

@@ -32,11 +32,18 @@ KW = dict(max_nodes=160, max_pods=24, max_peers=6, use_bfloat16=False)
 SMALL = dict(max_nodes=16, max_pods=12, max_peers=4, use_bfloat16=False)
 
 
-def _both(seed, kw, n_nodes, n_pods, **gen_kw):
+def _both(seed, kw, n_nodes, n_pods, zone=True, **gen_kw):
+    """Both packages' (cfg, state, pods) for one random instance;
+    ``zone=False`` drops its zone-scoped terms (spread, zone
+    (anti-)affinity, zone-anti residents) and keeps the rest."""
     jcfg, tcfg = JCfg(**kw), TCfg(**kw)
     rng = np.random.default_rng(seed)
     state_np, pods_np = gen.random_instance(rng, jcfg, n_nodes=n_nodes,
                                             n_pods=n_pods, **gen_kw)
+    if not zone:
+        for key in ("spread_maxskew", "zaff_bits", "zanti_bits"):
+            pods_np[key] = np.zeros_like(pods_np[key])
+        state_np["az_anti"] = np.zeros_like(state_np["az_anti"])
     js, jp = gen.to_pytrees(jcfg, state_np, pods_np)
     ts = tstate.state_from_numpy(tcfg, state_np, "cpu")
     tp = tstate.pods_from_numpy(tcfg, pods_np, "cpu")
@@ -65,6 +72,36 @@ def test_small_contended_batches_match_jax(seed):
                        (jassign.assign_greedy, tassign.assign_greedy)):
         np.testing.assert_array_equal(fn_t(ts, tp, tcfg).numpy(),
                                       np.asarray(fn_j(js, jp, jcfg)))
+
+
+@pytest.mark.parametrize("zone", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 3, 5, 7])
+def test_round_without_host_gates_matches_jax(seed, zone, monkeypatch):
+    """The port's round has no host gate (the body a CUDA graph
+    captures): its second-chance pass runs whatever pass A left, and its
+    zone overlay is ungated.  Its assignment and round count equal the
+    JAX package's, which gates both.  Few nodes and many pods: without
+    zone terms pass B places pods in some rounds of these seeds and none
+    in others; with them it never runs."""
+    jcfg, tcfg, js, jp, ts, tp = _both(seed, SMALL, 12, 10, zone=zone)
+    placed = []
+    add = tassign.scatter_add_rows
+
+    def counted(base, idx, vals, mask):
+        placed.append(int(mask.sum()))
+        return add(base, idx, vals, mask)
+
+    monkeypatch.setattr(tassign, "scatter_add_rows", counted)
+    want, want_rounds = jassign.assign_parallel(js, jp, jcfg,
+                                                with_stats=True)
+    got, rounds = tassign.assign_parallel(ts, tp, tcfg, with_stats=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert rounds == int(want_rounds)
+    if zone:
+        assert len(placed) == rounds
+    else:
+        assert len(placed) == 2 * rounds
+        assert 0 in placed[1::2]
 
 
 @pytest.mark.parametrize("seed", [0, 1])

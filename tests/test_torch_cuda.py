@@ -913,3 +913,81 @@ def test_lanes_assign_and_commit_match_solo_on_card(cuda, backend):
                   "az_anti"):
             assert torch.equal(getattr(new, f)[k], getattr(s_new, f)), f
     assert len(set(rounds.tolist())) >= 1 and int(rounds.max()) > 1
+
+
+def test_round_graph_replays_the_eager_rounds(cuda, monkeypatch):
+    """On the card ``assign_parallel`` replays each round as a CUDA graph
+    (``core/round_graph.py``): batches of one shape in turn, a batch of a
+    second shape, and batches of the first shape with zone work (its own
+    capture: no second chance, the zone overlay) give the eager round
+    body's assignments, rounds and committed planes bit for bit.  Each
+    shape captures once (span ``assign.capture``), every round is one
+    replay (``assign.replay``, no ``assign.eager``), and a returned
+    assignment is the caller's own: the next batch leaves it
+    unchanged."""
+    import collections
+
+    from kubernetesnetawarescheduler_tpu_torch.core import (
+        assign as assign_lib,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core import round_graph
+    from kubernetesnetawarescheduler_tpu_torch.core.state import (
+        commit_assignments,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.utils import tracing
+    from kubernetesnetawarescheduler_tpu_torch.utils.flight import NULL_SPAN
+
+    def drive(pods_per_batch, batches, seed, zone=False):
+        cfg = SchedulerConfig(max_nodes=320, max_pods=pods_per_batch,
+                              max_peers=4, score_backend="pallas")
+        state, stream = synthetic_density(300, batches * pods_per_batch,
+                                          cfg, seed=seed, device=cuda)
+        # Tight capacity: contended nodes and several rounds.
+        state = state.replace(cap=state.cap * 0.05)
+        if zone:
+            zones = torch.arange(cfg.max_nodes, device=cuda) % 3
+            state = state.replace(node_zone=torch.where(
+                state.node_valid, zones, -1).to(torch.int32))
+        node_of = torch.full((stream.num_pods,), -1, dtype=torch.int32,
+                             device=cuda)
+        out = []
+        for i in range(batches):
+            lo, hi = i * pods_per_batch, (i + 1) * pods_per_batch
+            pods = batch_from_stream(stream.slice(lo, hi), node_of)
+            if zone:
+                pods = pods.replace(
+                    group_idx=(torch.arange(pods_per_batch, device=cuda)
+                               % 2).to(torch.int32),
+                    spread_maxskew=pods.pod_valid.to(torch.int32))
+            a, r = assign_lib.assign_parallel(state, pods, cfg,
+                                              with_stats=True)
+            out.append((a, a.clone(), r))
+            state = commit_assignments(state, pods, a)
+            node_of[lo:hi] = a
+        return out, state
+
+    plan = ((100, 4, 0, False), (64, 2, 1, False), (100, 2, 2, True))
+    with monkeypatch.context() as eager:
+        # The batch's own tensors, the body run eagerly.
+        eager.setattr(round_graph, "acquire",
+                      lambda key, ins, carry, build: build(ins))
+        want = [drive(*args) for args in plan]
+    monkeypatch.setattr(round_graph, "_ENTRIES", collections.OrderedDict())
+    timer = tracing.PhaseTimer()
+    with tracing.cycle(timer, NULL_SPAN):
+        got = [drive(*args) for args in plan]
+    torch.cuda.synchronize()
+    rounds = 0
+    for (w_out, w_state), (g_out, g_state) in zip(want, got):
+        for (wa, _, wr), (ga, ga0, gr) in zip(w_out, g_out):
+            assert torch.equal(ga, wa) and gr == wr
+            assert torch.equal(ga, ga0)
+            rounds += gr
+        for f in ("used", "group_bits", "resident_anti", "gz_counts",
+                  "az_anti"):
+            assert torch.equal(getattr(g_state, f), getattr(w_state, f)), f
+    assert rounds > len(plan) * 2
+    assert timer.count("assign.capture") == len(plan)
+    assert timer.count("assign.replay") == rounds
+    assert timer.count("assign.round") == rounds
+    assert timer.count("assign.eager") == 0
