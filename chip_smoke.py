@@ -13,7 +13,8 @@ csrc`` and prints one JSON object per phase:
 
 1. ``device``   the card (``nvidia-smi`` name and power limit), torch and
                 CUDA versions, the kernels' build time and ``ptxas``
-                report; fails if a score kernel spills.
+                report (the score and round kernels' spills); fails if
+                a score kernel spills.
 2. ``kernels``  each kernel against its plain PyTorch version on the card
                 at P=128, N=5120, with ``use_bfloat16`` off and on, on a
                 stream batch and on a dense seeded traffic matrix: the
@@ -27,16 +28,24 @@ csrc`` and prints one JSON object per phase:
                 masked kernel.  Kernel, plain and library-yardstick
                 times, each call with the L2 cache flushed before it,
                 and each kernel's bound from the bytes and operations
-                this batch needs.
+                this batch needs.  Then the conflict round's kernels
+                against the PyTorch round body at P=256, N=5120, round
+                after round (assignment and masks identical, ``used``
+                within 1e-6, feasible core values within 1e-4), with
+                their first round's time, the body's graph and eager
+                times; one round called and one replayed from its graph
+                under the profiler, whose kernel counts must equal the
+                change in the wrapper's launch count.
 3. ``main``     the density replay: a 65,536-pod backlog on 5,120 nodes
                 (bench.py's shape) through ``replay_stream`` with the
                 kernel backend, then Score/Filter answers
                 (``score_pods_auto``) for a few pending batches against the
                 final state.  Fails unless the static kernel ran once per
                 batch, the answer kernel ran, the peer columns were
-                compacted once per static and answer launch, no node
-                exceeds its capacity, and every placed pod sits on a node
-                its plain static mask allows.
+                compacted once per static and answer launch, the round
+                kernels ran seven launches for each round and each new
+                graph's capture, no node exceeds its capacity, and every
+                placed pod sits on a node its plain static mask allows.
 4. ``parity``   the first 16 batches replayed at f32 through the kernel
                 path and the dense torch path: identical assignments.
 5. ``serve``    the serving seam: a generated 5,120-node cluster through
@@ -556,7 +565,9 @@ def phase_device() -> dict:
     spills = {}
     for kname in ("static_scores_kernel", "masked_scores_kernel",
                   "winner_scores_kernel", "peer_flags_kernel",
-                  "peer_scan_kernel", "static_scores_lanes_kernel"):
+                  "peer_scan_kernel", "static_scores_lanes_kernel",
+                  "round_colmax_kernel", "round_resolve_kernel",
+                  "round_patch_kernel", "round_cont_kernel"):
         hits = [v for f, v in ptxas_spills(log).items() if kname in f]
         spills[kname] = hits[0] if hits else None
     info = {"phase": "device", "ok": True, "nvidia_smi": smi,
@@ -720,6 +731,128 @@ def compare_winner(pack, st, groups, pp, bf16, label):
     return float((best_k - best_p).abs().max()), int(clear.sum())
 
 
+ROUND_PODS = 256
+
+
+def round_check(state, stream, base_cfg, mem_bw: float) -> dict:
+    """The conflict round's kernels (``kernels.conflict_round``) against
+    the PyTorch round body on a 256-pod stream batch at N=5,120, from one
+    carry, round after round to the batch's end: assignment, masks, zone
+    counts and the continue flag identical, ``used`` within
+    rtol=atol=1e-6, the core's feasibility identical and its feasible
+    values within 1e-4.  The first round timed three ways, the L2
+    flushed before each call: the kernels (less a copy of the carry,
+    timed alone), the body's CUDA graph (less its load) and the body run
+    eagerly; the bound: the core plane read three times at ``mem_bw``.
+    One round called directly and one replay of the kernels' graph, each
+    under the profiler: the device events it sees (a replay adds the
+    graph's copy of the continue flag), the round kernels among them and
+    the change in ``conflict_round.launches``, which must agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetesnetawarescheduler_tpu_torch.core import assign
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import round_graph
+
+    cfg = dataclasses.replace(base_cfg, max_pods=ROUND_PODS)
+    st, pods = kernel_inputs(cfg, state, stream)
+    t, carry, zone_work, go = assign._parallel_setup(st, pods, cfg)
+    if zone_work or not go:
+        fail("kernels", f"the round batch has zone work ({zone_work}) or "
+             f"no feasible pod ({not go})")
+    plain = assign._round_body(t, cfg, False)
+    fused = K.conflict_round(t, cfg)
+    names = ("core", "used", "group_bits", "resident_anti", "gz_counts",
+             "az_anti", "assignment")
+    cur, rounds, cont = carry, 0, True
+    err_used = err_core = 0.0
+    while cont and rounds < 64:
+        *want, w_cont = plain(*cur)
+        *got, g_cont = fused(*(c.clone() for c in cur))
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, want, got):
+            if name == "core":
+                feas = a > -5e29
+                same = torch.equal(feas, b > -5e29)
+                err = float((a[feas] - b[feas]).abs().max()) if same else 0.0
+                err_core = max(err_core, err)
+                same = same and err <= 1e-4
+            elif name == "used":
+                err_used = max(err_used, float((a - b).abs().max()))
+                same = torch.allclose(a, b, rtol=1e-6, atol=1e-6)
+            else:
+                same = torch.equal(a, b)
+            if not same:
+                fail("kernels", f"round kernels differ from the round body "
+                     f"in {name} at round {rounds}")
+        if bool(w_cont) != bool(g_cont):
+            fail("kernels", f"round kernels' continue flag differs at "
+                 f"round {rounds}")
+        cur, cont, rounds = tuple(want), bool(w_cont), rounds + 1
+
+    def fresh():
+        return tuple(c.clone() for c in carry)
+
+    graph = round_graph.RoundGraph(t, carry)
+    graph.load(t, carry)
+    graph.capture(assign._round_body(graph.ins, cfg, False))
+    fgraph = round_graph.RoundGraph(t, carry)
+    fgraph.load(t, carry)
+    fgraph.capture(K.conflict_round(fgraph.ins, cfg))
+
+    def graph_round():
+        graph.load(t, carry)
+        graph()
+
+    copy_ms = time_ms(fresh)
+    load_ms = time_ms(lambda: graph.load(t, carry))
+    fused_ms = time_ms(lambda: fused(*fresh())) - copy_ms
+    graph_ms = time_ms(graph_round) - load_ms
+    plain_ms = time_ms(lambda: plain(*carry))
+    first = fresh()
+    fgraph.load(t, carry)
+
+    def profiled(run):
+        """The device events of one ``run()`` and the change it makes
+        in the wrapper's launch count."""
+        torch.cuda.synchronize()
+        K.conflict_round.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return ([e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA],
+                K.conflict_round.launches)
+
+    seen, launches = profiled(lambda: fused(*first))
+    seen_replay, replay_launches = profiled(fgraph)
+
+    def kernels_of(names):
+        """The events of ``csrc/conflict_round.cu``'s kernels."""
+        return [x for x in names if re.search(r"::round_\w+_kernel\(", x)]
+
+    for where, names, counted in (("call", seen, launches),
+                                  ("replay", seen_replay, replay_launches)):
+        ran = len(kernels_of(names))
+        if len(names) > 10 or ran != counted:
+            fail("kernels", f"a kernel round's {where} ran {len(names)} "
+                 f"device operations, {ran} of them round kernels, and "
+                 f"counted {counted} launches")
+    n, p = t["rawT"].shape
+    nb = 3 * n * p * 4
+    return {"p": p, "n": n, "rounds": rounds,
+            "max_abs_err_used": err_used, "max_abs_err_core": err_core,
+            "kernel_ms": fused_ms, "graph_ms": graph_ms,
+            "plain_ms": plain_ms, "copy_ms": copy_ms, "load_ms": load_ms,
+            "bytes": nb, "bound_ms": nb / mem_bw * 1e3,
+            "launches": launches, "profiler_kernels": len(kernels_of(seen)),
+            "profiler_events": len(seen),
+            "replay_launches": replay_launches,
+            "replay_profiler_kernels": len(kernels_of(seen_replay)),
+            "replay_profiler_events": len(seen_replay),
+            "profiler_names": sorted(set(seen) | set(seen_replay))}
+
+
 def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
     from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
@@ -837,6 +970,9 @@ def phase_kernels(state, stream, base_cfg, mem_bw, f32_peak):
               "dense_t_count": dense_count, "l2": "flushed",
               "peak_bytes_per_s": mem_bw, "peak_f32_flops": f32_peak,
               "card": nvidia_smi(), **row})
+    results["conflict_round"] = round_check(state, stream, base_cfg, mem_bw)
+    emit({"phase": "kernels", "ok": True, "l2": "flushed",
+          "card": nvidia_smi(), "conflict_round": results["conflict_round"]})
     return results
 
 
@@ -845,6 +981,7 @@ def phase_main(state, stream, cfg):
         measure_replay,
     )
     from kubernetesnetawarescheduler_tpu_torch.core import kernels as K
+    from kubernetesnetawarescheduler_tpu_torch.core import round_graph
     from kubernetesnetawarescheduler_tpu_torch.core import score as score_lib
     from kubernetesnetawarescheduler_tpu_torch.core.replay import (
         batch_from_stream,
@@ -861,7 +998,9 @@ def phase_main(state, stream, cfg):
     answer = folded[:ANSWER_BATCHES]
     K.reset_launch_counts()
     host_flag.syncs = 0
+    entries = set(round_graph._ENTRIES)
     res = measure_replay(state, stream, cfg)
+    captures = len(set(round_graph._ENTRIES) - entries)
     final = res["final_state"]
     node_of = res["assignment"]
     static = compute_static(final, cfg)
@@ -889,7 +1028,15 @@ def phase_main(state, stream, cfg):
                        "hist": np.bincount(rounds).tolist()},
             "host_syncs": syncs, "scheduled": placed,
             "unschedulable": valid - placed, "launches": launches,
+            "round_captures": captures,
             "answer_batches": len(answers), "answer_s": answer_s}
+    # Every round of the stream (no zone work) replays the round
+    # kernels' graph, and each new graph's capture ran them once.
+    if launches["conflict_round"] != K.ROUND_LAUNCHES * (int(rounds.sum())
+                                                         + captures):
+        fail("main", f"round kernels launched {launches['conflict_round']} "
+             f"times for {int(rounds.sum())} rounds and {captures} "
+             f"captures")
     if launches["static_scores_kernel"] != nb:
         fail("main", f"static kernel launched "
              f"{launches['static_scores_kernel']} times for {nb} batches")

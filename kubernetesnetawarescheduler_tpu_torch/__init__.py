@@ -5,7 +5,8 @@ reference, which it never imports).  It holds the cluster-state tensors
 (``core.state``), the dense score path (``core.score``), the
 hand-written Hopper tile kernels and their host side (``core.kernels``,
 ``core.tiled_score``, ``csrc/tiled_score.cu``), batch-conflict
-assignment (``core.assign``), the replay (``core.replay``), the encoder
+assignment (``core.assign``, its round as kernels in
+``csrc/conflict_round.cu``), the replay (``core.replay``), the encoder
 (``core.encode``), the scheduling loop (``core.loop``), the Score/Filter
 webhook (``api``) and the daemon around it (``serve``,
 ``python -m kubernetesnetawarescheduler_tpu_torch``).

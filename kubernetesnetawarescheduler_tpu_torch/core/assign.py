@@ -17,7 +17,10 @@ lower node index).  The JAX ``lax.while_loop`` becomes a Python loop
 whose continue test is one host sync per round, and each ``lax.cond``
 gate a Python ``if`` on a scalar (:func:`~.state.host_flag` counts both).
 :func:`assign_parallel`'s round has no gate of its own, and on a CUDA
-device it is one replay of a CUDA graph (:mod:`.round_graph`).
+device it is one replay of a CUDA graph (:mod:`.round_graph`): of seven
+hand-written kernels for a batch without zone work
+(:func:`~.kernels.conflict_round`), else of the round body's PyTorch
+kernels.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from torch.func import vmap
 
 from kubernetesnetawarescheduler_tpu_torch.config import SchedulerConfig
-from kubernetesnetawarescheduler_tpu_torch.core import round_graph
+from kubernetesnetawarescheduler_tpu_torch.core import kernels, round_graph
 from kubernetesnetawarescheduler_tpu_torch.core import score as score_lib
 from kubernetesnetawarescheduler_tpu_torch.core import tiled_score
 from kubernetesnetawarescheduler_tpu_torch.core.integrity import (
@@ -274,23 +277,30 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
     conflict rounds executed (a Python int; each round costs one host
     sync for its continue test).
 
-    On a CUDA device each round is one launch of a CUDA graph of the
-    round body (:mod:`.round_graph`, captured once per thread and
-    shape); elsewhere the same body runs eagerly.
+    On a CUDA device each round is one launch of a CUDA graph
+    (:mod:`.round_graph`, captured once per thread and shape): of the
+    hand-written round kernels (:func:`~.kernels.conflict_round`) where
+    :func:`fused_round` admits the batch, else of the round body's
+    PyTorch kernels; elsewhere the body runs eagerly.
 
     Spans (:func:`~..utils.tracing.span`): ``assign.static`` over the
     set-up up to the first continue test (with ``assign.capture`` around
     a new shape's capture), ``assign.round`` over each round with its
     continue test, and inside it ``assign.replay`` around a graph launch
-    or ``assign.eager`` around an eager round."""
+    (and inside that ``assign.fused``, marked by the graph itself, where
+    it is the round kernels') or ``assign.eager`` around an eager
+    round."""
     with span("assign.static"):
         t, carry, zone_work, go = _parallel_setup(state, pods, cfg, static)
+        fused = fused_round(carry[0].device, zone_work, t["req"].shape,
+                            t["group_bit"].shape[1])
         if go and carry[0].is_cuda:
             launch = "assign.replay"
             body = round_graph.acquire(
-                (zone_work, float(np.float32(cfg.weights.balance)),
+                (fused, zone_work, float(np.float32(cfg.weights.balance)),
                  float(np.float32(cfg.weights.spread))), t, carry,
-                lambda ins: _round_body(ins, cfg, zone_work))
+                (lambda ins: kernels.conflict_round(ins, cfg)) if fused
+                else (lambda ins: _round_body(ins, cfg, zone_work)))
         else:
             launch = "assign.eager"
             body = _round_body(t, cfg, zone_work)
@@ -305,6 +315,21 @@ def assign_parallel(state: ClusterState, pods: PodBatch,
     if with_stats:
         return assignment, rounds
     return assignment
+
+
+def fused_round(device: torch.device, zone_work: bool, req_shape,
+                mask_words: int) -> bool:
+    """Whether :func:`assign_parallel` runs a batch's rounds as the
+    hand-written round kernels (:func:`~.kernels.conflict_round`): a
+    CUDA batch without zone work whose pods, resources (``req_shape``
+    ``(P, R)``) and mask words fit the kernels' one-block resolve step.
+    Every other batch keeps :func:`_round_body`: as a CUDA graph of its
+    PyTorch kernels on the card, eagerly elsewhere (its plain version)."""
+    p, r = req_shape
+    return (device.type == "cuda" and not zone_work
+            and p <= kernels.ROUND_MAX_PODS
+            and r <= kernels.ROUND_MAX_RESOURCES
+            and mask_words <= kernels.ROUND_MAX_WORDS)
 
 
 # The pod fields the round body reads (:func:`_round_body`).

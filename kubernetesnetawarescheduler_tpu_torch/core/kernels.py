@@ -66,16 +66,22 @@ tensors it launches the kernel or raises — it never falls back.  Each
 wrapper counts its kernel launches in ``.launches`` (under a lock: the
 webhook's handler threads launch beside the loop's cycle thread).
 
-The library is built on first use with ``nvcc`` for ``sm_90a`` into
-``kubernetesnetawarescheduler_tpu_torch/_build/`` and bound with
-``ctypes`` (a plain C interface; no PyTorch headers, so the build takes
-seconds).
+:func:`conflict_round` is the conflict loop's round without zone work
+(``csrc/conflict_round.cu``, seven launches a round; the JAX package's
+``lax.while_loop`` body, which has no Pallas kernel).  Its plain version
+is :func:`~.assign._round_body` with ``zone_work=False``.
+
+The library is built on first use with ``nvcc`` for ``sm_90a`` from both
+sources into ``kubernetesnetawarescheduler_tpu_torch/_build/`` and bound
+with ``ctypes`` (a plain C interface; no PyTorch headers, so the build
+takes seconds).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -84,9 +90,11 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from kubernetesnetawarescheduler_tpu_torch.core.score import (
+    _EPS,
     winner_from_scores,
 )
 from kubernetesnetawarescheduler_tpu_torch.core.state import (
@@ -97,7 +105,8 @@ from kubernetesnetawarescheduler_tpu_torch.core.state import (
 NEG_INF = -1e30
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "tiled_score.cu"
+SOURCES = (_PKG / "csrc" / "tiled_score.cu",
+           _PKG / "csrc" / "conflict_round.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -157,12 +166,14 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       f"{SOURCE} on first use and need the CUDA toolkit")
+                       f"{_PKG / 'csrc'} on first use and need the CUDA "
+                       "toolkit")
 
 
 def build_library() -> ctypes.CDLL:
-    """Compile ``csrc/tiled_score.cu`` (once per source content) and load
-    it.  ``build_library.seconds`` holds the compile time of this
+    """Compile ``csrc/tiled_score.cu`` and ``csrc/conflict_round.cu``
+    into one library (once per source content) and load it.
+    ``build_library.seconds`` holds the compile time of this
     process's build (0 when a cached library was loaded) and
     ``build_library.log`` the compiler's ``-Xptxas -v`` report, kept
     beside the library so a cached load reads it too.
@@ -174,7 +185,7 @@ def build_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = SOURCE.read_bytes()
+    src = b"".join(path.read_bytes() for path in SOURCES)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"libtiled_score_{digest[:16]}.so"
     log = out.with_suffix(".log")
@@ -183,11 +194,11 @@ def build_library() -> ctypes.CDLL:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
             capture_output=True, text=True, check=False)
         build_library.seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n"
+            raise RuntimeError(f"nvcc failed on {SOURCES}:\n"
                                f"{proc.stdout + proc.stderr}")
         tmp_log = log.with_suffix(f".{os.getpid()}.logtmp")
         tmp_log.write_text(proc.stdout + proc.stderr)
@@ -212,6 +223,9 @@ def build_library() -> ctypes.CDLL:
     lib.tiled_winner_scores.argtypes = (
         [ptr] * 27 + [ptr, ptr, ptr] + [i32] * 7 + [ptr])
     lib.tiled_winner_scores.restype = i32
+    lib.conflict_round.argtypes = (
+        [ptr] * 23 + [ctypes.c_float] * 2 + [i32] * 5 + [ptr])
+    lib.conflict_round.restype = i32
     _LIB = lib
     return lib
 
@@ -449,9 +463,9 @@ def winner_tile_scores_plain(pack: StaticPack, used: torch.Tensor,
 _COUNT_LOCK = threading.Lock()
 
 
-def _count_launch(fn) -> None:
+def _count_launch(fn, launches: int = 1) -> None:
     with _COUNT_LOCK:
-        fn.launches += 1
+        fn.launches += launches
 
 
 def peer_columns(t: torch.Tensor):
@@ -684,6 +698,102 @@ def winner_tile_scores(pack: StaticPack, used: torch.Tensor,
 winner_tile_scores.launches = 0
 
 
+# The conflict round's limits (``csrc/conflict_round.cu``): one block of
+# at most 1,024 threads resolves a pass, with the batch's requests and
+# mask words in shared memory and a proposal's in registers.
+ROUND_MAX_PODS = 1024
+ROUND_MAX_RESOURCES = 4
+ROUND_MAX_WORDS = 8
+# Kernel launches of one round: argmax, resolve and row patch for each
+# pass, then the continue test.
+ROUND_LAUNCHES = 7
+_ROUND_IN = (("rawT", torch.float32, "np"), ("okT", torch.bool, "np"),
+             ("rank", torch.int32, "p"), ("cap", torch.float32, "nr"),
+             ("cap_eps", torch.float32, "nr"),
+             ("node_zone", torch.int32, "n"), ("req", torch.float32, "pr"),
+             ("affinity_bits", torch.int32, "pw"),
+             ("anti_bits", torch.int32, "pw"),
+             ("group_bit", torch.int32, "pw"), ("pod_valid", torch.bool, "p"))
+
+
+def conflict_round(t: dict, cfg):
+    """One conflict round without zone work, ``body(*carry) -> (*carry,
+    cont)`` over :func:`~.assign._parallel_setup`'s ``t`` and carry
+    ``(core, used, group_bits, resident_anti, gz_counts, az_anti,
+    assignment)``.
+
+    CPU tensors take the plain version, :func:`~.assign._round_body` with
+    ``zone_work=False``.  CUDA tensors get a body that launches the seven
+    kernels of ``csrc/conflict_round.cu`` on the current stream, updates
+    the carry IN PLACE (``az_anti`` is left as it is: without zone work
+    no pod carries zone-anti bits), returns the same tensors and a
+    ``bool`` continue flag of its own, and makes no host sync, so a CUDA
+    graph can capture it.  The body's scratch lives in its closure, and
+    it reads the batch's inputs from ``t`` at every call.
+    ``conflict_round.launches`` counts the kernels the card runs: a body
+    call outside a stream capture adds its seven, and each replay of a
+    captured body its seven, counted by the replay
+    (:class:`~.round_graph.RoundGraph` calls ``body.replayed`` after each
+    launch of the graph, inside span ``body.span``, ``assign.fused``)."""
+    dev = t["rawT"].device
+    if dev.type == "cpu":
+        from kubernetesnetawarescheduler_tpu_torch.core.assign import (
+            _round_body,
+        )
+
+        return _round_body(t, cfg, False)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n, p = t["rawT"].shape
+    r, w = t["req"].shape[1], t["group_bit"].shape[1]
+    if p > ROUND_MAX_PODS or r > ROUND_MAX_RESOURCES or w > ROUND_MAX_WORDS:
+        raise ValueError(f"conflict_round takes at most {ROUND_MAX_PODS} "
+                         f"pods, {ROUND_MAX_RESOURCES} resources and "
+                         f"{ROUND_MAX_WORDS} mask words, not {p}, {r}, {w}")
+    dims = {"n": n, "p": p, "r": r, "w": w}
+    keys = torch.zeros((p, 2), dtype=torch.int64, device=dev)
+    va = torch.zeros((p,), dtype=torch.int32, device=dev)
+    skip = torch.zeros((n,), dtype=torch.uint8, device=dev)
+    rows = torch.zeros((2, p), dtype=torch.int32, device=dev)
+    counts = torch.zeros((3,), dtype=torch.int32, device=dev)
+    cont = torch.zeros((), dtype=torch.bool, device=dev)
+    # The body holds the tensors, not only their addresses: a replay of
+    # its graph writes them.
+    scratch = (keys, va, skip, rows, counts, cont)
+    w_bal = float(np.float32(cfg.weights.balance))
+    lib = build_library()
+
+    def body(core, used, group_bits, resident_anti, gz, az, assignment):
+        z = gz.shape[1]
+        ins = [_check(t[k], dtype, tuple(dims[d] for d in shape), k, dev)
+               for k, dtype, shape in _ROUND_IN]
+        carry = [_check(core, torch.float32, (n, p), "core", dev),
+                 _check(used, torch.float32, (n, r), "used", dev),
+                 _check(group_bits, torch.int32, (n, w), "group_bits", dev),
+                 _check(resident_anti, torch.int32, (n, w), "resident_anti",
+                        dev),
+                 _check(gz, torch.int32, (32 * w, z), "gz_counts", dev),
+                 _check(assignment, torch.int32, (p,), "assignment", dev)]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.conflict_round(
+                *ins, *carry, *(x.data_ptr() for x in scratch), w_bal, _EPS,
+                n, p, r, w, z, stream)
+        _raise_on(err, "conflict_round")
+        if not torch.cuda.is_current_stream_capturing():
+            _count_launch(conflict_round, ROUND_LAUNCHES)
+        return (core, used, group_bits, resident_anti, gz, az, assignment,
+                cont)
+
+    body.span = "assign.fused"
+    body.replayed = functools.partial(_count_launch, conflict_round,
+                                      ROUND_LAUNCHES)
+    return body
+
+
+conflict_round.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     with _COUNT_LOCK:
@@ -697,4 +807,5 @@ KERNELS = {
     "winner_scores_kernel": winner_tile_scores,
     "peer_columns": peer_columns,
     "static_scores_lanes_kernel": static_tile_scores_lanes,
+    "conflict_round": conflict_round,
 }

@@ -5,7 +5,13 @@ launches the host issues one by one; at 5,120 nodes and 256 pods the
 host takes ≈9 ms to issue what the card runs in ≈1.3 ms.  Here the round
 body is captured once per thread and shape in a ``torch.cuda.CUDAGraph``
 and each round is one graph launch: the same kernels on the same
-operands, so the same bits.
+operands, so the same bits.  The body is the round body's PyTorch
+kernels or the seven hand-written round kernels
+(:func:`~.kernels.conflict_round`, which update the carry in place).
+A body may name a span (``body.span``) that each replay runs inside and
+a function (``body.replayed``) that each replay calls once the graph is
+launched: the round kernels' body marks ``assign.fused`` and counts its
+launches there, so callers treat both bodies alike.
 
 An entry of the cache belongs to one thread and owns static copies of
 every tensor the body reads (the batch's inputs) and of the carry.
@@ -38,7 +44,6 @@ MAX_ENTRIES = 8
 
 _LOCK = threading.Lock()
 _ENTRIES: collections.OrderedDict = collections.OrderedDict()
-_POOLS: dict = {}
 _DONE: dict = {}
 
 
@@ -70,7 +75,8 @@ class RoundGraph:
         self.ins = {k: _like(v) for k, v in ins.items()}
         self.carry = tuple(_like(c) for c in carry)
         self.flag = torch.zeros((), dtype=torch.bool, device=carry[0].device)
-        self.body = self.graph = None
+        self.body = self.graph = self.pool = None
+        self.span = self.replayed = None
 
     def load(self, ins: dict, carry: tuple) -> None:
         for k, v in ins.items():
@@ -80,34 +86,53 @@ class RoundGraph:
 
     def capture(self, body) -> None:
         """Capture ``body`` on the loaded buffers, after one warm-up run
-        (kernel loads, library handles; the body is pure, so the carry
-        stays as it was).  The entry keeps ``body``: tensors its closure
-        made outside the capture are read by every replay."""
+        on copies of the carry (kernel loads, library handles; a body
+        that updates its carry in place, as the round kernels' does,
+        leaves the loaded carry as it was).  A carry tensor the body
+        returns as it was given needs no copy back.  The entry keeps
+        ``body``: tensors its closure made outside the capture are read
+        by every replay."""
         dev = self.flag.device
-        pool = _POOLS.get(dev)
+        # The pool of the cache's graphs on this device; a pool whose
+        # graphs are all gone cannot take a new one, so a device without
+        # an entry starts a pool of its own.
+        pool = next((e.pool for k, e in _ENTRIES.items() if k[1] == dev),
+                    None)
         if pool is None:
-            pool = _POOLS[dev] = torch.cuda.graph_pool_handle()
+            pool = torch.cuda.graph_pool_handle()
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            body(*self.carry)
+            body(*(c.clone() for c in self.carry))
             graph.capture_begin(pool=pool,
                                 capture_error_mode="thread_local")
             try:
                 *new, cont = body(*self.carry)
                 for dst, src in zip(self.carry, new):
-                    dst.copy_(src)
+                    if src is not dst:
+                        dst.copy_(src)
                 self.flag.copy_(cont)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.body, self.graph = body, graph
+        self.body, self.graph, self.pool = body, graph, pool
+        self.span = getattr(body, "span", None)
+        self.replayed = getattr(body, "replayed", None)
 
     def __call__(self, *_) -> tuple:
+        if self.span is None:
+            self._replay()
+        else:
+            with span(self.span):
+                self._replay()
+        return (*self.carry, self.flag)
+
+    def _replay(self) -> None:
         with _in_turn(self.flag.device):
             self.graph.replay()
-        return (*self.carry, self.flag)
+        if self.replayed is not None:
+            self.replayed()
 
 
 def acquire(key, ins: dict, carry: tuple, build) -> RoundGraph:

@@ -158,3 +158,76 @@ def test_schedule_batch_commits_assignment():
     assert torch.equal(new.group_bits, want.group_bits)
     with pytest.raises(ValueError):
         tassign.schedule_batch(ts, tp, tcfg, method="nope")
+
+
+CUDA, CPU = torch.device("cuda"), torch.device("cpu")
+
+
+@pytest.mark.parametrize("device,zone_work,req_shape,words,takes", [
+    (CUDA, False, (256, 3), 4, True),
+    (CUDA, False, (1, 3), 1, True),
+    (CUDA, False, (1024, 4), 8, True),
+    (CUDA, False, (1025, 3), 4, False),
+    (CUDA, False, (256, 5), 4, False),
+    (CUDA, False, (256, 3), 9, False),
+    (CUDA, True, (256, 3), 4, False),
+    (CPU, False, (256, 3), 4, False),
+    (CPU, True, (256, 3), 4, False),
+])
+def test_fused_round_rule(device, zone_work, req_shape, words, takes):
+    """Which batches ``assign_parallel`` runs as the hand-written round
+    kernels: CUDA, no zone work, and pods, resources and mask words
+    within the kernels' one-block resolve; every other batch keeps the
+    round body.  The rule reads only the device's type, so it needs no
+    card."""
+    assert tassign.fused_round(device, zone_work, req_shape, words) is takes
+
+
+@pytest.mark.parametrize("zone", [False, True])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_cpu_rounds_take_the_round_body(seed, zone, monkeypatch):
+    """On the CPU every round is the round body run eagerly (its plain
+    version): the kernels' wrapper is never asked for a body, and no
+    round is marked ``assign.fused``."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels
+    from kubernetesnetawarescheduler_tpu_torch.utils import tracing
+    from kubernetesnetawarescheduler_tpu_torch.utils.flight import NULL_SPAN
+
+    jcfg, tcfg, js, jp, ts, tp = _both(seed, SMALL, 12, 10, zone=zone)
+
+    def refuse(*_):
+        raise AssertionError("the CPU asked for the round kernels")
+
+    monkeypatch.setattr(kernels, "conflict_round", refuse)
+    timer = tracing.PhaseTimer()
+    with tracing.cycle(timer, NULL_SPAN):
+        got, rounds = tassign.assign_parallel(ts, tp, tcfg, with_stats=True)
+    want = jassign.assign_parallel(js, jp, jcfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert rounds >= 1
+    assert timer.count("assign.eager") == rounds
+    assert timer.count("assign.fused") == 0
+    assert timer.count("assign.replay") == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_round_kernels_wrapper_on_cpu_is_the_round_body(seed):
+    """Given CPU tensors, the round kernels' wrapper returns their plain
+    version, the round body without zone work: the same carry, bit for
+    bit, round after round, and no launch counted."""
+    from kubernetesnetawarescheduler_tpu_torch.core import kernels
+
+    _, tcfg, _, _, ts, tp = _both(seed, SMALL, 12, 10, zone=False)
+    t, carry, zone_work, go = tassign._parallel_setup(ts, tp, tcfg)
+    assert not zone_work and go
+    launches = kernels.conflict_round.launches
+    plain = tassign._round_body(t, tcfg, False)
+    wrapped = kernels.conflict_round(t, tcfg)
+    want, got = carry, carry
+    for _ in range(3):
+        *want, want_cont = plain(*want)
+        *got, got_cont = wrapped(*got)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+        assert bool(want_cont) == bool(got_cont)
+    assert kernels.conflict_round.launches == launches

@@ -924,7 +924,9 @@ def test_round_graph_replays_the_eager_rounds(cuda, monkeypatch):
     shape captures once (span ``assign.capture``), every round is one
     replay (``assign.replay``, no ``assign.eager``), and a returned
     assignment is the caller's own: the next batch leaves it
-    unchanged."""
+    unchanged.  Batches without zone work are held to the round body's
+    graph here (``fused_round`` off); the round kernels' graph has tests
+    of its own below."""
     import collections
 
     from kubernetesnetawarescheduler_tpu_torch.core import (
@@ -966,6 +968,7 @@ def test_round_graph_replays_the_eager_rounds(cuda, monkeypatch):
             node_of[lo:hi] = a
         return out, state
 
+    monkeypatch.setattr(assign_lib, "fused_round", lambda *args: False)
     plan = ((100, 4, 0, False), (64, 2, 1, False), (100, 2, 2, True))
     with monkeypatch.context() as eager:
         # The batch's own tensors, the body run eagerly.
@@ -991,3 +994,234 @@ def test_round_graph_replays_the_eager_rounds(cuda, monkeypatch):
     assert timer.count("assign.replay") == rounds
     assert timer.count("assign.round") == rounds
     assert timer.count("assign.eager") == 0
+
+
+# ---------------------------------------------------------------------------
+# The conflict round's kernels (csrc/conflict_round.cu).
+# ---------------------------------------------------------------------------
+
+ROUND_KINDS = ("mixed", "infeasible", "ties", "hot", "conflict")
+ROUND_NAMES = ("core", "used", "group_bits", "resident_anti", "gz_counts",
+               "az_anti", "assignment")
+
+
+def _words(rng, rows: int, w: int, density: float, bits: int):
+    """``i32[rows, w]`` masks: with probability ``density`` a row carries
+    one of the low ``bits`` bits of word 0, and a fifth of those rows
+    also bit 31 of the last word (the sign bit of an int32 word)."""
+    out = np.zeros((rows, w), np.uint32)
+    on = rng.random(rows) < density
+    out[on, 0] = np.uint32(1) << rng.integers(0, bits, int(on.sum())).astype(
+        np.uint32)
+    top = on & (rng.random(rows) < 0.2)
+    out[top, w - 1] |= np.uint32(1 << 31)
+    return torch.from_numpy(out.view(np.int32))
+
+
+def round_case(dev, n: int, p: int, seed: int, kind: str, w: int = 4):
+    """``(cfg, t, carry)`` of ``assign._parallel_setup`` for a seeded
+    batch of ``w`` mask words without zone work, whose raw score and
+    static mask come in through the ``{"raw", "ok"}`` seam:
+
+    - ``mixed``: scores on a coarse grid (ties), 80% of pairs feasible,
+      scattered group, anti and affinity bits;
+    - ``infeasible``: no pod fits anywhere;
+    - ``ties``: every node scores the same for a pod;
+    - ``hot``: one node is every pod's best and holds about a third of
+      the batch, so its capacity prefix is cut inside its segment and
+      pass B places rejected pods elsewhere;
+    - ``conflict``: ``hot`` with dense anti-affinity against the groups
+      of the hot node's own contenders."""
+    from kubernetesnetawarescheduler_tpu_torch.core.assign import (
+        _parallel_setup,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.core.state import (
+        init_cluster_state,
+        init_pod_batch,
+    )
+
+    cfg = SchedulerConfig(max_nodes=n, max_pods=p, max_peers=1,
+                          mask_words=w)
+    rng = np.random.default_rng(seed)
+    r = cfg.num_resources
+    cap = rng.uniform(2.0, 8.0, (n, r))
+    used = cap * rng.uniform(0.0, 0.5, (n, r))
+    req = rng.uniform(0.1, 1.5, (p, r))
+    raw = rng.integers(0, 8, (p, n)) / 4.0
+    ok = rng.random((p, n)) < 0.8
+    anti = 0.6 if kind == "conflict" else 0.2
+    if kind == "infeasible":
+        ok[:] = False
+    if kind == "ties":
+        raw = np.repeat(raw[:, :1], n, axis=1)
+    if kind in ("hot", "conflict"):
+        hot = int(rng.integers(0, n))
+        raw[:, hot] += 100.0
+        ok[:, hot] = True
+        used[hot] = 0.0
+        cap[hot] = req.sum(axis=0) / 3.0 + 1e-3
+    f32 = torch.float32
+    state = init_cluster_state(
+        cfg, dev, cap=torch.tensor(cap, dtype=f32),
+        used=torch.tensor(used, dtype=f32),
+        node_valid=torch.ones(n, dtype=torch.bool),
+        group_bits=_words(rng, n, w, 0.3, 6),
+        resident_anti=_words(rng, n, w, 0.1, 6),
+        node_zone=torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32)))
+    valid = rng.random(p) < 0.9
+    valid[0] = True
+    pods = init_pod_batch(
+        cfg, dev, req=torch.tensor(req, dtype=f32),
+        group_bit=_words(rng, p, w, 1.0, 6),
+        anti_bits=_words(rng, p, w, anti, 6),
+        affinity_bits=_words(rng, p, w, 0.1, 6),
+        priority=torch.from_numpy(rng.integers(0, 5, p).astype(np.float32)),
+        pod_valid=torch.from_numpy(valid))
+    static = {"raw": torch.tensor(raw, dtype=f32, device=dev),
+              "ok": torch.from_numpy(ok).to(dev)}
+    t, carry, zone_work, _ = _parallel_setup(state, pods, cfg, static)
+    assert not zone_work
+    # The seam hands transposed views over; a round graph holds
+    # contiguous copies, as the kernels take them.
+    return (cfg, {k: v.contiguous() for k, v in t.items()},
+            tuple(c.contiguous() for c in carry))
+
+
+def assert_round_parity(want, got, where) -> None:
+    """The parity bar of a kernel round against the PyTorch body from one
+    carry: assignment, masks, zone planes and the continue flag
+    identical, ``used`` within 1e-6, the core's feasibility identical
+    and its feasible values within 1e-4."""
+    *w_carry, w_cont = want
+    *g_carry, g_cont = got
+    for name, a, b in zip(ROUND_NAMES, w_carry, g_carry):
+        if name == "core":
+            feas = a > NEG_HALF
+            assert torch.equal(feas, b > NEG_HALF), (where, name)
+            assert torch.allclose(a[feas], b[feas], rtol=0, atol=1e-4), (
+                where, name, float((a[feas] - b[feas]).abs().max()))
+        elif name == "used":
+            assert torch.allclose(a, b, rtol=1e-6, atol=1e-6), (
+                where, name, float((a - b).abs().max()))
+        else:
+            assert torch.equal(a, b), (where, name)
+    assert bool(w_cont) == bool(g_cont), (where, "cont")
+
+
+@pytest.mark.parametrize("kind", ROUND_KINDS)
+@pytest.mark.parametrize("n", [37, 5120])
+@pytest.mark.parametrize("p", [1, 3, 64, 256, 512, 1024])
+def test_round_kernels_match_the_round_body(cuda, monkeypatch, p, n, kind):
+    """Every round of a batch, run once by the kernels and once by the
+    PyTorch round body from the same carry, meets the parity bar; the
+    body's carry goes on to the next round.  Where pods contend for a
+    hot node, pass B places pods in some round.  Batches above 256 pods
+    carry the kernels' largest shape, 8 mask words: several argmax
+    column tiles, a resolve block of up to 1,024 threads and its shared
+    memory above 48 KB."""
+    from kubernetesnetawarescheduler_tpu_torch.core import assign
+
+    cfg, t, carry = round_case(cuda, n, p, seed=1000 * p + n, kind=kind,
+                               w=8 if p > 256 else 4)
+    placed = []
+    add = assign.scatter_add_rows
+
+    def counted(base, idx, vals, mask):
+        placed.append(int(mask.sum()))
+        return add(base, idx, vals, mask)
+
+    monkeypatch.setattr(assign, "scatter_add_rows", counted)
+    plain = assign._round_body(t, cfg, False)
+    fused = kernels.conflict_round(t, cfg)
+    launches = kernels.conflict_round.launches
+    rounds, cont = 0, True
+    while cont and rounds < 64:
+        want = plain(*carry)
+        got = fused(*(c.contiguous().clone() for c in carry))
+        torch.cuda.synchronize()
+        assert_round_parity(want, got, (kind, n, p, rounds))
+        carry, cont = tuple(want[:-1]), bool(want[-1])
+        rounds += 1
+    assert not cont
+    assert kernels.conflict_round.launches - launches == (
+        kernels.ROUND_LAUNCHES * rounds)
+    assert len(placed) == 2 * rounds
+    if kind == "infeasible":
+        assert sum(placed) == 0
+    if kind == "hot" and p >= 64:
+        assert sum(placed[1::2]) > 0
+
+
+def _drain(dev, nodes, pods_per_batch, batches, seed, words=4):
+    """Batches of one density stream on tight capacity, each assigned by
+    ``assign_parallel`` and committed: per batch ``(assignment,
+    rounds)``, and the final state."""
+    from kubernetesnetawarescheduler_tpu_torch.core import assign
+    from kubernetesnetawarescheduler_tpu_torch.core.state import (
+        commit_assignments,
+    )
+
+    cfg = SchedulerConfig(max_nodes=nodes + 7, max_pods=pods_per_batch,
+                          max_peers=4, score_backend="pallas",
+                          mask_words=words)
+    state, stream = synthetic_density(nodes, batches * pods_per_batch, cfg,
+                                      seed=seed, device=dev)
+    state = state.replace(cap=state.cap * 0.05)
+    node_of = torch.full((stream.num_pods,), -1, dtype=torch.int32,
+                         device=dev)
+    out = []
+    for i in range(batches):
+        lo, hi = i * pods_per_batch, (i + 1) * pods_per_batch
+        pods = batch_from_stream(stream.slice(lo, hi), node_of)
+        a, rounds = assign.assign_parallel(state, pods, cfg,
+                                           with_stats=True)
+        out.append((a, rounds))
+        state = commit_assignments(state, pods, a)
+        node_of[lo:hi] = a
+    return out, state
+
+
+@pytest.mark.parametrize("nodes,pods_per_batch,batches",
+                         [(300, 64, 4), (5113, 256, 3), (2000, 1024, 2)])
+def test_round_kernels_drain_as_the_pytorch_graph(cuda, monkeypatch, nodes,
+                                                  pods_per_batch, batches):
+    """Whole drains through ``assign_parallel``: the round kernels' graph
+    and the PyTorch body's graph give identical assignments and round
+    counts and the same committed state (``used`` within 1e-6).  Every
+    kernel round is one replay marked ``assign.fused``, and the launch
+    count is seven for each replay and each capture's warm-up.  The
+    1,024-pod drain carries 8 mask words, the kernels' largest shape."""
+    import collections
+
+    from kubernetesnetawarescheduler_tpu_torch.core import (
+        assign,
+        round_graph,
+    )
+    from kubernetesnetawarescheduler_tpu_torch.utils import tracing
+    from kubernetesnetawarescheduler_tpu_torch.utils.flight import NULL_SPAN
+
+    words = 8 if pods_per_batch > 256 else 4
+    monkeypatch.setattr(round_graph, "_ENTRIES", collections.OrderedDict())
+    with monkeypatch.context() as graph:
+        graph.setattr(assign, "fused_round", lambda *args: False)
+        want, want_state = _drain(cuda, nodes, pods_per_batch, batches, 5,
+                                  words)
+    timer = tracing.PhaseTimer()
+    launches = kernels.conflict_round.launches
+    with tracing.cycle(timer, NULL_SPAN):
+        got, got_state = _drain(cuda, nodes, pods_per_batch, batches, 5,
+                                words)
+    torch.cuda.synchronize()
+    for (wa, wr), (ga, gr) in zip(want, got):
+        assert torch.equal(ga, wa) and gr == wr
+    for f in ("group_bits", "resident_anti", "gz_counts", "az_anti"):
+        assert torch.equal(getattr(got_state, f), getattr(want_state, f)), f
+    assert torch.allclose(got_state.used, want_state.used, rtol=1e-6,
+                          atol=1e-6)
+    rounds = sum(r for _, r in got)
+    assert rounds > batches
+    assert timer.count("assign.fused") == rounds
+    assert timer.count("assign.replay") == rounds
+    # Each round's replay and each capture's warm-up ran the seven.
+    assert kernels.conflict_round.launches - launches == (
+        kernels.ROUND_LAUNCHES * (rounds + timer.count("assign.capture")))
