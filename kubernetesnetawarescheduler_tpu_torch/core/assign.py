@@ -241,21 +241,240 @@ def _cummax0(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, dim=0).values
 
 
-def _set_rows(x: torch.Tensor, rows: torch.Tensor,
-              vals: torch.Tensor) -> torch.Tensor:
+def _set_rows_f(x: torch.Tensor, rows: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
     """``x.at[rows].set(vals, mode="drop")`` for ``rows`` in ``[0, N]``,
     where row ``N`` is the drop sentinel.  Duplicate real rows must carry
-    identical values (they do at every call site)."""
+    identical values (they do at every call site).  Out of place, so
+    ``vmap`` batches it (an out-of-place ``index_put``) and a CUDA graph
+    captures it."""
     n = x.shape[0]
-    ext = torch.cat([x, x[:1]])
-    ext[rows.long()] = vals
-    return ext[:n]
+    return torch.cat([x, x[:1]]).index_put((rows.long(),), vals)[:n]
 
 
 def _segment_starts(group_id: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.ones((1,), dtype=torch.bool,
                                  device=group_id.device),
                       group_id[1:] != group_id[:-1]])
+
+
+# ---------------------------------------------------------------------------
+# The conflict round's pieces, shared by the solo loop (:func:`_round_body`),
+# the lane loop (:func:`assign_parallel_lanes`, under ``vmap``) and the mesh
+# loop (:func:`assign_parallel_spmd`).  Node rows are those of a shard:
+# ``ns`` rows from global node ``off`` of ``n`` (the solo and lane loops
+# pass ``0`` and ``n``).  Every write is out of place and none syncs.
+# ---------------------------------------------------------------------------
+
+
+def _check_key_range(n: int, p: int) -> None:
+    """The composite winner key ``node * P + rank`` is int32: where it
+    would wrap and silently corrupt winner selection, fail loudly."""
+    if (n + 1) * p > _INT32_MAX:
+        raise ValueError(
+            f"max_nodes*max_pods={n}*{p} overflows the int32 "
+            "winner-selection key; reduce the batch or node padding")
+
+
+def _round_consts(pods, az_anti: torch.Tensor) -> dict:
+    """The batch's round constants: each pod's priority ``rank`` (ties
+    to the lower index), the group and anti bit planes ``gbp``/``abp``,
+    ``zpc[i, j]`` (pods i and j zone-conflict and i ranks ahead) and
+    ``zwork``, a device bool: whether ANY zone-scoped work exists (when
+    not, the overlay is the identity and the second-chance pass is
+    allowed)."""
+    p = pods.req.shape[0]
+    order = torch.argsort(-pods.priority, stable=True)
+    rank = torch.zeros((p,), dtype=torch.int32, device=order.device).scatter(
+        0, order, torch.arange(p, dtype=torch.int32, device=order.device))
+    zpc = (
+        (((pods.zanti_bits[:, None, :] & pods.group_bit[None, :, :]) != 0)
+         .any(dim=-1)
+         | ((pods.group_bit[:, None, :] & pods.zanti_bits[None, :, :]) != 0)
+         .any(dim=-1))
+        & (rank[:, None] < rank[None, :]))
+    zwork = (score_lib.spread_active(pods).any()
+             | (pods.zaff_bits != 0).any() | (pods.zanti_bits != 0).any()
+             | (az_anti != 0).any())
+    return {"rank": rank, "gbp": bit_planes(pods.group_bit, torch.int32),
+            "abp": bit_planes(pods.anti_bits, torch.int32), "zpc": zpc,
+            "zwork": zwork}
+
+
+def _core_rows(raw, ok, used, cap, group_bits, resident_anti, unassigned,
+               pods, w_bal: float) -> torch.Tensor:
+    """The carried CORE ``f32[rows, P]`` over the node rows it is handed
+    (every row for the first carry, the gathered winner rows for a
+    patch): raw score minus balance, masked by the static and
+    host-scoped dynamic constraints (capacity fit, required affinity as
+    a SUBSET test, anti-affinity both ways) and assigned-pod
+    retirement (``unassigned bool[P]``)."""
+    fits = (pods.req[None, :, :] <= (cap - used)[:, None, :]
+            + _EPS).all(dim=-1)
+    aff_req = pods.affinity_bits[None, :, :]
+    affinity = ((group_bits[:, None, :] & aff_req) == aff_req).all(dim=-1)
+    anti = ((group_bits[:, None, :] & pods.anti_bits[None, :, :])
+            == 0).all(dim=-1)
+    sym = ((resident_anti[:, None, :] & pods.group_bit[None, :, :])
+           == 0).all(dim=-1)
+    bal = ((used[:, None, :] + pods.req[None, :, :])
+           / cap.clamp_min(_EPS)[:, None, :]).amax(dim=-1)
+    keep = ok & fits & affinity & anti & sym & unassigned[None, :]
+    return torch.where(keep, raw - w_bal * bal, NEG_INF)
+
+
+def _overlay(sT, gz, az, state, pods, cfg: SchedulerConfig, ok_pn,
+             node_min=None) -> torch.Tensor:
+    """Zone-scoped terms against the CURRENT zone state over the core:
+    the spread penalty/mask (:func:`~.score.spread_terms_ungated`,
+    ``node_min`` its cross-shard minimum) and zone (anti-)affinity."""
+    spread_pen, spread_ok = score_lib.spread_terms_ungated(
+        state, pods, cfg, gz, static_ok=ok_pn, node_min=node_min)
+    zone_ok = score_lib.zone_affinity_ungated(state, pods, gz, az)
+    return torch.where((spread_ok & zone_ok).T, sT - spread_pen.T, NEG_INF)
+
+
+def _argmax2(s_m, row_ids, n: int):
+    """``(choice, best, second)`` over axis 0 of ``[rows, P]``: the max,
+    the global node index of its first row (``row_ids i32[rows, 1]``;
+    ``n`` for no row), and the best value on any OTHER row.  A mesh
+    combines these over its ``tp`` shards."""
+    best = s_m.amax(dim=0)
+    choice = torch.where(s_m == best[None, :], row_ids, n).amin(dim=0)
+    second = torch.where(row_ids == choice[None, :], NEG_INF,
+                         s_m).amax(dim=0)
+    return choice, best, second
+
+
+def _choice_rows(choice, raw, used, cap):
+    """Each contender's node row ``(raw at its choice, used [P, R], cap
+    [P, R])``, gathered at ``choice`` clamped into the node rows; a
+    contender with no feasible node reads row ``n - 1`` and is masked in
+    :func:`_accept`."""
+    cl = choice.clamp(0, raw.shape[0] - 1).long()
+    return raw.gather(0, cl[None, :])[0], used[cl], cap[cl]
+
+
+def _accept(second_best, choice, feas, raw_sel, used_c, cap_c, rank, req,
+            gbp, abp, n: int, w_bal: float) -> torch.Tensor:
+    """Per-node multi-accept prefix over one proposal set, ``bool[P]``:
+    beyond its best contender a node accepts the following ones
+    (priority order) while they cumulatively fit its free capacity, no
+    pairwise group/anti conflict exists with an earlier member, and the
+    node stays each member's best choice once the balance penalty is
+    re-priced with everyone queued ahead of it.  Each contender's node
+    is read through ``raw_sel``/``used_c``/``cap_c`` (its chosen node's
+    row); contenders with no feasible node sort into the last segment,
+    which accepts none."""
+    p = rank.shape[0]
+    idx = torch.arange(p, dtype=torch.int32, device=rank.device)
+    key = torch.where(feas, choice * p + rank, n * p + rank)
+    perm = torch.argsort(key)
+    group_id = key[perm] // p
+    first = _segment_starts(group_id)
+    req_sorted = req[perm]
+    csum = _assoc_cumsum0(req_sorted)
+    base = torch.where(first[:, None], csum - req_sorted, -float("inf"))
+    seg_csum = csum - _cummax0(base)
+    fits_cum = (seg_csum <= (cap_c - used_c)[perm] + _EPS).all(dim=-1)
+    bal_after = ((used_c[perm] + seg_csum)
+                 / cap_c.clamp_min(_EPS)[perm]).amax(dim=-1)
+    adj_sorted = raw_sel[perm] - w_bal * bal_after
+    stays_best = adj_sorted >= second_best[perm] - 1e-6
+    # Segmented EXCLUSIVE running OR of earlier contenders' group/anti
+    # planes, via cummax with a per-segment offset.
+    seg2 = (group_id * 2)[:, None]
+    gb, ab = gbp[perm], abp[perm]
+    zero_row = torch.zeros_like(gb[:1])
+    incl_gb = _cummax0(seg2 + gb) - seg2
+    incl_ab = _cummax0(seg2 + ab) - seg2
+    excl_gb = torch.where(first[:, None], 0,
+                          torch.cat([zero_row, incl_gb[:-1]])) >= 1
+    excl_ab = torch.where(first[:, None], 0,
+                          torch.cat([zero_row, incl_ab[:-1]])) >= 1
+    pair_ok = (~(excl_ab & (gb >= 1)).any(dim=1)
+               & ~(excl_gb & (ab >= 1)).any(dim=1))
+    good = fits_cum & pair_ok & stays_best
+    seg_start = _cummax0(torch.where(first, idx, -1))
+    last_bad = _cummax0(torch.where(~good, idx, -1))
+    prefix_ok = last_bad < seg_start
+    return torch.zeros((p,), dtype=torch.bool, device=rank.device).scatter(
+        0, perm, (first | prefix_ok) & (group_id < n))
+
+
+def _round_caps(winner, choice, rank, pods, node_zone, gz, zpc):
+    """The round's caps on its winners: the topology-spread cap keeps
+    only the best-ranked spread-active winner per (group, zone); the
+    zone-anti cap demotes winners that zone-conflict with a better-ranked
+    same-zone winner.  ``node_zone`` is the whole cluster's."""
+    p, n = rank.shape[0], node_zone.shape[0]
+    zone_of = node_zone[choice.clamp(0, n - 1).long()]
+    s_active = winner & score_lib.spread_active(pods) & (zone_of >= 0)
+    g, zdim = gz.shape
+    gz_id = torch.where(s_active, pods.group_idx * zdim + zone_of,
+                        g * zdim + rank)
+    key = gz_id * p + rank
+    perm = torch.argsort(key)
+    keep = torch.zeros((p,), dtype=torch.bool, device=rank.device).scatter(
+        0, perm, _segment_starts(key[perm] // p))
+    winner = winner & keep
+    zsame = (winner[:, None] & winner[None, :]
+             & (zone_of[:, None] == zone_of[None, :])
+             & (zone_of >= 0)[:, None])
+    return winner & ~(zsame & zpc).any(dim=0)
+
+
+def _seg_or_updates(choice, winner, group_bits, resident_anti, rank, gbp,
+                    abp, n: int, off: int, ns: int):
+    """Per-node OR of the winners' group/anti planes into the node bit
+    fields: one row write per node segment, read at the segment's last
+    row of a segmented running OR; only rows of the shard are
+    written."""
+    p = rank.shape[0]
+    key = torch.where(winner, choice * p + rank, n * p + rank)
+    perm = torch.argsort(key)
+    group_id = key[perm] // p
+    first = _segment_starts(group_id)
+    seg2 = (group_id * 2)[:, None]
+    win_sorted = winner[perm].to(torch.int32)[:, None]
+    or_gb = (_cummax0(seg2 + gbp[perm] * win_sorted) - seg2) >= 1
+    or_ab = (_cummax0(seg2 + abp[perm] * win_sorted) - seg2) >= 1
+    last_of_seg = torch.cat([first[1:], torch.ones(
+        (1,), dtype=torch.bool, device=first.device)])
+    seg_cols = local_rows(torch.where(last_of_seg & (group_id < n),
+                                      group_id, n), off, ns)
+    safe = seg_cols.clamp(0, ns - 1).long()
+    return (_set_rows_f(group_bits, seg_cols,
+                        group_bits[safe] | planes_to_words(or_gb)),
+            _set_rows_f(resident_anti, seg_cols,
+                        resident_anti[safe] | planes_to_words(or_ab)))
+
+
+def _row_patch(sT, wnodes, used, group_bits, resident_anti, unassigned,
+               raw, ok, cap, pods, w_bal: float, off: int, ns: int):
+    """Recompute the core at the shard's rows among ``wnodes`` (global,
+    ``n`` = none) against the post-placement allocation state and patch
+    them into the carried matrix; also return the patch, whose rows of
+    other shards' nodes (or none) are NEG_INF (the second-chance pass
+    reads it as the re-priced pass-A alternatives)."""
+    wl = local_rows(wnodes, off, ns)
+    cc = wl.clamp(0, ns - 1).long()
+    sub = _core_rows(raw[cc], ok[cc], used[cc], cap[cc], group_bits[cc],
+                     resident_anti[cc], unassigned, pods, w_bal)
+    sub = torch.where((wl < ns)[:, None], sub, NEG_INF)
+    return _set_rows_f(sT, wl, sub), sub
+
+
+def _zone_commit(gz, az, node_zone, pods, choice, winner):
+    """The round's winners into the zone planes: membership counts
+    (:func:`~.state.add_zone_counts`) and the zone-anti OR."""
+    new_gz = add_zone_counts(gz, node_zone, pods.group_bit, choice, winner)
+    zone_of = node_zone[choice.clamp(0, node_zone.shape[0] - 1).long()]
+    zmax = az.shape[0]
+    zhot = (winner & (zone_of >= 0))[:, None] & (
+        zone_of.clamp(0, zmax - 1)[:, None]
+        == torch.arange(zmax, device=az.device)[None, :])
+    return new_gz, az | scatter_or_onehot(zhot, pods.zanti_bits)
 
 
 def assign_parallel(state: ClusterState, pods: PodBatch,
@@ -347,66 +566,22 @@ def _parallel_setup(state: ClusterState, pods: PodBatch,
     sync)."""
     p = pods.num_pods
     n = state.num_nodes
-    if (n + 1) * p > _INT32_MAX:
-        # The composite key below would wrap and silently corrupt winner
-        # selection; fail loudly instead.
-        raise ValueError(
-            f"max_nodes*max_pods={n}*{p} overflows the int32 "
-            "winner-selection key; reduce the batch or node padding")
-    dev = state.device
+    _check_key_range(n, p)
     rawT, static_okT = _static_parts(state, pods, cfg, static,
                                      transposed=True)
     w_bal = float(np.float32(cfg.weights.balance))
-    pod_ids = torch.arange(p, dtype=torch.int32, device=dev)
-    cap = state.cap
-    cap_eps = cap.clamp_min(_EPS)
-    req = pods.req
-
-    order = torch.argsort(-pods.priority, stable=True)
-    rank = torch.zeros((p,), dtype=torch.int32, device=dev)
-    rank[order] = pod_ids
-    zpair_conflict = (
-        (((pods.zanti_bits[:, None, :] & pods.group_bit[None, :, :]) != 0)
-         .any(dim=-1)
-         | ((pods.group_bit[:, None, :] & pods.zanti_bits[None, :, :]) != 0)
-         .any(dim=-1))
-        & (rank[:, None] < rank[None, :]))
-    t = {"rawT": rawT, "okT": static_okT, "rank": rank,
-         "gbp": bit_planes(pods.group_bit, torch.int32),
-         "abp": bit_planes(pods.anti_bits, torch.int32),
-         "zpc": zpair_conflict, "cap": cap, "cap_eps": cap_eps,
+    consts = _round_consts(pods, state.az_anti)
+    t = {"rawT": rawT, "okT": static_okT, "rank": consts["rank"],
+         "gbp": consts["gbp"], "abp": consts["abp"], "zpc": consts["zpc"],
+         "cap": state.cap, "cap_eps": state.cap.clamp_min(_EPS),
          "node_zone": state.node_zone,
          **{k: getattr(pods, k) for k in _ROUND_PODS}}
-
-    def core_scores_t(used, group_bits, resident_anti, assignment):
-        """The carried CORE matrix ``f32[N, P]``: raw score minus
-        balance, masked by the static and host-scoped dynamic
-        constraints and assigned-pod retirement."""
-        free = cap - used
-        fits = (req[None, :, :] <= free[:, None, :] + _EPS).all(dim=-1)
-        aff_req = pods.affinity_bits[None, :, :]
-        affinity = ((group_bits[:, None, :] & aff_req)
-                    == aff_req).all(dim=-1)
-        anti = ((group_bits[:, None, :] & pods.anti_bits[None, :, :])
-                == 0).all(dim=-1)
-        sym = ((resident_anti[:, None, :] & pods.group_bit[None, :, :])
-               == 0).all(dim=-1)
-        bal = ((used[:, None, :] + req[None, :, :])
-               / cap_eps[:, None, :]).amax(dim=-1)
-        ok = (static_okT & fits & affinity & anti & sym
-              & (assignment == UNASSIGNED)[None, :])
-        return torch.where(ok, rawT - w_bal * bal, NEG_INF)
-
-    # Does ANY zone-scoped work exist for this batch?  When not, the
-    # overlay is the identity and the second-chance pass is allowed.
-    zone_work = host_flag(
-        score_lib.spread_active(pods).any()
-        | (pods.zaff_bits != 0).any() | (pods.zanti_bits != 0).any()
-        | (state.az_anti != 0).any(), "assign.zone_work")
-
-    assignment = torch.full((p,), UNASSIGNED, dtype=torch.int32, device=dev)
-    carry = (core_scores_t(state.used, state.group_bits,
-                           state.resident_anti, assignment),
+    zone_work = host_flag(consts["zwork"], "assign.zone_work")
+    assignment = torch.full((p,), UNASSIGNED, dtype=torch.int32,
+                            device=state.device)
+    carry = (_core_rows(rawT, static_okT, state.used, state.cap,
+                        state.group_bits, state.resident_anti,
+                        assignment == UNASSIGNED, pods, w_bal),
              state.used, state.group_bits, state.resident_anti,
              state.gz_counts, state.az_anti, assignment)
     return t, carry, zone_work, host_flag((carry[0] > NEG_HALF).any(),
@@ -426,175 +601,46 @@ def _round_body(t: dict, cfg: SchedulerConfig, zone_work: bool):
     val <= NEG_HALF``), accepts no pod, adds exact zeros to ``used`` and
     writes only the drop-sentinel row: the round the JAX package gates
     on that test, bit for bit."""
-    rawT, static_okT = t["rawT"], t["okT"]
-    n, p = rawT.shape
-    dev = rawT.device
+    rawT, okT, cap = t["rawT"], t["okT"], t["cap"]
+    n = rawT.shape[0]
     state = types.SimpleNamespace(node_zone=t["node_zone"])
     pods = types.SimpleNamespace(**{k: t[k] for k in _ROUND_PODS})
     w_bal = float(np.float32(cfg.weights.balance))
-    row_ids = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-    cap, cap_eps, req = t["cap"], t["cap_eps"], pods.req
-    rank, gb_planes, ab_planes = t["rank"], t["gbp"], t["abp"]
-    zpair_conflict = t["zpc"]
-    mask_b = 32 * pods.group_bit.shape[1]
-    static_ok_pn = static_okT.T if zone_work else None
+    row_ids = torch.arange(n, dtype=torch.int32, device=rawT.device)[:, None]
+    rank, gbp, abp = t["rank"], t["gbp"], t["abp"]
+    ok_pn = okT.T if zone_work else None
 
-    def argmax2(s_m):
-        """(choice, best, second_best) over axis 0 of ``[N, P]``: first
-        max, and the best value on any OTHER row."""
-        best = s_m.amax(dim=0)
-        choice = torch.where(s_m == best[None, :], row_ids, n).amin(dim=0)
-        second = torch.where(row_ids == choice[None, :], NEG_INF,
-                             s_m).amax(dim=0)
-        return choice.to(torch.int32), best, second
+    def accept(second_best, choice, feas, used):
+        return _accept(second_best, choice, feas,
+                       *_choice_rows(choice, rawT, used, cap), rank,
+                       pods.req, gbp, abp, n, w_bal)
 
-    def overlay(sT, gz, az):
-        """Zone-scoped terms against the CURRENT zone state: the spread
-        penalty/mask and zone (anti-)affinity."""
-        if not zone_work:
-            return sT
-        spread_pen, spread_ok = score_lib.spread_terms_ungated(
-            state, pods, cfg, gz, static_ok=static_ok_pn)
-        zone_ok = score_lib.zone_affinity_ungated(state, pods, gz, az)
-        return torch.where((spread_ok & zone_ok).T, sT - spread_pen.T,
-                           NEG_INF)
-
-    idx = torch.arange(p, dtype=torch.int32, device=dev)
-    zero_row = torch.zeros((1, mask_b), dtype=torch.int32, device=dev)
-
-    def accept(second_best, choice_x, feas_x, used):
-        """Per-node multi-accept prefix over one proposal set: beyond its
-        best contender a node accepts the following ones (priority
-        order) while they cumulatively fit its free capacity, no
-        pairwise group/anti conflict exists with an earlier member, and
-        the node stays each member's best choice once the balance
-        penalty is re-priced with everyone queued ahead of it."""
-        key = torch.where(feas_x, choice_x * p + rank, n * p + rank)
-        perm = torch.argsort(key)
-        group_id = key[perm] // p
-        first = _segment_starts(group_id)
-        req_sorted = req[perm]
-        csum = _assoc_cumsum0(req_sorted)
-        base = torch.where(first[:, None], csum - req_sorted, -float("inf"))
-        seg_csum = csum - _cummax0(base)
-        node_sorted = group_id.clamp(0, n - 1).long()
-        fits_cum = (seg_csum <= (cap - used)[node_sorted] + _EPS).all(dim=-1)
-        bal_after = ((used[node_sorted] + seg_csum)
-                     / cap_eps[node_sorted]).amax(dim=-1)
-        raw_sel = rawT.gather(
-            0, choice_x.clamp(0, n - 1).long()[None, :])[0]
-        adj_sorted = raw_sel[perm] - w_bal * bal_after
-        stays_best = adj_sorted >= second_best[perm] - 1e-6
-        # Segmented EXCLUSIVE running OR of earlier contenders'
-        # group/anti planes, via cummax with a per-segment offset.
-        seg2 = (group_id * 2)[:, None]
-        gbp, abp = gb_planes[perm], ab_planes[perm]
-        incl_gb = _cummax0(seg2 + gbp) - seg2
-        incl_ab = _cummax0(seg2 + abp) - seg2
-        excl_gb = torch.where(first[:, None], 0,
-                              torch.cat([zero_row, incl_gb[:-1]])) >= 1
-        excl_ab = torch.where(first[:, None], 0,
-                              torch.cat([zero_row, incl_ab[:-1]])) >= 1
-        pair_ok = (~(excl_ab & (gbp >= 1)).any(dim=1)
-                   & ~(excl_gb & (abp >= 1)).any(dim=1))
-        good = fits_cum & pair_ok & stays_best
-        seg_start = _cummax0(torch.where(first, idx, -1))
-        last_bad = _cummax0(torch.where(~good, idx, -1))
-        prefix_ok = last_bad < seg_start
-        out = torch.zeros((p,), dtype=torch.bool, device=dev)
-        out[perm] = (first | prefix_ok) & (group_id < n)
-        return out
-
-    def seg_or_updates(choice_x, winner_x, group_bits, resident_anti):
-        """Per-node OR of the winners' group/anti planes into the node
-        bit fields: one row write per node segment, read at the
-        segment's last row of a segmented running OR."""
-        key = torch.where(winner_x, choice_x * p + rank, n * p + rank)
-        perm = torch.argsort(key)
-        group_id = key[perm] // p
-        first = _segment_starts(group_id)
-        node_sorted = group_id.clamp(0, n - 1)
-        seg2 = (group_id * 2)[:, None]
-        win_sorted = winner_x[perm].to(torch.int32)[:, None]
-        or_gb = (_cummax0(seg2 + gb_planes[perm] * win_sorted) - seg2) >= 1
-        or_ab = (_cummax0(seg2 + ab_planes[perm] * win_sorted) - seg2) >= 1
-        last_of_seg = torch.cat([first[1:], torch.ones(
-            (1,), dtype=torch.bool, device=dev)])
-        seg_cols = torch.where(last_of_seg & (group_id < n), node_sorted, n)
-        safe = seg_cols.clamp(0, n - 1).long()
-        new_group = _set_rows(group_bits, seg_cols,
-                              group_bits[safe] | planes_to_words(or_gb))
-        new_anti = _set_rows(resident_anti, seg_cols,
-                             resident_anti[safe] | planes_to_words(or_ab))
-        return new_group, new_anti
-
-    def row_patch(sT, wnodes, used_x, group_x, anti_x, assignment_x):
-        """Recompute the core values at the given node rows against the
-        post-placement allocation state and patch them into the carried
-        matrix; also return the patch (the second-chance pass reads it
-        as the re-priced pass-A alternatives).  Row ``n`` is the drop
-        sentinel."""
-        cc = wnodes.clamp(0, n - 1).long()
-        sub_used = used_x[cc]
-        sub_cap = cap[cc]
-        fits2 = (req[None, :, :] <= (sub_cap - sub_used)[:, None, :]
-                 + _EPS).all(dim=-1)
-        gb = group_x[cc]
-        ra = anti_x[cc]
-        aff_req2 = pods.affinity_bits[None, :, :]
-        affinity2 = ((gb[:, None, :] & aff_req2) == aff_req2).all(dim=-1)
-        aok = ((gb[:, None, :] & pods.anti_bits[None, :, :])
-               == 0).all(dim=-1)
-        sym2 = ((ra[:, None, :] & pods.group_bit[None, :, :])
-                == 0).all(dim=-1)
-        bal = ((sub_used[:, None, :] + req[None, :, :])
-               / sub_cap.clamp_min(_EPS)[:, None, :]).amax(dim=-1)
-        ok = (static_okT[cc] & fits2 & affinity2 & aok & sym2
-              & (assignment_x == UNASSIGNED)[None, :]
-              & (wnodes < n)[:, None])
-        sub = torch.where(ok, rawT[cc] - w_bal * bal, NEG_INF)
-        return _set_rows(sT, wnodes, sub), sub
+    def place(sT, choice, winner, assignment, used, group_bits,
+              resident_anti):
+        """A pass's winners into the bit fields and the core."""
+        group, anti = _seg_or_updates(choice, winner, group_bits,
+                                      resident_anti, rank, gbp, abp, n, 0, n)
+        wnodes = torch.where(winner, choice, n)
+        return (group, anti, wnodes) + _row_patch(
+            sT, wnodes, used, group, anti, assignment == UNASSIGNED, rawT,
+            okT, cap, pods, w_bal, 0, n)
 
     def body(sT, used, group_bits, resident_anti, gz, az, assignment):
-        s_ov = overlay(sT, gz, az)
+        s_ov = (_overlay(sT, gz, az, state, pods, cfg, ok_pn) if zone_work
+                else sT)
         alive = (assignment == UNASSIGNED) & pods.pod_valid
-        s_m = torch.where(alive[None, :], s_ov, NEG_INF)
-        choice, val, second_best = argmax2(s_m)
+        choice, val, second_best = _argmax2(
+            torch.where(alive[None, :], s_ov, NEG_INF), row_ids, n)
         feasible = val > NEG_HALF
-        winner = accept(second_best, choice, feasible, used)
-
-        # Topology-spread round cap: keep only the best-ranked
-        # spread-active winner per (group, zone) this round.
-        choice_l = choice.clamp(0, n - 1).long()
-        zone_of = state.node_zone[choice_l]
-        s_active = (winner & score_lib.spread_active(pods)
-                    & (zone_of >= 0))
-        zdim = gz.shape[1]
-        gzmax = gz.shape[0] * zdim
-        gz_id = torch.where(s_active, pods.group_idx * zdim + zone_of,
-                            gzmax + rank)
-        key2 = gz_id * p + rank
-        perm2 = torch.argsort(key2)
-        first2 = _segment_starts(key2[perm2] // p)
-        keep = torch.zeros((p,), dtype=torch.bool, device=dev)
-        keep[perm2] = first2
-        winner = winner & keep
-
-        # Zone-anti round cap: demote winners that zone-conflict with a
-        # better-ranked same-zone winner.
-        zsame = (winner[:, None] & winner[None, :]
-                 & (zone_of[:, None] == zone_of[None, :])
-                 & (zone_of >= 0)[:, None])
-        winner = winner & ~(zsame & zpair_conflict).any(dim=0)
-
+        winner = _round_caps(accept(second_best, choice, feasible, used),
+                             choice, rank, pods, state.node_zone, gz,
+                             t["zpc"])
         # Pass-A allocation updates.
         assignment_a = torch.where(winner, choice, assignment)
-        used_a = scatter_add_rows(used, choice, req, winner)
-        group_a, anti_a = seg_or_updates(choice, winner, group_bits,
-                                         resident_anti)
-        wnodes_a = torch.where(winner, choice, n)
-        s_patched, sub_a = row_patch(sT, wnodes_a, used_a, group_a, anti_a,
-                                     assignment_a)
+        used_a = scatter_add_rows(used, choice, pods.req, winner)
+        group_a, anti_a, wnodes_a, s_patched, sub_a = place(
+            sT, choice, winner, assignment_a, used_a, group_bits,
+            resident_anti)
 
         # Second-chance pass: pods rejected at their argmax node
         # re-propose their best UNTOUCHED node in the same round, only
@@ -603,38 +649,29 @@ def _round_body(t: dict, cfg: SchedulerConfig, zone_work: bool):
         # pass A left (see the docstring).
         if not zone_work:
             va_new = sub_a.amax(dim=0)
-            s_b = _set_rows(sT, wnodes_a, torch.full_like(sub_a, NEG_INF))
+            s_b = _set_rows_f(sT, wnodes_a, torch.full_like(sub_a, NEG_INF))
             alive_b = alive & ~winner
-            s_bm = torch.where(alive_b[None, :], s_b, NEG_INF)
-            choice_b, val_b, sb2 = argmax2(s_bm)
+            choice_b, val_b, sb2 = _argmax2(
+                torch.where(alive_b[None, :], s_b, NEG_INF), row_ids, n)
             feas_b = (val_b > NEG_HALF) & (val_b >= va_new - 1e-6)
             winner_b = accept(torch.maximum(sb2, va_new), choice_b, feas_b,
                               used)
             winner_m = winner | winner_b
             choice_m = torch.where(winner_b, choice_b, choice)
             new_assignment = torch.where(winner_m, choice_m, assignment)
-            new_used = scatter_add_rows(used_a, choice_b, req, winner_b)
-            new_group, new_anti = seg_or_updates(choice_b, winner_b,
-                                                 group_a, anti_a)
-            wnodes_b = torch.where(winner_b, choice_b, n)
-            new_sT, _ = row_patch(s_patched, wnodes_b, new_used, new_group,
-                                  new_anti, new_assignment)
+            new_used = scatter_add_rows(used_a, choice_b, pods.req, winner_b)
+            new_group, new_anti, _, new_sT, _ = place(
+                s_patched, choice_b, winner_b, new_assignment, new_used,
+                group_a, anti_a)
         else:
             winner_m, choice_m, new_assignment = winner, choice, assignment_a
             new_used, new_group, new_anti = used_a, group_a, anti_a
             new_sT = s_patched
-        progress = winner_m.any()
-        new_gz = add_zone_counts(gz, state.node_zone, pods.group_bit,
-                                 choice_m, winner_m)
-        zone_of_m = state.node_zone[choice_m.clamp(0, n - 1).long()]
-        zmax = az.shape[0]
-        zhot = (winner_m & (zone_of_m >= 0))[:, None] & (
-            zone_of_m.clamp(0, zmax - 1)[:, None]
-            == torch.arange(zmax, device=dev)[None, :])
-        new_az = az | scatter_or_onehot(zhot, pods.zanti_bits)
+        new_gz, new_az = _zone_commit(gz, az, state.node_zone, pods,
+                                      choice_m, winner_m)
         alive2 = (new_assignment == UNASSIGNED) & pods.pod_valid
-        cont = progress & (torch.where(alive2[None, :], new_sT, NEG_INF)
-                           > NEG_HALF).any()
+        cont = winner_m.any() & (torch.where(alive2[None, :], new_sT,
+                                             NEG_INF) > NEG_HALF).any()
         return (new_sT, new_used, new_group, new_anti, new_gz, new_az,
                 new_assignment, cont)
 
@@ -648,14 +685,6 @@ def _round_body(t: dict, cfg: SchedulerConfig, zone_work: bool):
 
 def _tree_fields(tree) -> dict:
     return {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
-
-
-def _set_rows_f(x: torch.Tensor, rows: torch.Tensor,
-                vals: torch.Tensor) -> torch.Tensor:
-    """:func:`_set_rows` without the in-place write (``vmap`` batches an
-    out-of-place ``index_put``)."""
-    n = x.shape[0]
-    return torch.cat([x, x[:1]]).index_put((rows.long(),), vals)[:n]
 
 
 def _static_parts_lanes(states: ClusterState, pods: PodBatch,
@@ -713,157 +742,43 @@ def assign_parallel_lanes(states: ClusterState, pods: PodBatch,
     two usage updates, which run per lane (:func:`_lane_scatter_add`)."""
     k_lanes, p = pods.req.shape[:2]
     n = states.metrics.shape[1]
-    if (n + 1) * p > _INT32_MAX:
-        raise ValueError(
-            f"max_nodes*max_pods={n}*{p} overflows the int32 "
-            "winner-selection key; reduce the batch or node padding")
+    _check_key_range(n, p)
     dev = states.metrics.device
     rawT, static_okT = _static_parts_lanes(states, pods, cfg, statics)
     w_bal = float(np.float32(cfg.weights.balance))
     row_ids = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-    idx = torch.arange(p, dtype=torch.int32, device=dev)
 
     def unpack(c):
         return ClusterState(**c["st"]), PodBatch(**c["pd"])
 
     def consts(c):
         state, lp = unpack(c)
-        order = torch.argsort(-lp.priority, stable=True)
-        rank = torch.zeros((p,), dtype=torch.int32, device=dev).scatter(
-            0, order, idx)
-        zpc = (
-            (((lp.zanti_bits[:, None, :] & lp.group_bit[None, :, :]) != 0)
-             .any(dim=-1)
-             | ((lp.group_bit[:, None, :] & lp.zanti_bits[None, :, :]) != 0)
-             .any(dim=-1))
-            & (rank[:, None] < rank[None, :]))
-        zwork = (score_lib.spread_active(lp).any()
-                 | (lp.zaff_bits != 0).any() | (lp.zanti_bits != 0).any()
-                 | (state.az_anti != 0).any())
-        return {"rank": rank, "gbp": bit_planes(lp.group_bit, torch.int32),
-                "abp": bit_planes(lp.anti_bits, torch.int32), "zpc": zpc,
-                "zwork": zwork}
+        return _round_consts(lp, state.az_anti)
 
-    def argmax2(s_m):
-        best = s_m.amax(dim=0)
-        choice = torch.where(s_m == best[None, :], row_ids, n).amin(dim=0)
-        second = torch.where(row_ids == choice[None, :], NEG_INF,
-                             s_m).amax(dim=0)
-        return choice.to(torch.int32), best, second
-
-    def core_scores_t(c, used, group_bits, resident_anti, assignment):
+    def accept(c, second_best, choice, feas, used):
         state, lp = unpack(c)
-        cap = state.cap
-        free = cap - used
-        fits = (lp.req[None, :, :] <= free[:, None, :] + _EPS).all(dim=-1)
-        aff_req = lp.affinity_bits[None, :, :]
-        affinity = ((group_bits[:, None, :] & aff_req)
-                    == aff_req).all(dim=-1)
-        anti = ((group_bits[:, None, :] & lp.anti_bits[None, :, :])
-                == 0).all(dim=-1)
-        sym = ((resident_anti[:, None, :] & lp.group_bit[None, :, :])
-               == 0).all(dim=-1)
-        bal = ((used[:, None, :] + lp.req[None, :, :])
-               / cap.clamp_min(_EPS)[:, None, :]).amax(dim=-1)
-        ok = (c["okT"] & fits & affinity & anti & sym
-              & (assignment == UNASSIGNED)[None, :])
-        return torch.where(ok, c["rawT"] - w_bal * bal, NEG_INF)
+        return _accept(second_best, choice, feas,
+                       *_choice_rows(choice, c["rawT"], used, state.cap),
+                       c["rank"], lp.req, c["gbp"], c["abp"], n, w_bal)
 
-    def overlay(c, sT, gz, az):
+    def place(c, sT, choice, winner, assignment, used, group_bits,
+              resident_anti):
+        """A pass's winners into the bit fields and the core."""
         state, lp = unpack(c)
-        spread_pen, spread_ok = score_lib.spread_terms_ungated(
-            state, lp, cfg, gz, static_ok=c["okT"].T)
-        zone_ok = score_lib.zone_affinity_ungated(state, lp, gz, az)
-        ov = torch.where((spread_ok & zone_ok).T, sT - spread_pen.T,
-                         NEG_INF)
-        return torch.where(c["zwork"], ov, sT)
-
-    def accept(c, second_best, choice_x, feas_x, used):
-        state, lp = unpack(c)
-        rank, cap = c["rank"], state.cap
-        key = torch.where(feas_x, choice_x * p + rank, n * p + rank)
-        perm = torch.argsort(key)
-        group_id = key[perm] // p
-        first = _segment_starts(group_id)
-        req_sorted = lp.req[perm]
-        csum = _assoc_cumsum0(req_sorted)
-        base = torch.where(first[:, None], csum - req_sorted, -float("inf"))
-        seg_csum = csum - _cummax0(base)
-        node_sorted = group_id.clamp(0, n - 1).long()
-        fits_cum = (seg_csum <= (cap - used)[node_sorted] + _EPS).all(dim=-1)
-        bal_after = ((used[node_sorted] + seg_csum)
-                     / cap.clamp_min(_EPS)[node_sorted]).amax(dim=-1)
-        raw_sel = c["rawT"].gather(
-            0, choice_x.clamp(0, n - 1).long()[None, :])[0]
-        adj_sorted = raw_sel[perm] - w_bal * bal_after
-        stays_best = adj_sorted >= second_best[perm] - 1e-6
-        seg2 = (group_id * 2)[:, None]
-        gbp, abp = c["gbp"][perm], c["abp"][perm]
-        incl_gb = _cummax0(seg2 + gbp) - seg2
-        incl_ab = _cummax0(seg2 + abp) - seg2
-        zero_row = torch.zeros_like(gbp[:1])
-        excl_gb = torch.where(first[:, None], 0,
-                              torch.cat([zero_row, incl_gb[:-1]])) >= 1
-        excl_ab = torch.where(first[:, None], 0,
-                              torch.cat([zero_row, incl_ab[:-1]])) >= 1
-        pair_ok = (~(excl_ab & (gbp >= 1)).any(dim=1)
-                   & ~(excl_gb & (abp >= 1)).any(dim=1))
-        good = fits_cum & pair_ok & stays_best
-        seg_start = _cummax0(torch.where(first, idx, -1))
-        last_bad = _cummax0(torch.where(~good, idx, -1))
-        prefix_ok = last_bad < seg_start
-        return torch.zeros((p,), dtype=torch.bool, device=dev).scatter(
-            0, perm, (first | prefix_ok) & (group_id < n))
-
-    def seg_or_updates(c, choice_x, winner_x, group_bits, resident_anti):
-        key = torch.where(winner_x, choice_x * p + c["rank"],
-                          n * p + c["rank"])
-        perm = torch.argsort(key)
-        group_id = key[perm] // p
-        first = _segment_starts(group_id)
-        node_sorted = group_id.clamp(0, n - 1)
-        seg2 = (group_id * 2)[:, None]
-        win_sorted = winner_x[perm].to(torch.int32)[:, None]
-        or_gb = (_cummax0(seg2 + c["gbp"][perm] * win_sorted) - seg2) >= 1
-        or_ab = (_cummax0(seg2 + c["abp"][perm] * win_sorted) - seg2) >= 1
-        last_of_seg = torch.cat([first[1:], torch.ones(
-            (1,), dtype=torch.bool, device=dev)])
-        seg_cols = torch.where(last_of_seg & (group_id < n), node_sorted, n)
-        safe = seg_cols.clamp(0, n - 1).long()
-        new_group = _set_rows_f(group_bits, seg_cols,
-                                group_bits[safe] | planes_to_words(or_gb))
-        new_anti = _set_rows_f(resident_anti, seg_cols,
-                               resident_anti[safe] | planes_to_words(or_ab))
-        return new_group, new_anti
-
-    def row_patch(c, sT, wnodes, used_x, group_x, anti_x, assignment_x):
-        state, lp = unpack(c)
-        cc = wnodes.clamp(0, n - 1).long()
-        sub_used = used_x[cc]
-        sub_cap = state.cap[cc]
-        fits2 = (lp.req[None, :, :] <= (sub_cap - sub_used)[:, None, :]
-                 + _EPS).all(dim=-1)
-        gb = group_x[cc]
-        ra = anti_x[cc]
-        aff_req2 = lp.affinity_bits[None, :, :]
-        affinity2 = ((gb[:, None, :] & aff_req2) == aff_req2).all(dim=-1)
-        aok = ((gb[:, None, :] & lp.anti_bits[None, :, :])
-               == 0).all(dim=-1)
-        sym2 = ((ra[:, None, :] & lp.group_bit[None, :, :])
-                == 0).all(dim=-1)
-        bal = ((sub_used[:, None, :] + lp.req[None, :, :])
-               / sub_cap.clamp_min(_EPS)[:, None, :]).amax(dim=-1)
-        ok = (c["okT"][cc] & fits2 & affinity2 & aok & sym2
-              & (assignment_x == UNASSIGNED)[None, :]
-              & (wnodes < n)[:, None])
-        sub = torch.where(ok, c["rawT"][cc] - w_bal * bal, NEG_INF)
-        return _set_rows_f(sT, wnodes, sub), sub
+        group, anti = _seg_or_updates(choice, winner, group_bits,
+                                      resident_anti, c["rank"], c["gbp"],
+                                      c["abp"], n, 0, n)
+        wnodes = torch.where(winner, choice, n)
+        return (group, anti, wnodes) + _row_patch(
+            sT, wnodes, used, group, anti, assignment == UNASSIGNED,
+            c["rawT"], c["okT"], state.cap, lp, w_bal, 0, n)
 
     def init(c):
         state, lp = unpack(c)
         assignment = torch.full_like(lp.group_idx, UNASSIGNED)
-        sT = core_scores_t(c, state.used, state.group_bits,
-                           state.resident_anti, assignment)
+        sT = _core_rows(c["rawT"], c["okT"], state.used, state.cap,
+                        state.group_bits, state.resident_anti,
+                        assignment == UNASSIGNED, lp, w_bal)
         return ((sT, state.used, state.group_bits, state.resident_anti,
                  state.gz_counts, state.az_anti, assignment),
                 (sT > NEG_HALF).any())
@@ -872,44 +787,29 @@ def assign_parallel_lanes(states: ClusterState, pods: PodBatch,
         """Argmax, accept, and the round's spread and zone-anti caps."""
         state, lp = unpack(c)
         sT, used, _, _, gz, az, assignment = carry
-        s_ov = overlay(c, sT, gz, az) if zone_any else sT
+        if zone_any:
+            sT = torch.where(c["zwork"], _overlay(sT, gz, az, state, lp, cfg,
+                                                  c["okT"].T), sT)
         alive = (assignment == UNASSIGNED) & lp.pod_valid
-        s_m = torch.where(alive[None, :], s_ov, NEG_INF)
-        choice, val, second_best = argmax2(s_m)
+        choice, val, second_best = _argmax2(
+            torch.where(alive[None, :], sT, NEG_INF), row_ids, n)
         feasible = val > NEG_HALF
-        winner = accept(c, second_best, choice, feasible, used)
-        rank = c["rank"]
-        zone_of = state.node_zone[choice.clamp(0, n - 1).long()]
-        s_active = (winner & score_lib.spread_active(lp) & (zone_of >= 0))
-        zdim = state.gz_counts.shape[1]
-        gzmax = state.gz_counts.shape[0] * zdim
-        gz_id = torch.where(s_active, lp.group_idx * zdim + zone_of,
-                            gzmax + rank)
-        key2 = gz_id * p + rank
-        perm2 = torch.argsort(key2)
-        first2 = _segment_starts(key2[perm2] // p)
-        keep = torch.zeros((p,), dtype=torch.bool, device=dev).scatter(
-            0, perm2, first2)
-        winner = winner & keep
-        zsame = (winner[:, None] & winner[None, :]
-                 & (zone_of[:, None] == zone_of[None, :])
-                 & (zone_of >= 0)[:, None])
-        winner = winner & ~(zsame & c["zpc"]).any(dim=0)
+        winner = _round_caps(accept(c, second_best, choice, feasible, used),
+                             choice, c["rank"], lp, state.node_zone, gz,
+                             c["zpc"])
         return choice, feasible, winner, alive
 
     def round_b(c, carry, choice, feasible, winner, alive, used_a):
         """Pass A's updates and the second-chance proposal."""
         sT, used, group_bits, resident_anti, _, _, assignment = carry
         assignment_a = torch.where(winner, choice, assignment)
-        group_a, anti_a = seg_or_updates(c, choice, winner, group_bits,
-                                         resident_anti)
-        wnodes_a = torch.where(winner, choice, n)
-        s_patched, sub_a = row_patch(c, sT, wnodes_a, used_a, group_a,
-                                     anti_a, assignment_a)
+        group_a, anti_a, wnodes_a, s_patched, sub_a = place(
+            c, sT, choice, winner, assignment_a, used_a, group_bits,
+            resident_anti)
         va_new = sub_a.amax(dim=0)
         s_b = _set_rows_f(sT, wnodes_a, torch.full_like(sub_a, NEG_INF))
-        s_bm = torch.where((alive & ~winner)[None, :], s_b, NEG_INF)
-        choice_b, val_b, sb2 = argmax2(s_bm)
+        choice_b, val_b, sb2 = _argmax2(
+            torch.where((alive & ~winner)[None, :], s_b, NEG_INF), row_ids, n)
         feas_b = (val_b > NEG_HALF) & (val_b >= va_new - 1e-6)
         take_b = ~c["zwork"] & (~winner & feasible).any()
         winner_b = accept(c, torch.maximum(sb2, va_new), choice_b, feas_b,
@@ -927,11 +827,9 @@ def assign_parallel_lanes(states: ClusterState, pods: PodBatch,
         winner_mb = winner | winner_b
         choice_mb = torch.where(winner_b, choice_b, choice)
         assignment_b = torch.where(winner_mb, choice_mb, assignment)
-        group_b, anti_b = seg_or_updates(c, choice_b, winner_b, group_a,
-                                         anti_a)
-        wnodes_b = torch.where(winner_b, choice_b, n)
-        sT_b, _ = row_patch(c, s_patched, wnodes_b, used_b, group_b,
-                            anti_b, assignment_b)
+        group_b, anti_b, _, sT_b, _ = place(c, s_patched, choice_b, winner_b,
+                                            assignment_b, used_b, group_a,
+                                            anti_a)
 
         def pick(on_b, on_a):
             return torch.where(take_b, on_b, on_a)
@@ -942,14 +840,8 @@ def assign_parallel_lanes(states: ClusterState, pods: PodBatch,
         new_sT = pick(sT_b, s_patched)
         new_used = pick(used_b, used_a)
         new_group, new_anti = pick(group_b, group_a), pick(anti_b, anti_a)
-        new_gz = add_zone_counts(gz, state.node_zone, lp.group_bit,
-                                 choice_m, winner_m)
-        zone_of_m = state.node_zone[choice_m.clamp(0, n - 1).long()]
-        zmax = az.shape[0]
-        zhot = (winner_m & (zone_of_m >= 0))[:, None] & (
-            zone_of_m.clamp(0, zmax - 1)[:, None]
-            == torch.arange(zmax, device=dev)[None, :])
-        new_az = az | scatter_or_onehot(zhot, lp.zanti_bits)
+        new_gz, new_az = _zone_commit(gz, az, state.node_zone, lp, choice_m,
+                                      winner_m)
         alive2 = (new_assignment == UNASSIGNED) & lp.pod_valid
         cont_new = winner_m.any() & (torch.where(
             alive2[None, :], new_sT, NEG_INF) > NEG_HALF).any()
@@ -1050,10 +942,7 @@ def assign_parallel_spmd(state: ClusterState, pods: PodBatch,
       so every rank takes the same branch and joins the same
       collectives."""
     p, ps, poff, ns, n, off = _mesh_geometry(state, pods, mesh)
-    if (n + 1) * p > _INT32_MAX:
-        raise ValueError(
-            f"max_nodes*max_pods={n}*{p} overflows the int32 "
-            "winner-selection key; reduce the batch or node padding")
+    _check_key_range(n, p)
     if n >= 1 << 24:
         raise ValueError(f"{n} nodes exceed the f32-exact node index of the "
                          "argmax gather")
@@ -1063,37 +952,19 @@ def assign_parallel_spmd(state: ClusterState, pods: PodBatch,
     if node_zone is None:
         node_zone = concat_shards(mesh, state.node_zone, "tp")
     w_bal = float(np.float32(cfg.weights.balance))
-    pod_ids = torch.arange(p, dtype=torch.int32, device=dev)
     row_ids = (off + torch.arange(ns, dtype=torch.int32, device=dev))[:, None]
     lcols = torch.arange(ps, device=dev)
-    cap = state.cap
-    cap_eps = cap.clamp_min(_EPS)
-    req = pods.req
+    cap, req = state.cap, pods.req
     r_res = req.shape[1]
-
-    order = torch.argsort(-pods.priority, stable=True)
-    rank = torch.zeros((p,), dtype=torch.int32, device=dev)
-    rank[order] = pod_ids
-    mask_b = 32 * pods.group_bit.shape[1]
-    gb_planes = bit_planes(pods.group_bit, torch.int32)
-    ab_planes = bit_planes(pods.anti_bits, torch.int32)
-    zpair_conflict = (
-        (((pods.zanti_bits[:, None, :] & pods.group_bit[None, :, :]) != 0)
-         .any(dim=-1)
-         | ((pods.group_bit[:, None, :] & pods.zanti_bits[None, :, :]) != 0)
-         .any(dim=-1))
-        & (rank[:, None] < rank[None, :]))
+    consts = _round_consts(pods, state.az_anti)
+    rank, gbp, abp = consts["rank"], consts["gbp"], consts["abp"]
 
     def argmax2(s_m, used, extra=None):
         """Whole-batch ``(choice i32[P], best, second, raw at choice,
         used[choice] [P, R], cap[choice] [P, R])`` of the tiles ``s_m``
         over every rank, plus the tp max of ``extra`` (a per-local-pod
         f32 row) when given."""
-        best_l = s_m.amax(dim=0)
-        choice_l = torch.where(s_m == best_l[None, :], row_ids,
-                               n).amin(dim=0)
-        second_l = torch.where(row_ids == choice_l[None, :], NEG_INF,
-                               s_m).amax(dim=0)
+        choice_l, best_l, second_l = _argmax2(s_m, row_ids, n)
         cl = (choice_l - off).clamp(0, ns - 1).long()
         cols = [best_l, choice_l.to(torch.float32), second_l,
                 rawT[cl, lcols]]
@@ -1120,170 +991,53 @@ def assign_parallel_spmd(state: ClusterState, pods: PodBatch,
                out[:, j:j + r_res], out[:, j + r_res:j + 2 * r_res])
         return res + ((out[:, 4],) if extra is not None else ())
 
-    def core_scores_t(used, group_bits, resident_anti, assignment_l):
-        free = cap - used
-        fits = (lp.req[None, :, :] <= free[:, None, :] + _EPS).all(dim=-1)
-        aff_req = lp.affinity_bits[None, :, :]
-        affinity = ((group_bits[:, None, :] & aff_req)
-                    == aff_req).all(dim=-1)
-        anti = ((group_bits[:, None, :] & lp.anti_bits[None, :, :])
-                == 0).all(dim=-1)
-        sym = ((resident_anti[:, None, :] & lp.group_bit[None, :, :])
-               == 0).all(dim=-1)
-        bal = ((used[:, None, :] + lp.req[None, :, :])
-               / cap_eps[:, None, :]).amax(dim=-1)
-        ok = (static_okT & fits & affinity & anti & sym
-              & (assignment_l == UNASSIGNED)[None, :])
-        return torch.where(ok, rawT - w_bal * bal, NEG_INF)
-
-    zone_work = mesh.flag(
-        score_lib.spread_active(pods).any()
-        | (pods.zaff_bits != 0).any() | (pods.zanti_bits != 0).any()
-        | (state.az_anti != 0).any(), "zone_work")
-    static_ok_pn = static_okT.T if zone_work else None
+    zone_work = mesh.flag(consts["zwork"], "zone_work")
+    ok_pn = static_okT.T if zone_work else None
 
     def node_min(x):
         return mesh.reduce(x, "min", "tp")
 
-    def overlay(sT, gz, az):
-        if not zone_work:
-            return sT
-        spread_pen, spread_ok = score_lib.spread_terms_ungated(
-            state, lp, cfg, gz, static_ok=static_ok_pn, node_min=node_min)
-        zone_ok = score_lib.zone_affinity_ungated(state, lp, gz, az)
-        return torch.where((spread_ok & zone_ok).T, sT - spread_pen.T,
-                           NEG_INF)
-
-    idx = torch.arange(p, dtype=torch.int32, device=dev)
-    zero_row = torch.zeros((1, mask_b), dtype=torch.int32, device=dev)
-
-    def accept(second_best, choice_x, feas_x, raw_sel, used_c, cap_c):
-        """:func:`assign_parallel`'s ``accept`` over the whole proposal
-        set, each contender's node read through ``used_c``/``cap_c``
-        (its chosen node's rows) instead of a node-axis gather."""
-        key = torch.where(feas_x, choice_x * p + rank, n * p + rank)
-        perm = torch.argsort(key)
-        group_id = key[perm] // p
-        first = _segment_starts(group_id)
-        req_sorted = req[perm]
-        csum = _assoc_cumsum0(req_sorted)
-        base = torch.where(first[:, None], csum - req_sorted, -float("inf"))
-        seg_csum = csum - _cummax0(base)
-        fits_cum = (seg_csum <= (cap_c - used_c)[perm] + _EPS).all(dim=-1)
-        bal_after = ((used_c[perm] + seg_csum)
-                     / cap_c.clamp_min(_EPS)[perm]).amax(dim=-1)
-        adj_sorted = raw_sel[perm] - w_bal * bal_after
-        stays_best = adj_sorted >= second_best[perm] - 1e-6
-        seg2 = (group_id * 2)[:, None]
-        gbp, abp = gb_planes[perm], ab_planes[perm]
-        incl_gb = _cummax0(seg2 + gbp) - seg2
-        incl_ab = _cummax0(seg2 + abp) - seg2
-        excl_gb = torch.where(first[:, None], 0,
-                              torch.cat([zero_row, incl_gb[:-1]])) >= 1
-        excl_ab = torch.where(first[:, None], 0,
-                              torch.cat([zero_row, incl_ab[:-1]])) >= 1
-        pair_ok = (~(excl_ab & (gbp >= 1)).any(dim=1)
-                   & ~(excl_gb & (abp >= 1)).any(dim=1))
-        good = fits_cum & pair_ok & stays_best
-        seg_start = _cummax0(torch.where(first, idx, -1))
-        last_bad = _cummax0(torch.where(~good, idx, -1))
-        prefix_ok = last_bad < seg_start
-        out = torch.zeros((p,), dtype=torch.bool, device=dev)
-        out[perm] = (first | prefix_ok) & (group_id < n)
-        return out
-
-    def seg_or_updates(choice_x, winner_x, group_bits, resident_anti):
-        key = torch.where(winner_x, choice_x * p + rank, n * p + rank)
-        perm = torch.argsort(key)
-        group_id = key[perm] // p
-        first = _segment_starts(group_id)
-        node_sorted = group_id.clamp(0, n - 1)
-        seg2 = (group_id * 2)[:, None]
-        win_sorted = winner_x[perm].to(torch.int32)[:, None]
-        or_gb = (_cummax0(seg2 + gb_planes[perm] * win_sorted) - seg2) >= 1
-        or_ab = (_cummax0(seg2 + ab_planes[perm] * win_sorted) - seg2) >= 1
-        last_of_seg = torch.cat([first[1:], torch.ones(
-            (1,), dtype=torch.bool, device=dev)])
-        seg_cols = local_rows(torch.where(last_of_seg & (group_id < n),
-                                          node_sorted, n), off, ns)
-        safe = seg_cols.clamp(0, ns - 1).long()
-        new_group = _set_rows(group_bits, seg_cols,
-                              group_bits[safe] | planes_to_words(or_gb))
-        new_anti = _set_rows(resident_anti, seg_cols,
-                             resident_anti[safe] | planes_to_words(or_ab))
-        return new_group, new_anti
-
-    def row_patch(sT, wnodes, used_x, group_x, anti_x, assignment_l):
-        """The shard's rows among ``wnodes`` (global, ``n`` = none)
-        recomputed and patched; the patch rows of other shards' nodes
-        come back NEG_INF."""
-        wl = local_rows(wnodes, off, ns)
-        inside = wl < ns
-        cc = wl.clamp(0, ns - 1).long()
-        sub_used = used_x[cc]
-        sub_cap = cap[cc]
-        fits2 = (lp.req[None, :, :] <= (sub_cap - sub_used)[:, None, :]
-                 + _EPS).all(dim=-1)
-        gb = group_x[cc]
-        ra = anti_x[cc]
-        aff_req2 = lp.affinity_bits[None, :, :]
-        affinity2 = ((gb[:, None, :] & aff_req2) == aff_req2).all(dim=-1)
-        aok = ((gb[:, None, :] & lp.anti_bits[None, :, :])
-               == 0).all(dim=-1)
-        sym2 = ((ra[:, None, :] & lp.group_bit[None, :, :])
-                == 0).all(dim=-1)
-        bal = ((sub_used[:, None, :] + lp.req[None, :, :])
-               / sub_cap.clamp_min(_EPS)[:, None, :]).amax(dim=-1)
-        ok = (static_okT[cc] & fits2 & affinity2 & aok & sym2
-              & (assignment_l == UNASSIGNED)[None, :]
-              & inside[:, None])
-        sub = torch.where(ok, rawT[cc] - w_bal * bal, NEG_INF)
-        return _set_rows(sT, wl, sub), sub
+    def accept(second_best, choice, feas, raw_sel, used_c, cap_c):
+        return _accept(second_best, choice, feas, raw_sel, used_c, cap_c,
+                       rank, req, gbp, abp, n, w_bal)
 
     def local(x):
         return x[poff:poff + ps]
 
+    def place(sT, choice, winner, assignment, used, group_bits,
+              resident_anti):
+        """A pass's winners into the shard's bit fields and core rows."""
+        group, anti = _seg_or_updates(choice, winner, group_bits,
+                                      resident_anti, rank, gbp, abp, n, off,
+                                      ns)
+        wnodes = torch.where(winner, choice, n)
+        return (group, anti, wnodes) + _row_patch(
+            sT, wnodes, used, group, anti, local(assignment) == UNASSIGNED,
+            rawT, static_okT, cap, lp, w_bal, off, ns)
+
     def body(sT, used, group_bits, resident_anti, gz, az, assignment):
-        s_ov = overlay(sT, gz, az)
+        s_ov = (_overlay(sT, gz, az, state, lp, cfg, ok_pn, node_min)
+                if zone_work else sT)
         alive = (assignment == UNASSIGNED) & pods.pod_valid
         s_m = torch.where(local(alive)[None, :], s_ov, NEG_INF)
         choice, val, second_best, raw_sel, used_c, cap_c = argmax2(s_m,
                                                                    used)
         feasible = val > NEG_HALF
-        winner = accept(second_best, choice, feasible, raw_sel, used_c,
-                        cap_c)
-
-        choice_l = choice.clamp(0, n - 1).long()
-        zone_of = node_zone[choice_l]
-        s_active = (winner & score_lib.spread_active(pods)
-                    & (zone_of >= 0))
-        zdim = state.gz_counts.shape[1]
-        gzmax = state.gz_counts.shape[0] * zdim
-        gz_id = torch.where(s_active, pods.group_idx * zdim + zone_of,
-                            gzmax + rank)
-        key2 = gz_id * p + rank
-        perm2 = torch.argsort(key2)
-        first2 = _segment_starts(key2[perm2] // p)
-        keep = torch.zeros((p,), dtype=torch.bool, device=dev)
-        keep[perm2] = first2
-        winner = winner & keep
-        zsame = (winner[:, None] & winner[None, :]
-                 & (zone_of[:, None] == zone_of[None, :])
-                 & (zone_of >= 0)[:, None])
-        winner = winner & ~(zsame & zpair_conflict).any(dim=0)
+        winner = _round_caps(accept(second_best, choice, feasible, raw_sel,
+                                    used_c, cap_c),
+                             choice, rank, pods, node_zone, gz,
+                             consts["zpc"])
 
         assignment_a = torch.where(winner, choice, assignment)
         used_a = scatter_add_rows_shard(used, choice, req, winner, off, n)
-        group_a, anti_a = seg_or_updates(choice, winner, group_bits,
-                                         resident_anti)
-        wnodes_a = torch.where(winner, choice, n)
-        s_patched, sub_a = row_patch(sT, wnodes_a, used_a, group_a, anti_a,
-                                     local(assignment_a))
+        group_a, anti_a, wnodes_a, s_patched, sub_a = place(
+            sT, choice, winner, assignment_a, used_a, group_bits,
+            resident_anti)
 
         if not zone_work and mesh.flag((~winner & feasible).any(),
                                        "second_chance"):
-            s_b = _set_rows(sT, local_rows(wnodes_a, off, ns),
-                            torch.full_like(sub_a, NEG_INF))
+            s_b = _set_rows_f(sT, local_rows(wnodes_a, off, ns),
+                              torch.full_like(sub_a, NEG_INF))
             alive_b = alive & ~winner
             s_bm = torch.where(local(alive_b)[None, :], s_b, NEG_INF)
             (choice_b, val_b, sb2, raw_b, used_cb, cap_cb,
@@ -1296,33 +1050,25 @@ def assign_parallel_spmd(state: ClusterState, pods: PodBatch,
             new_assignment = torch.where(winner_m, choice_m, assignment)
             new_used = scatter_add_rows_shard(used_a, choice_b, req,
                                               winner_b, off, n)
-            new_group, new_anti = seg_or_updates(choice_b, winner_b,
-                                                 group_a, anti_a)
-            wnodes_b = torch.where(winner_b, choice_b, n)
-            new_sT, _ = row_patch(s_patched, wnodes_b, new_used, new_group,
-                                  new_anti, local(new_assignment))
+            new_group, new_anti, _, new_sT, _ = place(
+                s_patched, choice_b, winner_b, new_assignment, new_used,
+                group_a, anti_a)
         else:
             winner_m, choice_m, new_assignment = winner, choice, assignment_a
             new_used, new_group, new_anti = used_a, group_a, anti_a
             new_sT = s_patched
-        progress = winner_m.any()
-        new_gz = add_zone_counts(gz, node_zone, pods.group_bit, choice_m,
-                                 winner_m)
-        zone_of_m = node_zone[choice_m.clamp(0, n - 1).long()]
-        zmax = az.shape[0]
-        zhot = (winner_m & (zone_of_m >= 0))[:, None] & (
-            zone_of_m.clamp(0, zmax - 1)[:, None]
-            == torch.arange(zmax, device=dev)[None, :])
-        new_az = az | scatter_or_onehot(zhot, pods.zanti_bits)
+        new_gz, new_az = _zone_commit(gz, az, node_zone, pods, choice_m,
+                                      winner_m)
         alive2 = (new_assignment == UNASSIGNED) & pods.pod_valid
-        cont = progress & (torch.where(local(alive2)[None, :], new_sT,
-                                       NEG_INF) > NEG_HALF).any()
+        cont = winner_m.any() & (torch.where(local(alive2)[None, :], new_sT,
+                                             NEG_INF) > NEG_HALF).any()
         return (new_sT, new_used, new_group, new_anti, new_gz, new_az,
                 new_assignment, cont)
 
     assignment = torch.full((p,), UNASSIGNED, dtype=torch.int32, device=dev)
-    carry = (core_scores_t(state.used, state.group_bits,
-                           state.resident_anti, local(assignment)),
+    carry = (_core_rows(rawT, static_okT, state.used, cap, state.group_bits,
+                        state.resident_anti, local(assignment) == UNASSIGNED,
+                        lp, w_bal),
              state.used, state.group_bits, state.resident_anti,
              state.gz_counts, state.az_anti, assignment)
     cont = (carry[0] > NEG_HALF).any()

@@ -285,6 +285,16 @@ def _sharding_rank(rank: int, world: int, data: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _zone_work(state: dict, pods: dict) -> bool:
+    """The conflict loop's zone-work gate on numpy fields: a live
+    topology-spread constraint, a zone (anti-)affinity term, or a
+    resident zone-anti bit."""
+    spread = ((pods["spread_maxskew"] > 0) & (pods["group_idx"] >= 0)
+              & pods["pod_valid"])
+    return bool(spread.any() or pods["zaff_bits"].any()
+                or pods["zanti_bits"].any() or state["az_anti"].any())
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     import jax.numpy as jnp
@@ -316,6 +326,12 @@ def runs(tmp_path_factory):
     s1, p1 = gen.to_pytrees(cfg, *insts[1])
     want["greedy"] = np.asarray(jassign.assign_greedy(s1, p1, cfg))
     s_np = stream_np(CFG_KW, np.random.default_rng(7), 64, 64)
+    # The stream's pods carry no group bits, so the replay state's
+    # resident zone-anti bits could mask nothing; cleared, the replay
+    # runs the mesh loop without zone work (second-chance pass on) while
+    # the parallel instance runs it with zone work (overlay and caps on).
+    insts[2][0]["az_anti"][:] = 0
+    assert _zone_work(*insts[0]) and not _zone_work(insts[2][0], s_np)
     s2, _ = gen.to_pytrees(cfg, *insts[2])
     a2, fin = replay_stream(s2, PodStream(**{
         k: jnp.asarray(v) for k, v in s_np.items()}), cfg, "parallel")
